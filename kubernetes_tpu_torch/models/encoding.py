@@ -1,0 +1,1158 @@
+"""Dense array encoding of cluster state for the scheduling kernel.
+
+Port of kubernetes_tpu/models/encoding.py. The host half (object state,
+vocabularies, the numpy matrices and their incremental updates) is a
+copy. The device half holds torch tensors: device_state(device) uploads
+the matrices once and then rewrites only dirty rows in place, one
+index_copy_ per row array; scratch_state(device) is a fresh upload that
+shares nothing with that cache; cluster_from_numpy turns any numpy
+cluster dict (host_snapshot() of either package) into the same tensors.
+
+The reference scheduler walks Go object graphs per node inside its hot loop
+(reference: pkg/scheduler/framework/runtime/framework.go:723 RunScorePlugins,
+pkg/scheduler/core/generic_scheduler.go:235 findNodesThatPassFilters). The
+TPU build instead maintains the whole cluster as dense matrices over
+interned vocabularies, so one XLA dispatch evaluates every plugin for every
+node at once (ops/kernel.py). This module is the host side of that design:
+
+  ClusterEncoding  cluster state -> matrices, with incremental updates for
+                   the per-cycle events (assume/forget pod); the device dict
+                   is refreshed by uploading only dirty rows (SURVEY.md
+                   section 7 hard part (a): incremental array maintenance).
+  PodEncoder       one pending pod -> small fixed-shape arrays (requirement
+                   tables, tolerated-taint bitmaps, resource vectors),
+                   cached by spec fingerprint because benchmark workloads
+                   schedule thousands of identical pods.
+
+Integer exactness: resources are int64 milli-units/bytes matching
+framework.Resource (reference: pkg/scheduler/framework/types.go:318);
+scores stay int64 in [0,100] (interface.go:95). Every tensor keeps its
+numpy dtype (int64 stays int64).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+from typing import Dict, List, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from ..api import types as v1
+from ..api.labels import Selector
+from ..api.quantity import Quantity
+from ..api.taints import (
+    TAINT_EFFECT_NO_EXECUTE,
+    TAINT_EFFECT_NO_SCHEDULE,
+    TAINT_EFFECT_PREFER_NO_SCHEDULE,
+    toleration_tolerates_taint,
+    tolerations_tolerate_taint,
+)
+from ..scheduler.framework.types import (
+    PodInfo,
+    calculate_resource,
+)
+from ..scheduler.plugins.nodebasic import (
+    PREFER_AVOID_PODS_ANNOTATION,
+    normalized_image_name,
+)
+from ..scheduler.plugins.noderesources import calculate_pod_resource_request
+from ..utils import serde
+from .selectors import (
+    FIELD_NAME_KEY,
+    ReqTable,
+    TermList,
+    compile_node_selector_terms,
+    compile_pod_node_constraints,
+    compile_selector,
+)
+from ..device import resolve_device
+from .vocab import Interner, bucket_capacity, node_headroom
+
+# Taint effect codes (device-side)
+EFFECT_NONE = 0
+EFFECT_NO_SCHEDULE = 1
+EFFECT_PREFER_NO_SCHEDULE = 2
+EFFECT_NO_EXECUTE = 3
+_EFFECT_CODE = {
+    TAINT_EFFECT_NO_SCHEDULE: EFFECT_NO_SCHEDULE,
+    TAINT_EFFECT_PREFER_NO_SCHEDULE: EFFECT_PREFER_NO_SCHEDULE,
+    TAINT_EFFECT_NO_EXECUTE: EFFECT_NO_EXECUTE,
+}
+
+# Existing-pod score-term kinds (InterPodAffinity PreScore,
+# reference: pkg/scheduler/framework/plugins/interpodaffinity/scoring.go:88
+# processExistingPod)
+ST_REQUIRED_AFFINITY = 0  # weight = hardPodAffinityWeight at kernel time
+ST_PREFERRED_AFFINITY = 1  # +weight
+ST_PREFERRED_ANTI = 2  # -weight
+
+_WILDCARD_IPS = ("", "0.0.0.0")
+
+
+def _upload(a, device: torch.device) -> torch.Tensor:
+    """Copy of one numpy array as a tensor on `device`, same dtype (never
+    a view of the host buffer, which mutates in place)."""
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def cluster_from_numpy(host: Dict, device=None) -> Dict[str, torch.Tensor]:
+    """Numpy cluster dict -> dict of tensors on `device`, key for key and
+    dtype for dtype. This is how a cluster encoded by the reference
+    package (its ClusterEncoding.host_snapshot()) is carried into the
+    port unchanged, so both packages can run on the identical encoding."""
+    dev = resolve_device(device)
+    return {k: _upload(a, dev) for k, a in host.items()}
+
+
+def _is_wildcard(ip: str) -> bool:
+    return ip in _WILDCARD_IPS
+
+
+class _TermRows:
+    """Growable stacked term-table arrays (per existing-pod affinity terms)."""
+
+    def __init__(self, cap: int, n_reqs: int, n_vals: int, n_ns: int, scored: bool):
+        self.scored = scored
+        self.n_reqs = n_reqs
+        self.n_vals = n_vals
+        self.n_ns = n_ns
+        self.cap = cap
+        self.valid = np.zeros(cap, bool)
+        self.src = np.zeros(cap, np.int32)
+        self.key = np.zeros(cap, np.int32)
+        self.ns = np.zeros((cap, n_ns), np.int32)
+        self.op = np.zeros((cap, n_reqs), np.int8)
+        self.rkey = np.zeros((cap, n_reqs), np.int32)
+        self.pairs = np.zeros((cap, n_reqs, n_vals), np.int32)
+        if scored:
+            self.kind = np.zeros(cap, np.int8)
+            self.weight = np.zeros(cap, np.int32)
+        self.free: List[int] = list(range(cap - 1, -1, -1))
+        self.by_pod: Dict[int, List[int]] = {}
+
+    def needs_grow(self, table: ReqTable, n_ns: int) -> bool:
+        return (
+            not self.free
+            or table.n_reqs > self.n_reqs
+            or table.n_vals > self.n_vals
+            or n_ns > self.n_ns
+        )
+
+    def add(self, pod_idx: int, table: ReqTable, ns_ids: List[int], key_id: int,
+            kind: int = 0, weight: int = 0) -> int:
+        i = self.free.pop()
+        t = table.padded(self.n_reqs, self.n_vals)
+        self.valid[i] = True
+        self.src[i] = pod_idx
+        self.key[i] = key_id
+        self.ns[i] = 0
+        self.ns[i, : len(ns_ids)] = ns_ids
+        self.op[i] = t.op
+        self.rkey[i] = t.key
+        self.pairs[i] = t.pairs
+        if self.scored:
+            self.kind[i] = kind
+            self.weight[i] = weight
+        self.by_pod.setdefault(pod_idx, []).append(i)
+        return i
+
+    def remove_pod(self, pod_idx: int) -> List[int]:
+        rows = self.by_pod.pop(pod_idx, [])
+        for i in rows:
+            self.valid[i] = False
+            self.free.append(i)
+        return rows
+
+
+class ClusterEncoding:
+    """Dense, incrementally-maintained cluster state.
+
+    Mirrors the information content of the scheduler cache snapshot
+    (reference: pkg/scheduler/internal/cache/snapshot.go:29) as matrices.
+    """
+
+    def __init__(self, hard_pod_affinity_weight: int = 1):
+        self.hard_pod_affinity_weight = hard_pod_affinity_weight
+        # authoritative object state (for rebuilds)
+        self._nodes: Dict[str, v1.Node] = {}
+        self._node_order: List[str] = []
+        self._pods: Dict[str, Tuple[v1.Pod, str]] = {}  # key -> (pod, node name)
+        # vocabularies (shared; ids are permanent)
+        self.ns_vocab = Interner()
+        self.node_key_vocab = Interner()
+        self.node_pair_vocab = Interner()
+        self.pod_key_vocab = Interner()
+        self.pod_pair_vocab = Interner()
+        self.taint_vocab = Interner()  # (key, value, effect)
+        self.port_pair_vocab = Interner()  # (protocol, port)
+        self.port_triple_vocab = Interner()  # (ip, protocol, port)
+        self.scalar_vocab = Interner()  # scalar/extended resource names
+        self.image_vocab = Interner()
+        self.avoid_vocab = Interner()  # (controller kind, uid)
+        self._rebuild_needed = True
+        self._arrays: Dict[str, np.ndarray] = {}
+        self._device: Optional[dict] = None
+        self._device_of: Optional[torch.device] = None
+        self._dirty_nodes: Set[int] = set()
+        self._dirty_pods: Set[int] = set()
+        self._dirty_terms: bool = False
+        self.node_index: Dict[str, int] = {}
+        # lane -> name; None marks a tombstone lane (incrementally
+        # removed node awaiting reuse). len(node_names) is the lane
+        # high-water mark (n_lanes), NOT the live node count (n_nodes).
+        self.node_names: List[Optional[str]] = []
+        self.pod_index: Dict[str, int] = {}
+        self._pod_free: List[int] = []
+        # tombstone lanes available for incremental node adds
+        self._node_free: List[int] = []
+        # node names referenced by pods that have NO encoded row (their
+        # node was deleted; rebuild skipped them). Re-adding such a name
+        # incrementally would miss re-encoding those pods — structural.
+        self._ghost_nodes: Set[str] = set()
+        # device-side n_nodes / img_nodes pending sync (incremental node
+        # adds/removes; the dirty-row scatter doesn't cover them)
+        self._dirty_meta: bool = False
+        self._anti_terms: Optional[_TermRows] = None
+        self._score_terms: Optional[_TermRows] = None
+        # capacity floors (reserve()): rebuilds size rows to at least these
+        self._pod_reserve = 0
+        self._anti_reserve = 0
+        self._score_reserve = 0
+        self._node_reserve = 0
+        # node-lane capacity quantum: the mesh backend sets this to the
+        # shard count so padded capacity divides the mesh evenly and the
+        # session's lane space aligns with the encoding's
+        self.node_quantum = 1
+        # volume hook (scheduler/volume_device.py VolumeDeviceResolver):
+        # contributes attach-limit scalars to pod requests and node
+        # allocatable, and tracks PVC reference counts. None = volumes
+        # invisible to the encoding (oracle handles PVC pods entirely).
+        self.volume_hook = None
+        # extras actually APPLIED per pod at add time — removal must
+        # subtract the same vector even if the resolver's view of the
+        # PVC/PV world changed in between
+        self._pod_extras: Dict[str, Dict[str, int]] = {}
+        # monotonic mutation counter: bumps on every object-level change.
+        # Consumers that cache derived read-only views (the preemption
+        # what-if context keys its scratch snapshot off this) compare it
+        # instead of re-deriving per use.
+        self.version = 0
+
+    def reserve(self, pods: int = 0, anti_terms: int = 0,
+                score_terms: int = 0, nodes: int = 0) -> None:
+        """Pre-size row capacities for a workload of known scale.
+
+        Without a reserve, a workload that grows from 1k to 20k pods walks
+        the 1.5x capacity ladder (vocab.bucket_capacity) — each step is a
+        full rebuild AND, because array shapes change, a fresh XLA compile
+        of every kernel shape in flight. One reserve call up front
+        collapses that to a single rebuild. The floors are sticky
+        (max-accumulating) and apply to the pod table and the
+        anti/score affinity term tables."""
+        self._pod_reserve = max(self._pod_reserve, pods)
+        self._anti_reserve = max(self._anti_reserve, anti_terms)
+        self._score_reserve = max(self._score_reserve, score_terms)
+        self._node_reserve = max(self._node_reserve, nodes)
+        A = self._arrays
+        if (
+            not A
+            or self._pod_reserve > A["pvalid"].shape[0]
+            or self._node_reserve > A["valid"].shape[0]
+            or (self._anti_terms is not None
+                and self._anti_reserve > self._anti_terms.valid.shape[0])
+            or (self._score_terms is not None
+                and self._score_reserve > self._score_terms.valid.shape[0])
+        ):
+            self._rebuild_needed = True
+
+    # -- object-level API ---------------------------------------------------
+
+    def set_cluster(self, nodes: List[v1.Node], pods: List[v1.Pod]) -> None:
+        """Full state load (snapshot ingest)."""
+        self.version += 1
+        self._nodes = {n.metadata.name: n for n in nodes}
+        self._node_order = [n.metadata.name for n in nodes]
+        self._pods = {}
+        for p in pods:
+            if p.spec.node_name and p.spec.node_name in self._nodes:
+                self._pods[v1.pod_key(p)] = (p, p.spec.node_name)
+        self._rebuild_needed = True
+
+    def add_node(self, node: v1.Node) -> Optional[int]:
+        """Add (or update) a node. A brand-new node whose vocab needs fit
+        the current capacity buckets lands INCREMENTALLY in a free lane
+        (a tombstone from a prior remove, or a pre-padded tail lane from
+        the headroom/reserve sizing): the row is encoded in place, the
+        n_nodes/img_nodes meta marked for device sync, and the lane
+        index returned so session-level node deltas can ride along.
+        Updates of existing nodes and anything that would grow a vocab
+        bucket or the lane space stay structural (returns None, rebuild
+        flagged) — at 100k nodes the headroom knob is what keeps churn
+        on the incremental path."""
+        self.version += 1
+        name = node.metadata.name
+        fresh = name not in self._nodes
+        if fresh:
+            self._node_order.append(name)
+        self._nodes[name] = node
+        lane = self._try_add_node_arrays(node) if fresh else None
+        if lane is None:
+            self._rebuild_needed = True
+        return lane
+
+    def _try_add_node_arrays(self, node: v1.Node) -> Optional[int]:
+        A = self._arrays
+        name = node.metadata.name
+        # a name with ghost pods (rows skipped because this node was
+        # gone at the last rebuild) must re-encode those pods — rebuild
+        if self._rebuild_needed or not A or name in self._ghost_nodes:
+            return None
+        # vocab growth guard: crossing a capacity bucket changes row
+        # WIDTHS; a new taint id (even inside its bucket) would miss its
+        # effect code in the taint_effect row — both structural
+        before = (
+            self.node_key_vocab.capacity, self.node_pair_vocab.capacity,
+            len(self.taint_vocab), self.scalar_vocab.capacity,
+            self.image_vocab.capacity, self.avoid_vocab.capacity,
+        )
+        self._intern_node_vocabs(node)
+        after = (
+            self.node_key_vocab.capacity, self.node_pair_vocab.capacity,
+            len(self.taint_vocab), self.scalar_vocab.capacity,
+            self.image_vocab.capacity, self.avoid_vocab.capacity,
+        )
+        if before != after:
+            return None
+        if self._node_free:
+            lane = self._node_free.pop()
+        elif len(self.node_names) < A["valid"].shape[0]:
+            lane = len(self.node_names)
+            self.node_names.append(None)
+        else:
+            return None  # lane space exhausted: capacity ladder decides
+        self._encode_node_row(lane, node)
+        self.node_names[lane] = name
+        self.node_index[name] = lane
+        for iid in self._node_image_ids(node):
+            A["img_nodes"][iid] += 1
+        self._dirty_nodes.add(lane)
+        self._dirty_meta = True
+        return lane
+
+    def update_node(self, node: v1.Node) -> None:
+        self.add_node(node)
+
+    def update_node_alloc(self, node: v1.Node):
+        """Incremental allocatable/capacity-ONLY node update: rewrites the
+        node's alloc/allowed_pods columns in place (dirty-row sync covers
+        the device) instead of flagging a full rebuild. Callers (the TPU
+        backend's prologue-patch classifier) must have verified that
+        nothing else in the node fingerprint moved. Returns
+        (dalloc int64 [R], dallowed int) — the row deltas a live device
+        session patches itself with — or None when the update cannot be
+        incremental (unknown node, pending rebuild, or a scalar resource
+        name the vocab has never seen, which changes the row WIDTH)."""
+        name = node.metadata.name
+        self.version += 1
+        if self._rebuild_needed or not self._arrays:
+            return None
+        i = self.node_index.get(name)
+        if i is None:
+            return None
+        from ..scheduler.framework.types import (
+            Resource,
+            is_scalar_resource_name,
+        )
+
+        alloc_map = (node.status.allocatable or node.status.capacity) or {}
+        for rname in alloc_map:
+            if is_scalar_resource_name(rname) and not self.scalar_vocab.get(
+                    rname):
+                return None  # new scalar dimension: needs the full rebuild
+        res = Resource()
+        res.add(alloc_map)
+        extra = (
+            self.volume_hook.node_extra_alloc(node)
+            if self.volume_hook is not None else None
+        )
+        vec = self._res_vec(res, extra)
+        A = self._arrays
+        dalloc = vec - A["alloc"][i]
+        dallowed = int(res.allowed_pod_number) - int(A["allowed_pods"][i])
+        A["alloc"][i] = vec
+        A["allowed_pods"][i] = res.allowed_pod_number
+        self._nodes[name] = node
+        self._dirty_nodes.add(i)
+        return dalloc, dallowed
+
+    def remove_node(self, node_name: str) -> Optional[int]:
+        """Remove a node. A pod-free node leaves INCREMENTALLY: its row
+        is zeroed (valid=0 makes the lane infeasible, id columns hit the
+        vocab null sentinel), the lane becomes a tombstone reused by the
+        next add, and the lane index is returned for session node
+        deltas. A node still carrying pods stays structural — its pods'
+        rows must be dropped too, which only rebuild does."""
+        self.version += 1
+        node = self._nodes.pop(node_name, None)
+        self._node_order = [n for n in self._node_order if n != node_name]
+        lane = (
+            self._try_remove_node_arrays(node_name, node)
+            if node is not None else None
+        )
+        if lane is None:
+            self._rebuild_needed = True
+        return lane
+
+    def _try_remove_node_arrays(self, node_name: str,
+                                node: v1.Node) -> Optional[int]:
+        A = self._arrays
+        if self._rebuild_needed or not A:
+            return None
+        lane = self.node_index.get(node_name)
+        if lane is None:
+            return None
+        if int(A["pod_count"][lane]) != 0:
+            return None  # bound pods: their rows die only at rebuild
+        for iid in self._node_image_ids(node):
+            if A["img_nodes"][iid] > 0:
+                A["img_nodes"][iid] -= 1
+        for k in self._NODE_ROW_KEYS:
+            A[k][lane] = 0
+        self.node_index.pop(node_name, None)
+        self.node_names[lane] = None
+        self._node_free.append(lane)
+        self._dirty_nodes.add(lane)
+        self._dirty_meta = True
+        return lane
+
+    def add_pod(self, pod: v1.Pod, node_name: Optional[str] = None) -> None:
+        """Assume/confirm a pod onto a node (cache AssumePod analog,
+        reference: pkg/scheduler/internal/cache/cache.go:361)."""
+        node_name = node_name or pod.spec.node_name
+        self.version += 1
+        key = v1.pod_key(pod)
+        if key in self._pods:
+            self.remove_pod(pod)
+        self._pods[key] = (pod, node_name)
+        if self.volume_hook is not None:
+            self.volume_hook.pod_added(pod)
+            # refcounted per-handle delta: the second sharer of a volume
+            # on a node contributes 0 (unique-handle semantics, matching
+            # NodeVolumeLimits)
+            self._pod_extras[key] = self.volume_hook.attach_delta(
+                pod, node_name, +1
+            )
+        if self._rebuild_needed:
+            return
+        nidx = self.node_index.get(node_name)
+        if nidx is None:
+            self._rebuild_needed = True
+            return
+        if not self._try_add_pod_arrays(pod, key, nidx):
+            self._rebuild_needed = True
+
+    def swap_pod_object(self, key: str, pod: v1.Pod,
+                        node_name: str) -> bool:
+        """Replace the stored pod OBJECT for an already-encoded placement
+        without touching any array state — the assume-echo fast path. The
+        cache's batched assume hands the backend the same (pod, node)
+        placements the device session already encoded via
+        _apply_decisions_locked; routing the echo through add_pod would
+        net a full remove_pod + re-add (two row encodes, two volume
+        refcount round-trips) for an array-identical result, since the
+        only object difference (spec.node_name) is not encoded. Volume
+        hook exactness: the remove+add path round-trips each (ns, claim)
+        refcount to net zero and recomputes _pod_extras[key] from the
+        same spec+node to the identical value, so skipping both here is
+        state-exact. Bumps version exactly like add_pod would, so
+        planner _books_version pins behave identically. Returns False
+        (caller falls back to add_pod) when the key isn't present or is
+        recorded on a different node."""
+        entry = self._pods.get(key)
+        if entry is None or entry[1] != node_name:
+            return False
+        self.version += 1
+        self._pods[key] = (pod, node_name)
+        return True
+
+    def remove_pod(self, pod: v1.Pod) -> None:
+        self.version += 1
+        key = v1.pod_key(pod)
+        entry = self._pods.pop(key, None)
+        if entry is None:
+            return
+        self._pod_extras.pop(key, None)
+        extras = None
+        if self.volume_hook is not None:
+            self.volume_hook.pod_removed(entry[0])
+            # live refcount math, NOT the stored add-time delta: with a
+            # surviving sharer the handle stays attached (delta 0)
+            extras = self.volume_hook.attach_delta(entry[0], entry[1], -1)
+        if self._rebuild_needed:
+            return
+        pidx = self.pod_index.pop(key, None)
+        if pidx is None:
+            self._rebuild_needed = True
+            return
+        self._remove_pod_arrays(entry[0], entry[1], pidx, extras)
+
+    @property
+    def n_nodes(self) -> int:
+        """LIVE node count — the kernel-image denominator and every
+        "how many nodes exist" consumer. Under incremental node churn
+        this diverges from the LANE high-water mark (tombstoned rows
+        keep their lane); use `n_lanes` to slice kernel outputs."""
+        return len(self._node_order)
+
+    @property
+    def n_lanes(self) -> int:
+        """Node-LANE high-water mark: live rows + tombstones. Kernel
+        outputs are indexed by lane, so `[:n]` slices and node_names
+        lookups must use this, not n_nodes."""
+        return len(self.node_names) if self._arrays else self.n_nodes
+
+    def _node_image_ids(self, node: v1.Node) -> set:
+        """Interned ids of this node's images (deduped across tags) —
+        the rows of A["img_nodes"] the node contributes to."""
+        ids = set()
+        for image in node.status.images or []:
+            for n in image.names or []:
+                iid = self.image_vocab.get(normalized_image_name(n))
+                if iid:
+                    ids.add(iid)
+        return ids
+
+    @staticmethod
+    def node_fingerprint(node: v1.Node) -> tuple:
+        """Identity of the scheduling-relevant node state — EXACTLY the
+        fields this encoding consumes (_intern_node_vocabs +
+        _encode_node_row below: labels, the prefer-avoid annotation,
+        taints, unschedulable, allocatable-or-capacity, images). The
+        TPU backend's heartbeat gate compares these so status-only
+        updates (conditions/timestamps, what kubelets patch every ~10s)
+        don't tear down the device session or force a rebuild. KEEP IN
+        LOCK-STEP with the consumers below: a field consumed but not
+        fingerprinted would make the gate serve stale state."""
+        st = node.status
+        return (
+            tuple(sorted((node.metadata.labels or {}).items())),
+            (node.metadata.annotations or {}).get(
+                PREFER_AVOID_PODS_ANNOTATION, ""),
+            tuple(
+                (t.key, t.value, t.effect) for t in node.spec.taints or []
+            ),
+            bool(node.spec.unschedulable),
+            tuple(sorted(((st.allocatable or st.capacity) or {}).items())),
+            tuple(sorted(
+                (tuple(sorted(img.names or [])), img.size_bytes)
+                for img in st.images or []
+            )),
+        )
+
+    # -- encoding internals -------------------------------------------------
+
+    def _intern_node_vocabs(self, node: v1.Node) -> None:
+        labels = node.metadata.labels or {}
+        for k, val in labels.items():
+            self.node_key_vocab.intern(k)
+            self.node_pair_vocab.intern((k, val))
+        self.node_key_vocab.intern(FIELD_NAME_KEY)
+        self.node_pair_vocab.intern((FIELD_NAME_KEY, node.metadata.name))
+        for t in node.spec.taints or []:
+            self.taint_vocab.intern((t.key, t.value, t.effect))
+        for name, q in ((node.status.allocatable or node.status.capacity) or {}).items():
+            from ..scheduler.framework.types import is_scalar_resource_name
+
+            if is_scalar_resource_name(name):
+                self.scalar_vocab.intern(name)
+        for image in node.status.images or []:
+            for n in image.names or []:
+                self.image_vocab.intern(normalized_image_name(n))
+        raw = (node.metadata.annotations or {}).get(PREFER_AVOID_PODS_ANNOTATION)
+        if raw:
+            try:
+                avoids = json.loads(raw)
+            except ValueError:
+                avoids = {}
+            for avoid in avoids.get("preferAvoidPods", []):
+                ctrl = avoid.get("podSignature", {}).get("podController", {})
+                if ctrl.get("kind") and ctrl.get("uid"):
+                    self.avoid_vocab.intern((ctrl["kind"], ctrl["uid"]))
+
+    def _intern_pod_vocabs(self, pod: v1.Pod) -> None:
+        self.ns_vocab.intern(pod.metadata.namespace)
+        for k, val in (pod.metadata.labels or {}).items():
+            self.pod_key_vocab.intern(k)
+            self.pod_pair_vocab.intern((k, val))
+        for c in pod.spec.containers:
+            for port in c.ports or []:
+                if port.host_port > 0:
+                    proto = port.protocol or "TCP"
+                    ip = "" if _is_wildcard(port.host_ip) else port.host_ip
+                    self.port_pair_vocab.intern((proto, port.host_port))
+                    self.port_triple_vocab.intern((ip, proto, port.host_port))
+            from ..scheduler.framework.types import is_scalar_resource_name
+
+            for name in (c.resources.requests or {}):
+                if is_scalar_resource_name(name):
+                    self.scalar_vocab.intern(name)
+        if self.volume_hook is not None:
+            key = v1.pod_key(pod)
+            extras = self._pod_extras.get(key)
+            if extras is None:
+                extras = self.volume_hook.pod_extra_scalars(pod)
+                if key in self._pods:
+                    self._pod_extras[key] = extras
+            for name in extras:
+                self.scalar_vocab.intern(name)
+
+    def _pod_term_tables(self, pod_info: PodInfo) -> List[Tuple[str, object, List[int], int, int, int]]:
+        """Compile an existing pod's affinity terms.
+
+        Returns rows of (which, table, ns_ids, key_id, kind, weight) where
+        which is 'anti' (required anti-affinity, used by the InterPodAffinity
+        Filter existing-anti map) or 'score' (PreScore processExistingPod).
+        """
+        rows = []
+        for term in pod_info.required_anti_affinity_terms:
+            table = compile_selector(term.selector, self.pod_key_vocab, self.pod_pair_vocab, intern=True)
+            ns_ids = [self.ns_vocab.intern(n) for n in sorted(term.namespaces)]
+            key_id = self.node_key_vocab.intern(term.topology_key)
+            rows.append(("anti", table, ns_ids, key_id, 0, 0))
+        for term in pod_info.required_affinity_terms:
+            table = compile_selector(term.selector, self.pod_key_vocab, self.pod_pair_vocab, intern=True)
+            ns_ids = [self.ns_vocab.intern(n) for n in sorted(term.namespaces)]
+            key_id = self.node_key_vocab.intern(term.topology_key)
+            rows.append(("score", table, ns_ids, key_id, ST_REQUIRED_AFFINITY, 0))
+        for term in pod_info.preferred_affinity_terms:
+            table = compile_selector(term.selector, self.pod_key_vocab, self.pod_pair_vocab, intern=True)
+            ns_ids = [self.ns_vocab.intern(n) for n in sorted(term.namespaces)]
+            key_id = self.node_key_vocab.intern(term.topology_key)
+            rows.append(("score", table, ns_ids, key_id, ST_PREFERRED_AFFINITY, term.weight))
+        for term in pod_info.preferred_anti_affinity_terms:
+            table = compile_selector(term.selector, self.pod_key_vocab, self.pod_pair_vocab, intern=True)
+            ns_ids = [self.ns_vocab.intern(n) for n in sorted(term.namespaces)]
+            key_id = self.node_key_vocab.intern(term.topology_key)
+            rows.append(("score", table, ns_ids, key_id, ST_PREFERRED_ANTI, term.weight))
+        return rows
+
+    # resource matrix layout: columns 0=cpu(milli) 1=memory 2=ephemeral,
+    # scalar resource id s -> column 2+s
+    def _res_width(self) -> int:
+        return 3 + self.scalar_vocab.capacity
+
+    def _res_vec(self, res, extras: Optional[Dict[str, int]] = None) -> np.ndarray:
+        vec = np.zeros(self._res_width(), np.int64)
+        vec[0] = res.milli_cpu
+        vec[1] = res.memory
+        vec[2] = res.ephemeral_storage
+        for name, val in res.scalar_resources.items():
+            s = self.scalar_vocab.get(name)
+            if s:
+                vec[2 + s] = val
+        for name, val in (extras or {}).items():
+            s = self.scalar_vocab.get(name)
+            if s:
+                vec[2 + s] += val
+        return vec
+
+    def rebuild(self) -> None:
+        """Full re-encode from object state (node changes, capacity growth)."""
+        # a rebuild is a new array epoch even when no object-level call
+        # bumped the counter itself (volume events set _rebuild_needed
+        # directly; capacity growth triggers here): derived-view caches
+        # keyed on `version` must refresh
+        self.version += 1
+        for node_name in self._node_order:
+            self._intern_node_vocabs(self._nodes[node_name])
+        pod_infos: Dict[str, PodInfo] = {}
+        if self.volume_hook is not None:
+            # re-derive every attach refcount from scratch: a rebuild is
+            # where resolver-state changes (PVC rebind, CSINode update)
+            # converge into the rows
+            self.volume_hook.reset_attach()
+        for key, (pod, node_name) in self._pods.items():
+            if self.volume_hook is not None:
+                self._pod_extras[key] = self.volume_hook.attach_delta(
+                    pod, node_name, +1
+                )
+            self._intern_pod_vocabs(pod)
+            pod_infos[key] = PodInfo(pod)
+
+        n = len(self._node_order)
+        # node-lane capacity: reserve floor + growth headroom
+        # (KTPU_NODE_HEADROOM), rounded up to the mesh quantum so the
+        # padded axis divides the shard count evenly — node adds then
+        # land in pre-padded tail lanes (add_node's incremental path)
+        # instead of walking the capacity ladder through rebuilds
+        want = max(n, self._node_reserve, 1)
+        h = node_headroom()
+        if h:
+            want = max(want, int(-(-n * (1.0 + h) // 1)))
+        ncap = bucket_capacity(want)
+        q = max(1, int(self.node_quantum))
+        ncap = -(-ncap // q) * q
+        pcap = bucket_capacity(
+            max(len(self._pods), self._pod_reserve, 1), minimum=64
+        )
+        rw = self._res_width()
+        tcap = self.taint_vocab.capacity
+        p2cap = self.port_pair_vocab.capacity
+        p3cap = self.port_triple_vocab.capacity
+        nkcap = self.node_key_vocab.capacity
+        npcap = self.node_pair_vocab.capacity
+        pkcap = self.pod_key_vocab.capacity
+        ppcap = self.pod_pair_vocab.capacity
+        icap = self.image_vocab.capacity
+        acap = self.avoid_vocab.capacity
+
+        A = self._arrays = {}
+        A["valid"] = np.zeros(ncap, bool)
+        A["alloc"] = np.zeros((ncap, rw), np.int64)
+        A["requested"] = np.zeros((ncap, rw), np.int64)
+        A["nz_requested"] = np.zeros((ncap, 2), np.int64)
+        A["pod_count"] = np.zeros(ncap, np.int32)
+        A["allowed_pods"] = np.zeros(ncap, np.int64)
+        A["unschedulable"] = np.zeros(ncap, bool)
+        A["taints"] = np.zeros((ncap, tcap), bool)
+        A["taint_effect"] = np.zeros(tcap, np.int8)
+        A["ports_triple"] = np.zeros((ncap, p3cap), np.int16)
+        A["ports_pair_any"] = np.zeros((ncap, p2cap), np.int16)
+        A["ports_pair_wild"] = np.zeros((ncap, p2cap), np.int16)
+        A["npair"] = np.zeros((ncap, npcap), bool)
+        A["nkey"] = np.zeros((ncap, nkcap), bool)
+        A["pair_of_key"] = np.zeros((ncap, nkcap), np.int32)
+        A["nnum"] = np.zeros((ncap, nkcap), np.int64)
+        A["nnum_valid"] = np.zeros((ncap, nkcap), bool)
+        A["img_size"] = np.zeros((ncap, icap), np.int64)
+        A["img_nodes"] = np.zeros(icap, np.int32)
+        A["avoid"] = np.zeros((ncap, acap), bool)
+        A["ppair"] = np.zeros((pcap, ppcap), bool)
+        A["pkey"] = np.zeros((pcap, pkcap), bool)
+        A["pnode"] = np.zeros(pcap, np.int32)
+        A["pns"] = np.zeros(pcap, np.int32)
+        A["pterm"] = np.zeros(pcap, bool)
+        A["pvalid"] = np.zeros(pcap, bool)
+        A["n_nodes"] = np.array(n, np.int32)
+        A["hard_pod_affinity_weight"] = np.array(self.hard_pod_affinity_weight, np.int32)
+
+        for i, (key, val, effect) in enumerate(
+            self.taint_vocab._items, start=1
+        ):
+            A["taint_effect"][i] = _EFFECT_CODE.get(effect, EFFECT_NONE)
+
+        self.node_index = {}
+        self.node_names = []
+        self._node_free = []
+        for i, node_name in enumerate(self._node_order):
+            self.node_index[node_name] = i
+            self.node_names.append(node_name)
+            self._encode_node_row(i, self._nodes[node_name])
+
+        # image cluster-spread counts (snapshot.go createImageExistenceMap)
+        img_nodes: Dict[int, Set[int]] = {}
+        for i, node_name in enumerate(self._node_order):
+            node = self._nodes[node_name]
+            for image in node.status.images or []:
+                for nm in image.names or []:
+                    iid = self.image_vocab.get(normalized_image_name(nm))
+                    if iid:
+                        img_nodes.setdefault(iid, set()).add(i)
+        for iid, nodes in img_nodes.items():
+            A["img_nodes"][iid] = len(nodes)
+
+        # term tables: size from observed maxima
+        n_anti = sum(len(pi.required_anti_affinity_terms) for pi in pod_infos.values())
+        n_score = sum(
+            len(pi.required_affinity_terms)
+            + len(pi.preferred_affinity_terms)
+            + len(pi.preferred_anti_affinity_terms)
+            for pi in pod_infos.values()
+        )
+        max_r, max_v, max_ns = 1, 1, 1
+        for pi in pod_infos.values():
+            for terms in (
+                pi.required_anti_affinity_terms,
+                pi.required_affinity_terms,
+                pi.preferred_affinity_terms,
+                pi.preferred_anti_affinity_terms,
+            ):
+                for term in terms:
+                    t = compile_selector(term.selector, self.pod_key_vocab, self.pod_pair_vocab, intern=True)
+                    max_r = max(max_r, t.n_reqs)
+                    max_v = max(max_v, t.n_vals)
+                    max_ns = max(max_ns, len(term.namespaces))
+        self._anti_terms = _TermRows(
+            bucket_capacity(max(n_anti, self._anti_reserve, 1), minimum=16),
+            bucket_capacity(max_r, 2),
+            bucket_capacity(max_v, 2), bucket_capacity(max_ns, 2), scored=False,
+        )
+        self._score_terms = _TermRows(
+            bucket_capacity(max(n_score, self._score_reserve, 1), minimum=16),
+            bucket_capacity(max_r, 2),
+            bucket_capacity(max_v, 2), bucket_capacity(max_ns, 2), scored=True,
+        )
+
+        self.pod_index = {}
+        self._pod_free = list(range(pcap - 1, -1, -1))
+        self._ghost_nodes = set()
+        for key, (pod, node_name) in self._pods.items():
+            nidx = self.node_index.get(node_name)
+            if nidx is None:
+                self._ghost_nodes.add(node_name)
+                # pod bound to a DELETED node (node remove raced bound
+                # pods — the reference's cache keeps such pods on a ghost
+                # nodeInfo until they drain, cache.go removeNode). No row:
+                # a gone node contributes no capacity, ports, or topology
+                # pairs; the object stays in _pods so a re-added node
+                # re-encodes it on the next rebuild.
+                continue
+            pidx = self._pod_free.pop()
+            self.pod_index[key] = pidx
+            self._encode_pod_row(pidx, pod, nidx, pod_infos[key])
+
+        self._rebuild_needed = False
+        self._device = None
+        self._dirty_nodes = set()
+        self._dirty_pods = set()
+        self._dirty_terms = False
+        self._dirty_meta = False
+
+    def _encode_node_row(self, i: int, node: v1.Node) -> None:
+        A = self._arrays
+        A["valid"][i] = True
+        from ..scheduler.framework.types import Resource
+
+        alloc = Resource()
+        alloc.add(node.status.allocatable or node.status.capacity)
+        extra_alloc = (
+            self.volume_hook.node_extra_alloc(node)
+            if self.volume_hook is not None else None
+        )
+        A["alloc"][i] = self._res_vec(alloc, extra_alloc)
+        A["allowed_pods"][i] = alloc.allowed_pod_number
+        A["requested"][i] = 0
+        A["nz_requested"][i] = 0
+        A["pod_count"][i] = 0
+        A["unschedulable"][i] = node.spec.unschedulable
+        A["taints"][i] = False
+        for t in node.spec.taints or []:
+            tid = self.taint_vocab.get((t.key, t.value, t.effect))
+            if tid:
+                A["taints"][i, tid] = True
+        A["ports_triple"][i] = 0
+        A["ports_pair_any"][i] = 0
+        A["ports_pair_wild"][i] = 0
+        A["npair"][i] = False
+        A["nkey"][i] = False
+        A["pair_of_key"][i] = 0
+        A["nnum"][i] = 0
+        A["nnum_valid"][i] = False
+        labels = dict(node.metadata.labels or {})
+        labels[FIELD_NAME_KEY] = node.metadata.name
+        from ..api.labels import _parse_int64
+
+        for k, val in labels.items():
+            kid = self.node_key_vocab.get(k)
+            pid = self.node_pair_vocab.get((k, val))
+            if kid:
+                A["nkey"][i, kid] = True
+                A["pair_of_key"][i, kid] = pid
+                num = _parse_int64(val)
+                if num is not None:
+                    A["nnum"][i, kid] = num
+                    A["nnum_valid"][i, kid] = True
+            if pid:
+                A["npair"][i, pid] = True
+        A["img_size"][i] = 0
+        for image in node.status.images or []:
+            for nm in image.names or []:
+                iid = self.image_vocab.get(normalized_image_name(nm))
+                if iid:
+                    A["img_size"][i, iid] = image.size_bytes
+        A["avoid"][i] = False
+        raw = (node.metadata.annotations or {}).get(PREFER_AVOID_PODS_ANNOTATION)
+        if raw:
+            try:
+                avoids = json.loads(raw)
+            except ValueError:
+                avoids = {}
+            for avoid in avoids.get("preferAvoidPods", []):
+                ctrl = avoid.get("podSignature", {}).get("podController", {})
+                aid = self.avoid_vocab.get((ctrl.get("kind"), ctrl.get("uid")))
+                if aid:
+                    A["avoid"][i, aid] = True
+
+    def _encode_pod_row(self, pidx: int, pod: v1.Pod, nidx: int, pod_info: Optional[PodInfo] = None) -> None:
+        A = self._arrays
+        pod_info = pod_info or PodInfo(pod)
+        A["pvalid"][pidx] = True
+        A["pnode"][pidx] = nidx
+        A["pns"][pidx] = self.ns_vocab.get(pod.metadata.namespace)
+        A["pterm"][pidx] = pod.metadata.deletion_timestamp is not None
+        A["ppair"][pidx] = False
+        A["pkey"][pidx] = False
+        for k, val in (pod.metadata.labels or {}).items():
+            kid = self.pod_key_vocab.get(k)
+            pid = self.pod_pair_vocab.get((k, val))
+            if kid:
+                A["pkey"][pidx, kid] = True
+            if pid:
+                A["ppair"][pidx, pid] = True
+        # node aggregates
+        res, non0_cpu, non0_mem = calculate_resource(pod)
+        A["requested"][nidx] += self._res_vec(
+            res, self._pod_extras.get(v1.pod_key(pod))
+        )
+        A["nz_requested"][nidx, 0] += non0_cpu
+        A["nz_requested"][nidx, 1] += non0_mem
+        A["pod_count"][nidx] += 1
+        self._apply_ports(nidx, pod, +1)
+        # affinity term rows
+        for which, table, ns_ids, key_id, kind, weight in self._pod_term_tables(pod_info):
+            rows = self._anti_terms if which == "anti" else self._score_terms
+            rows.add(pidx, table, ns_ids, key_id, kind, weight)
+        self._dirty_terms = True
+        self._dirty_nodes.add(nidx)
+        self._dirty_pods.add(pidx)
+
+    def _apply_ports(self, nidx: int, pod: v1.Pod, sign: int) -> None:
+        A = self._arrays
+        seen: Set[Tuple[str, str, int]] = set()
+        for c in pod.spec.containers:
+            for port in c.ports or []:
+                if port.host_port <= 0:
+                    continue
+                proto = port.protocol or "TCP"
+                ip = "" if _is_wildcard(port.host_ip) else port.host_ip
+                trip = (ip, proto, port.host_port)
+                if trip in seen:  # HostPortInfo is a set per (ip,proto,port)
+                    continue
+                seen.add(trip)
+                pid2 = self.port_pair_vocab.get((proto, port.host_port))
+                pid3 = self.port_triple_vocab.get(trip)
+                if pid3:
+                    A["ports_triple"][nidx, pid3] += sign
+                if pid2:
+                    A["ports_pair_any"][nidx, pid2] += sign
+                    if ip == "":
+                        A["ports_pair_wild"][nidx, pid2] += sign
+
+    def _try_add_pod_arrays(self, pod: v1.Pod, key: str, nidx: int) -> bool:
+        """Incremental add; False -> caller flags full rebuild."""
+        before = (
+            self.pod_pair_vocab.capacity, self.pod_key_vocab.capacity,
+            self.port_pair_vocab.capacity, self.port_triple_vocab.capacity,
+            self.scalar_vocab.capacity, self.ns_vocab.capacity,
+        )
+        self._intern_pod_vocabs(pod)
+        pod_info = PodInfo(pod)
+        # pre-compile terms to detect vocab/capacity growth before mutating
+        term_rows = self._pod_term_tables(pod_info)
+        after = (
+            self.pod_pair_vocab.capacity, self.pod_key_vocab.capacity,
+            self.port_pair_vocab.capacity, self.port_triple_vocab.capacity,
+            self.scalar_vocab.capacity, self.ns_vocab.capacity,
+        )
+        if (before != after or not self._pod_free
+                or self.node_key_vocab.capacity > self._arrays["nkey"].shape[1]):
+            return False
+        for which, table, ns_ids, _k, _kind, _w in term_rows:
+            rows = self._anti_terms if which == "anti" else self._score_terms
+            if rows.needs_grow(table, len(ns_ids)):
+                return False
+        pidx = self._pod_free.pop()
+        self.pod_index[key] = pidx
+        self._encode_pod_row(pidx, pod, nidx, pod_info)
+        return True
+
+    def _remove_pod_arrays(
+        self, pod: v1.Pod, node_name: str, pidx: int, extras=None
+    ) -> None:
+        A = self._arrays
+        nidx = self.node_index.get(node_name)
+        A["pvalid"][pidx] = False
+        self._pod_free.append(pidx)
+        self._dirty_pods.add(pidx)
+        if nidx is not None:
+            res, non0_cpu, non0_mem = calculate_resource(pod)
+            A["requested"][nidx] -= self._res_vec(res, extras)
+            A["nz_requested"][nidx, 0] -= non0_cpu
+            A["nz_requested"][nidx, 1] -= non0_mem
+            A["pod_count"][nidx] -= 1
+            self._apply_ports(nidx, pod, -1)
+            self._dirty_nodes.add(nidx)
+        removed_anti = self._anti_terms.remove_pod(pidx)
+        removed_score = self._score_terms.remove_pod(pidx)
+        if removed_anti or removed_score:
+            self._dirty_terms = True
+
+    # -- device sync --------------------------------------------------------
+
+    _NODE_ROW_KEYS = (
+        "valid", "alloc", "requested", "nz_requested", "pod_count",
+        "allowed_pods", "unschedulable", "taints", "ports_triple",
+        "ports_pair_any", "ports_pair_wild", "npair", "nkey", "pair_of_key",
+        "nnum", "nnum_valid", "img_size", "avoid",
+    )
+    _POD_ROW_KEYS = ("ppair", "pkey", "pnode", "pns", "pterm", "pvalid")
+
+    def _term_arrays(self) -> Dict[str, np.ndarray]:
+        at, st = self._anti_terms, self._score_terms
+        return {
+            "at_valid": at.valid, "at_src": at.src, "at_key": at.key,
+            "at_ns": at.ns, "at_op": at.op, "at_rkey": at.rkey, "at_pairs": at.pairs,
+            "st_valid": st.valid, "st_src": st.src, "st_key": st.key,
+            "st_ns": st.ns, "st_kind": st.kind, "st_weight": st.weight,
+            "st_op": st.op, "st_rkey": st.rkey, "st_pairs": st.pairs,
+        }
+
+    def _caps_grew(self) -> bool:
+        """True if any vocab outgrew its array width. Compiled tables intern
+        ids eagerly, so a grown vocab can hold ids past the current column
+        count — gathers would clamp out-of-bounds and silently mis-match;
+        rebuild instead."""
+        A = self._arrays
+        if not A:
+            return True
+        return (
+            self._res_width() > A["alloc"].shape[1]
+            or self.taint_vocab.capacity > A["taints"].shape[1]
+            or self.port_pair_vocab.capacity > A["ports_pair_any"].shape[1]
+            or self.port_triple_vocab.capacity > A["ports_triple"].shape[1]
+            or self.node_key_vocab.capacity > A["nkey"].shape[1]
+            or self.node_pair_vocab.capacity > A["npair"].shape[1]
+            or self.pod_key_vocab.capacity > A["pkey"].shape[1]
+            or self.pod_pair_vocab.capacity > A["ppair"].shape[1]
+            or self.image_vocab.capacity > A["img_size"].shape[1]
+            or self.avoid_vocab.capacity > A["avoid"].shape[1]
+        )
+
+    def device_state(self, device=None) -> dict:
+        """Current cluster dict of tensors on `device` (CUDA unless the
+        caller names another); after the first upload only dirty rows
+        are rewritten, in place, one index_copy_ per row array.
+
+        CONTRACT: the cached tensors are updated IN PLACE by later syncs,
+        so a caller that must see a fixed point in time takes
+        scratch_state() instead. Asking for another device re-uploads
+        the whole dict there."""
+        dev = resolve_device(device)
+        if self._rebuild_needed or self._caps_grew():
+            self.rebuild()
+        host = dict(self._arrays)
+        host.update(self._term_arrays())
+        host["n_nodes"] = np.array(self.n_nodes, np.int32)
+        if self._device is None or self._device_of != dev:
+            self._device = {k: _upload(a, dev) for k, a in host.items()}
+            self._device_of = dev
+            self._dirty_nodes = set()
+            self._dirty_pods = set()
+            self._dirty_terms = False
+            self._dirty_meta = False
+            return self._device
+        d = self._device
+        if self._dirty_nodes:
+            self._scatter_rows(d, host, self._NODE_ROW_KEYS, self._dirty_nodes)
+            self._dirty_nodes = set()
+        if self._dirty_pods:
+            self._scatter_rows(d, host, self._POD_ROW_KEYS, self._dirty_pods)
+            self._dirty_pods = set()
+        if self._dirty_terms:
+            for k, a in self._term_arrays().items():
+                d[k] = _upload(a, dev)
+            self._dirty_terms = False
+        if self._dirty_meta:
+            # incremental node add/remove changes the live count (kernel
+            # image-spread denominator) and the per-image node spread —
+            # neither lives in a scattered row group
+            d["n_nodes"] = _upload(np.array(self.n_nodes, np.int32), dev)
+            d["img_nodes"] = _upload(self._arrays["img_nodes"], dev)
+            self._dirty_meta = False
+        return d
+
+    def host_snapshot(self) -> dict:
+        """Numpy COPIES of the current host arrays (rebuilding first if
+        pending) — a consistent point-in-time view a caller can carry
+        OUTSIDE the owning lock (the live arrays mutate in place under
+        it). The memcpy is cheap relative to the device upload /
+        prologue build the caller does with it. Pair with `version` to
+        cache derived views."""
+        if self._rebuild_needed or self._caps_grew():
+            self.rebuild()
+        host = dict(self._arrays)
+        host.update(self._term_arrays())
+        out = {k: np.array(a, copy=True) for k, a in host.items()}
+        out["n_nodes"] = np.array(self.n_nodes, np.int32)
+        return out
+
+    def node_slice_cluster(self, lane: int) -> dict:
+        """One-lane cluster view for session node-join deltas: node rows
+        sliced to `[lane:lane+1]` (copies), pod rows zeroed (a fresh
+        node carries no pods), term tables zeroed, vocab-space arrays
+        (taint_effect, img_nodes) copied so the slice session's
+        prologue resolves ids identically to a full rebuild. A
+        PallasSession built on this has exactly the full rebuild's
+        column `lane` in its per-node statics — the node-delta envelope
+        checks (ops/sharded_scan.py node_join_delta) reject the cases
+        where that equivalence would break."""
+        A = self._arrays
+        out = {}
+        for k in self._NODE_ROW_KEYS:
+            out[k] = np.array(A[k][lane:lane + 1], copy=True)
+        for k in self._POD_ROW_KEYS:
+            out[k] = np.zeros_like(A[k])
+        for k in ("taint_effect", "img_nodes", "hard_pod_affinity_weight"):
+            out[k] = np.array(A[k], copy=True)
+        for k, a in self._term_arrays().items():
+            out[k] = np.zeros_like(a)
+        out["n_nodes"] = np.array(1, np.int32)
+        return out
+
+    def scratch_state(self, device=None) -> dict:
+        """Fresh upload of the CURRENT host arrays to `device` — a
+        snapshot that shares no storage with the device_state() cache,
+        whose tensors later syncs rewrite in place. Pair with `version`
+        to cache the upload across launches."""
+        return cluster_from_numpy(self.host_snapshot(), device)
+
+    def pod_row_delta(self, pod: v1.Pod):
+        """(requested-row [R], nz-row [2]) contribution of one pod to its
+        node's utilization rows — exactly what _encode_pod_row added /
+        _remove_pod_arrays subtracts, attach extras included. The
+        preemption what-if kernel ships these as inverse carry deltas
+        per candidate victim."""
+        res, nz_cpu, nz_mem = calculate_resource(pod)
+        vec = self._res_vec(res, self._pod_extras.get(v1.pod_key(pod)))
+        return vec, np.array([nz_cpu, nz_mem], np.int64)
+
+    @staticmethod
+    def _scatter_rows(dev: dict, host: dict, keys, dirty: Set[int]) -> None:
+        idx = np.fromiter(sorted(dirty), np.int64)
+        where = torch.from_numpy(idx).to(dev[keys[0]].device)
+        for k in keys:
+            dev[k].index_copy_(0, where, _upload(host[k][idx], where.device))
+
+
+def _fingerprint(pod: v1.Pod, strip_volumes: bool = False) -> str:
+    """Spec-equivalence cache key: everything the kernel inputs depend
+    on. strip_volumes: the caller replaces the volumes section with a
+    resolved-constraint signature (PodEncoder.encode) — kernel inputs
+    depend on volumes only through that resolution."""
+    ctrl = None
+    for ref in pod.metadata.owner_references or []:
+        if ref.controller:
+            ctrl = (ref.kind, ref.uid)
+            break
+    spec = serde.to_dict(pod.spec)
+    if strip_volumes:
+        spec.pop("volumes", None)
+    body = {
+        "ns": pod.metadata.namespace,
+        "labels": pod.metadata.labels,
+        "ctrl": ctrl,
+        "spec": spec,
+    }
+    return json.dumps(body, sort_keys=True, default=str)
