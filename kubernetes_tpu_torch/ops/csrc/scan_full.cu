@@ -2,7 +2,10 @@
 //
 // Replaces the Pallas kernel of kubernetes_tpu/ops/pallas_scan.py
 // (_build_kernel -> kernel, launched by _dispatch) in mode "full", one pod
-// per step, no affinity-term templates. The plain PyTorch version of the
+// per step, as two instantiations of one template: scan_full_kernel<false>
+// (ur = 0, no affinity-term templates) and scan_full_kernel<true> (ur > 0:
+// the InterPodAffinity term machinery of pallas_scan.py:1552-1592 filter,
+// :1680-1693 score, :1417-1435 commit). The plain PyTorch version of the
 // same function is scan_full_reference in ops/scan_kernel.py; the two
 // agree bit for bit.
 //
@@ -13,7 +16,8 @@
 // changes. Design: ONE block of 1024 threads strides the Np node lanes
 // (lane n belongs to thread n % 1024 for the whole launch), the pod loop
 // runs inside the kernel, each reduction goes through shared memory, the
-// scalar table is loaded into shared memory once, and every carry update
+// scalar table (and, with ur > 0, the IPA gate matrices) is loaded into
+// shared memory once, and every carry update
 // is column-local: a thread only ever writes its own lanes, so the
 // same-pair masks need nothing but prow[row, best], read after the block
 // agrees on best. The per-step working set (a few MB at 5000 nodes) stays
@@ -22,8 +26,12 @@
 // Arithmetic that must match the plain version exactly: f32 products and
 // sums go through __fmul_rn / __fadd_rn (no fused multiply-add; the file
 // is also built with -fmad=false), f32 division is __fdiv_rn (IEEE), the
-// log is the library logf, f32 -> int32 casts truncate, and integer
-// divisions floor (floordiv below), as jnp's // does.
+// PTS weight log(n + 2) is read from the host-built table `logw` (equal to
+// the reference's f32 log bit for bit), f32 -> int32 casts truncate, and
+// integer divisions floor (floordiv below), as jnp's // does. The IPA gate
+// products are int32 sums of small integer weights times counts; the
+// reference computes them as f32 dots that its session guards keep exact
+// (scaled weight sums < 2^8, assumed counts < 2^16), so the two agree.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,6 +44,7 @@ constexpr int VZ = 128;       // zone-presence lanes per shared-value key
 constexpr int LANE = 128;     // match lanes per side
 constexpr int MAXC = 8;       // constraint rows per template (CP)
 constexpr int MAXK = 4;       // shared-value topology keys
+constexpr int SUB = 8;        // IPA terms / topology keys per template
 constexpr int POS_BIG = 1 << 30;
 constexpr int NEG_BIG = -(1 << 30);
 constexpr int MAX_NODE_SCORE = 100;
@@ -45,6 +54,18 @@ constexpr long long NO_KEY = -(1LL << 62);
 // indices of the per-(template, constraint) scalar blocks
 enum { W_F_VALID, W_S_VALID, W_F_SKEW, W_S_SKEW, W_F_SELF, W_S_FIRST,
        W_F_KEY, W_S_KEY, W_F_PERNO, W_S_PERNO };
+
+// the launcher's pointer and integer arguments, in the wrapper's order
+// (ops/scan_kernel.py scan_full); the IPA pointers are null when UR == 0
+enum ArgPtr { P_META, P_MATCH, P_SCALARS, P_ALLOC, P_STAT, P_ZID,
+              P_REGROW_F, P_ZVALID_NODE_S, P_ZVALID_S, P_KONN_F, P_KONN_S,
+              P_SHASALL, P_VALID_N, P_PROW_F, P_PROW_S, P_LOGW,
+              P_REQUESTED, P_NZPC, P_CNT_FN, P_CNT_SN, P_OUT, P_WORK,
+              P_IPA_STAT, P_ANTI_STATIC, P_ANTI_KONN, P_AFF_STATIC,
+              P_PROW_IPA, P_G1, P_WANTI, P_WAFF, P_W3TOT, P_W45, P_GPRES,
+              P_UCNT, P_KCNT };
+enum ArgDim { D_T, D_C, D_NP, D_R, D_SR, D_TCP, D_K, D_CP, D_BP, D_UR,
+              D_SMEM, D_W0 };
 
 struct Args {
   const int* meta;           // [1 + Bp]: B_real | tmpl
@@ -62,13 +83,29 @@ struct Args {
   const int* valid_n;        // [8, Np] (row 0 read)
   const int* prow_f;         // [TCp, Np]
   const int* prow_s;         // [TCp, Np]
+  const float* logw;         // [Np + 2]: log(i + 2) in f32
+  // InterPodAffinity term machinery (ur > 0; ScanSession._build_ipa)
+  const int* ipa_stat;       // [ceil8(2T), Np]: fail_existing | aff_all_keys
+  const int* anti_static;    // [T*8, Np] existing-pod anti counts per term
+  const int* anti_konn;      // [T*8, Np] anti term key on node
+  const int* aff_static;     // [T*8, Np] existing-pod affinity counts
+  const int* prow_ipa;       // [8, Np] pair id per IPA key, -1 = no key
+  const float* g1;           // [ceil8(T), UR] D1 gates
+  const float* wanti;        // [T*8, UR] D2 gates
+  const float* waff;         // [T*8, UR] D3 gates
+  const float* w3tot;        // [ceil8(T), UR] D3 totals
+  const float* w45;          // [ceil8(T), UR] D4+D5 GCD-scaled weights
+  const float* gpres;        // [ceil8(T), UR] D4+D5 presence gates
+  int* ucnt;                 // carry [UR, Np]
+  int* kcnt;                 // carry [UR, LANE] (lanes all equal)
   int* requested;            // carry [Rp, Np]
   int* nzpc;                 // carry [8, Np]: nz cpu, nz mem, pods, allowed
   int* cnt_fn;               // carry [TCp, Np]
   int* cnt_sn;               // carry [TCp, Np]
   int* out;                  // [8, Bp]
-  int* work;                 // scratch [2, Np]: lane flags, raw PTS score
-  int T, C, Np, R, SR, TCp, K, CP, Bp;
+  int* work;                 // scratch [3, Np]: lane flags, raw PTS score,
+                             // raw IPA score with the assumed-pod terms
+  int T, C, Np, R, SR, TCp, K, CP, Bp, UR;
   int w[8];                  // balanced image ipa least node_affinity
                              // prefer_avoid pts taint
 };
@@ -103,8 +140,10 @@ __device__ __forceinline__ long long warp_max64(long long x) {
   return x;
 }
 
+template <bool IPA>
 __global__ void __launch_bounds__(THREADS, 1) scan_full_kernel(Args a) {
-  extern __shared__ int sc[];             // the scalar table
+  // the scalar table, then (IPA) the gate matrices as int32
+  extern __shared__ int sc[];
   __shared__ int red1[WARPS * MAXC];      // PTS filter minima
   __shared__ int red2[WARPS * 6];         // feasible-set reductions
   __shared__ int red3[WARPS * 2];         // PTS raw score range
@@ -114,17 +153,43 @@ __global__ void __launch_bounds__(THREADS, 1) scan_full_kernel(Args a) {
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int T = a.T, C = a.C, Np = a.Np, R = a.R, SR = a.SR, K = a.K;
-  const int CP = a.CP, TCp = a.TCp, Bp = a.Bp;
+  const int CP = a.CP, TCp = a.TCp, Bp = a.Bp, UR = a.UR;
   const int row_len = 2 * R + 4;
   const int off_tc = T * row_len;
   const int off_fsame = off_tc + 10 * T * C;
   const int off_ssame = off_fsame + T * C * C;
-  const int n_sc = off_ssame + T * C * C;
+  // IPA scalar extension: has_aff / self_match_all / aff_total [T, 3],
+  // anti_valid then aff_valid [T, 8] each, then the w45 GCD scale
+  const int off_ipa_t = off_ssame + T * C * C;
+  const int off_av = off_ipa_t + 3 * T;
+  const int off_w45s = off_av + 2 * T * SUB;
+  const int n_sc = IPA ? off_w45s + 1 : off_ipa_t;
   for (int i = tid; i < n_sc; i += THREADS) sc[i] = a.scalars[i];
+  // IPA gate matrices (values are small integers stored as f32)
+  const int TU = T * UR;
+  int* g1s = sc + n_sc;          // [T, UR]
+  int* w3s = g1s + TU;           // [T, UR]
+  int* w45s = w3s + TU;          // [T, UR]
+  int* gps = w45s + TU;          // [T, UR]
+  int* wantis = gps + TU;        // [T*8, UR]
+  int* waffs = wantis + SUB * TU;  // [T*8, UR]
+  if (IPA) {
+    for (int i = tid; i < TU; i += THREADS) {
+      g1s[i] = (int)a.g1[i];
+      w3s[i] = (int)a.w3tot[i];
+      w45s[i] = (int)a.w45[i];
+      gps[i] = (int)a.gpres[i];
+    }
+    for (int i = tid; i < SUB * TU; i += THREADS) {
+      wantis[i] = (int)a.wanti[i];
+      waffs[i] = (int)a.waff[i];
+    }
+  }
   __syncthreads();
 
-  int* flags = a.work;       // bit 0 feasible, bit 1 scored
-  int* rawv = a.work + Np;   // truncated raw PTS score (scored lanes)
+  int* flags = a.work;           // bit 0 feasible, bit 1 scored
+  int* rawv = a.work + Np;       // truncated raw PTS score (scored lanes)
+  int* rawi = a.work + 2 * Np;   // raw IPA score incl. D4+D5 (IPA)
   const int B = min(a.meta[0], Bp);
 
   for (int b = 0; b < B; ++b) {
@@ -167,6 +232,30 @@ __global__ void __launch_bounds__(THREADS, 1) scan_full_kernel(Args a) {
       minc[c] = x == POS_BIG ? 0 : x;
     }
 
+    // ---- per-pod IPA scalars from the kcnt carry (written by thread 0
+    // in the previous pod's commit; visible after the barrier above) ----
+    bool pres_dyn = false, counts_empty = false, has_aff = false,
+         smatch = false;
+    int w45_scale = 0;
+    if (IPA) {
+      const int* w3 = w3s + t * UR;
+      const int* gp = gps + t * UR;
+      int at_dyn = 0;
+      for (int r = 0; r < UR; ++r) {
+        const int k0 = a.kcnt[r * LANE];
+        at_dyn += w3[r] * k0;
+        // rowany_r = max_n (ucnt[r, n] > 0) is kcnt[r, 0] > 0 within a
+        // session: both start at zero, and each commit raises kcnt[r]
+        // exactly when it raises some lane of ucnt[r] (at least the
+        // chosen node's own), so no whole-row reduction is needed
+        if (gp[r] != 0 && k0 > 0) pres_dyn = true;
+      }
+      has_aff = sc[off_ipa_t + 3 * t] != 0;
+      smatch = sc[off_ipa_t + 3 * t + 1] != 0;
+      counts_empty = sc[off_ipa_t + 3 * t + 2] + at_dyn == 0;
+      w45_scale = sc[off_w45s];
+    }
+
     // ---- phase 2: feasibility, zone presence, feasible-set ranges ----
     int n_feas = 0, n_scored = 0, min_i = POS_BIG, max_i = NEG_BIG;
     int mx_taint = 0, mx_naff = 0;
@@ -197,6 +286,45 @@ __global__ void __launch_bounds__(THREADS, 1) scan_full_kernel(Args a) {
           if (skew > tc[W_F_SKEW * TC + ci]) feas = false;
         }
       }
+      const int* ucol = a.ucnt + n;    // ucol[r * Np] = ucnt[r, n]
+      if (IPA && feas) {  // InterPodAffinity: static parts + D1-D3
+        bool fail = a.ipa_stat[(2 * t) * Np + n] != 0;
+        // D1: assumed pods' anti terms repel this pod
+        const int* g1r = g1s + t * UR;
+        for (int r = 0; r < UR && !fail; ++r)
+          if (g1r[r] != 0 && ucol[(size_t)r * Np] > 0) fail = true;
+        // D2: assumed pods vs this pod's own anti terms
+        for (int tau = 0; tau < SUB && !fail; ++tau) {
+          const int row = t * SUB + tau;
+          if (sc[off_av + t * SUB + tau] == 0
+              || a.anti_konn[row * Np + n] == 0) continue;
+          int cnt = a.anti_static[row * Np + n];
+          const int* w = wantis + row * UR;
+          for (int r = 0; r < UR; ++r)
+            if (w[r] != 0) cnt += w[r] * ucol[(size_t)r * Np];
+          if (cnt > 0) fail = true;
+        }
+        // D3: assumed pods matching ALL of this pod's affinity terms, with
+        // the first-pod escape (counts empty and the pod matches itself)
+        if (!fail && has_aff) {
+          bool ok = a.ipa_stat[(2 * t + 1) * Np + n] != 0;
+          if (ok) {
+            bool missing = false;
+            for (int tau = 0; tau < SUB && !missing; ++tau) {
+              if (sc[off_av + (T + t) * SUB + tau] == 0) continue;
+              const int row = t * SUB + tau;
+              int cnt = a.aff_static[row * Np + n];
+              const int* w = waffs + row * UR;
+              for (int r = 0; r < UR; ++r)
+                if (w[r] != 0) cnt += w[r] * ucol[(size_t)r * Np];
+              if (cnt <= 0) missing = true;
+            }
+            ok = !missing || (counts_empty && smatch);
+          }
+          fail = !ok;
+        }
+        feas = !fail;
+      }
       int f = 0;
       if (feas) {
         f = 1;
@@ -209,7 +337,15 @@ __global__ void __launch_bounds__(THREADS, 1) scan_full_kernel(Args a) {
             if (z >= 0) zflag[k * VZ + z] = 1;
           }
         }
-        const int ri = a.stat[(t * SR + 1) * Np + n];
+        int ri = a.stat[(t * SR + 1) * Np + n];
+        if (IPA) {  // D4+D5: the int32 dot on GCD-scaled weights, rescaled
+          const int* w = w45s + t * UR;
+          int dyn45 = 0;
+          for (int r = 0; r < UR; ++r)
+            if (w[r] != 0) dyn45 += w[r] * ucol[(size_t)r * Np];
+          ri += dyn45 * w45_scale;
+          rawi[n] = ri;
+        }
         min_i = min(min_i, ri);
         max_i = max(max_i, ri);
         mx_taint = max(mx_taint, a.stat[(t * SR + 2) * Np + n]);
@@ -251,7 +387,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_full_kernel(Args a) {
                     && (a.zvalid_s[(base + tid) * VZ + z] != 0);
         wbase = tc[W_S_FIRST * TC + tid] ? topo : 0;
       }
-      wsh[tid] = logf(__fadd_rn((float)wbase, 2.0f));
+      wsh[tid] = a.logw[wbase];  // log(wbase + 2); wbase <= Np
     }
     __syncthreads();
 
@@ -303,7 +439,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_full_kernel(Args a) {
 
     // ---- phase 4: weighted total and first-max argmax ----
     const int nzr0 = tsc[2 * R + 1], nzr1 = tsc[2 * R + 2];
-    const bool ipa_on = tsc[2 * R + 3] != 0;
+    const bool ipa_on = tsc[2 * R + 3] != 0 || pres_dyn;
     const float diff = (float)(max_i - min_i);
     long long bestkey = NO_KEY;
     for (int n = tid; n < Np; n += THREADS) {
@@ -331,7 +467,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_full_kernel(Args a) {
       // InterPodAffinity static normalize
       int ipa = 0;
       if (ipa_on && diff > 0.0f) {
-        const int ri = a.stat[(t * SR + 1) * Np + n];
+        const int ri = IPA ? rawi[n] : a.stat[(t * SR + 1) * Np + n];
         ipa = (int)__fmul_rn(__fdiv_rn((float)(ri - min_i), diff),
                              (float)MAX_NODE_SCORE);
       }
@@ -399,42 +535,81 @@ __global__ void __launch_bounds__(THREADS, 1) scan_full_kernel(Args a) {
               a.cnt_sn[row * Np + n] += ms * factor;
       }
     }
+    if (IPA) {
+      // the assumed pod joins its node's topology group for every IPA
+      // key the node carries, in template t's 8-row block of ucnt; kcnt
+      // lane l belongs to thread l
+      for (int ki = 0; ki < SUB; ++ki) {
+        const int pv = a.prow_ipa[ki * Np + best];
+        if (pv < 0) continue;
+        int* urow = a.ucnt + (size_t)(t * SUB + ki) * Np;
+        for (int n = tid; n < Np; n += THREADS)
+          if (a.prow_ipa[ki * Np + n] == pv) urow[n] += 1;
+        if (tid < LANE) a.kcnt[(t * SUB + ki) * LANE + tid] += 1;
+      }
+    }
   }
 }
 
 }  // namespace
 
-extern "C" int scan_full_launch(
-    const int* meta, const int8_t* match, const int* scalars,
-    const int* alloc, const int* stat, const int* zid, const int* regrow_f,
-    const int* zvalid_node_s, const int* zvalid_s, const int* konn_f,
-    const int* konn_s, const int* shasall, const int* valid_n,
-    const int* prow_f, const int* prow_s, int* requested, int* nzpc,
-    int* cnt_fn, int* cnt_sn, int* out, int* work,
-    int T, int C, int Np, int R, int SR, int TCp, int K, int CP, int Bp,
-    int w0, int w1, int w2, int w3, int w4, int w5, int w6, int w7,
-    void* stream) {
+// p: the ArgPtr pointers, d: the ArgDim integers then the 8 weights.
+// Launches the IPA instantiation when UR > 0. Returns 0 or a CUDA error
+// (-1 for shapes the kernel does not take).
+extern "C" int scan_full_launch(void* const* p, const int* d, void* stream) {
+  const int T = d[D_T], C = d[D_C], R = d[D_R], TCp = d[D_TCP];
+  const int K = d[D_K], CP = d[D_CP], UR = d[D_UR];
   if (C > MAXC || K > MAXK || TCp > LANE || TCp != T * CP) return -1;
+  if (UR != 0 && UR != T * SUB) return -1;
   Args a;
-  a.meta = meta; a.match = match; a.scalars = scalars; a.alloc = alloc;
-  a.stat = stat; a.zid = zid; a.regrow_f = regrow_f;
-  a.zvalid_node_s = zvalid_node_s; a.zvalid_s = zvalid_s;
-  a.konn_f = konn_f; a.konn_s = konn_s; a.shasall = shasall;
-  a.valid_n = valid_n; a.prow_f = prow_f; a.prow_s = prow_s;
-  a.requested = requested; a.nzpc = nzpc; a.cnt_fn = cnt_fn;
-  a.cnt_sn = cnt_sn; a.out = out; a.work = work;
-  a.T = T; a.C = C; a.Np = Np; a.R = R; a.SR = SR; a.TCp = TCp; a.K = K;
-  a.CP = CP; a.Bp = Bp;
-  a.w[0] = w0; a.w[1] = w1; a.w[2] = w2; a.w[3] = w3;
-  a.w[4] = w4; a.w[5] = w5; a.w[6] = w6; a.w[7] = w7;
-  const int n_sc = T * (2 * R + 4) + 10 * T * C + 2 * T * C * C;
-  const size_t smem = (size_t)n_sc * sizeof(int);
+  a.meta = (const int*)p[P_META];
+  a.match = (const int8_t*)p[P_MATCH];
+  a.scalars = (const int*)p[P_SCALARS];
+  a.alloc = (const int*)p[P_ALLOC];
+  a.stat = (const int*)p[P_STAT];
+  a.zid = (const int*)p[P_ZID];
+  a.regrow_f = (const int*)p[P_REGROW_F];
+  a.zvalid_node_s = (const int*)p[P_ZVALID_NODE_S];
+  a.zvalid_s = (const int*)p[P_ZVALID_S];
+  a.konn_f = (const int*)p[P_KONN_F];
+  a.konn_s = (const int*)p[P_KONN_S];
+  a.shasall = (const int*)p[P_SHASALL];
+  a.valid_n = (const int*)p[P_VALID_N];
+  a.prow_f = (const int*)p[P_PROW_F];
+  a.prow_s = (const int*)p[P_PROW_S];
+  a.logw = (const float*)p[P_LOGW];
+  a.ipa_stat = (const int*)p[P_IPA_STAT];
+  a.anti_static = (const int*)p[P_ANTI_STATIC];
+  a.anti_konn = (const int*)p[P_ANTI_KONN];
+  a.aff_static = (const int*)p[P_AFF_STATIC];
+  a.prow_ipa = (const int*)p[P_PROW_IPA];
+  a.g1 = (const float*)p[P_G1];
+  a.wanti = (const float*)p[P_WANTI];
+  a.waff = (const float*)p[P_WAFF];
+  a.w3tot = (const float*)p[P_W3TOT];
+  a.w45 = (const float*)p[P_W45];
+  a.gpres = (const float*)p[P_GPRES];
+  a.ucnt = (int*)p[P_UCNT];
+  a.kcnt = (int*)p[P_KCNT];
+  a.requested = (int*)p[P_REQUESTED];
+  a.nzpc = (int*)p[P_NZPC];
+  a.cnt_fn = (int*)p[P_CNT_FN];
+  a.cnt_sn = (int*)p[P_CNT_SN];
+  a.out = (int*)p[P_OUT];
+  a.work = (int*)p[P_WORK];
+  a.T = T; a.C = C; a.Np = d[D_NP]; a.R = R; a.SR = d[D_SR]; a.TCp = TCp;
+  a.K = K; a.CP = CP; a.Bp = d[D_BP]; a.UR = UR;
+  for (int i = 0; i < 8; ++i) a.w[i] = d[D_W0 + i];
+  // dynamic shared memory: the scalar table (with the IPA extension),
+  // then the six gate matrices as int32, sized by the caller
+  // (scan_kernel.smem_bytes)
+  const size_t smem = (size_t)d[D_SMEM];
+  void (*kernel)(Args) = UR ? scan_full_kernel<true> : scan_full_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        scan_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  scan_full_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -9,8 +9,9 @@ reference vmaps `one` over the template axis; here it is a loop over
 templates whose outputs are stacked.
 
 The numpy helpers (template fingerprints, host-side match matrices,
-batch buckets) are copies. The term machinery, the scan steps and
-HoistedSession are later slices of the port.
+batch buckets) are copies; the term gates (`_term_gates`) and the
+`dyn_ipa` prologue feed the scan kernel's affinity-term branch. The
+hoisted scan steps and HoistedSession are later slices of the port.
 
 Reference frame: this replaces findNodesThatPassFilters +
 RunScorePlugins (pkg/scheduler/core/generic_scheduler.go:235,
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from . import kernel as K
-from .eval import eval_reqs, eval_reqs_single
+from .eval import eval_reqs, eval_reqs_single, ns_member
 from .kernel import _CNT
 
 TEMPLATE_KEYS_EXCLUDED = ("node_name_idx", "has_node_name")
@@ -90,6 +91,64 @@ def _stack_templates(templates: List[Dict], device) -> Dict[str, torch.Tensor]:
     out["node_name_idx"] = torch.full((t,), -1, dtype=torch.int32,
                                       device=device)
     return out
+
+
+# ---------------------------------------------------------------------------
+# template term machinery: what makes affinity pods batchable.
+#
+# A session-assumed pod of template u changes, for every LATER pod of
+# template t, exactly these InterPodAffinity quantities (filtering.go /
+# scoring.go semantics):
+#   D1 its required ANTI terms now repel t wherever t matches them;
+#   D2 it now counts toward t's own required-anti term counts;
+#   D3 it now counts toward t's required-affinity term counts (iff it
+#      matches ALL of t's terms);
+#   D4 its score terms (required-affinity at hardPodAffinityWeight,
+#      preferred ±weight) now contribute to t's raw IPA score;
+#   D5 it now counts toward t's preferred-term score counts.
+# All five reduce to topology-group counts of assumed pods, gated by the
+# STATIC template×term match booleans below.
+
+
+def _term_gates(tp: Dict) -> Dict[str, torch.Tensor]:
+    """Static template×term match tensors.
+
+    M_anti[a, τ, b]: template b's self row matches template a's required
+    anti-affinity term τ (selector + namespaces + validity). Same layout
+    for M_aff (required affinity) and M_pref (preferred, signed-weight
+    terms). match_all[a, b]: b matches ALL of a's required-affinity terms
+    (podMatchesAllAffinityTerms, filtering.go:357). G_ipa[u, t]: assuming
+    a template-u pod can perturb a template-t evaluation (symmetrized
+    superset for the multipod conflict test). The reference vmaps over
+    the entity template; here it is a loop."""
+
+    def fam(prefix, u):
+        m = eval_reqs_single(
+            tp[f"{prefix}_op"], tp[f"{prefix}_rkey"], tp[f"{prefix}_pairs"],
+            tp["self_ppair"][u], tp["self_pkey"][u],
+        )  # [T, X]
+        return (m & ns_member(tp[f"{prefix}_ns"], tp["self_ns"][u])
+                & tp[f"{prefix}_valid"])
+
+    t_n = tp["self_ns"].shape[0]
+    m_anti, m_aff, m_pref = (
+        torch.stack([fam(prefix, u) for u in range(t_n)], dim=-1)
+        for prefix in ("ipaaa", "ipaa", "ipap")
+    )  # each [T(owner), X, T(entity)]
+    has_aff = tp["ipaa_valid"].any(dim=1)  # [T]
+    match_all = (
+        torch.where(tp["ipaa_valid"][:, :, None], m_aff,
+                    torch.ones_like(m_aff)).all(dim=1)
+        & has_aff[:, None]
+    )  # [T(owner), T(entity)]
+    a1 = m_anti.any(dim=1)
+    a2 = m_aff.any(dim=1)
+    a3 = m_pref.any(dim=1)
+    g = a1 | a1.T | a2 | a2.T | a3 | a3.T | match_all | match_all.T
+    return {
+        "M_anti": m_anti, "M_aff": m_aff, "M_pref": m_pref,
+        "match_all": match_all, "G_ipa": g,
+    }
 
 
 def templates_have_terms(templates: List[Dict]) -> bool:
@@ -196,19 +255,25 @@ def _pts_template_static(c: Dict, p: Dict, node_match):
     )
 
 
-def _prologue(c: Dict, tp: Dict) -> Dict[str, torch.Tensor]:
+def _prologue(c: Dict, tp: Dict, dyn_ipa: bool = False
+              ) -> Dict[str, torch.Tensor]:
     """Per-template static arrays, stacked over the template axis.
 
-    The InterPodAffinity and NodePorts masks are folded into static_mask:
-    the sessions of this slice take neither term templates nor host
-    ports, whose in-scan counterparts are later slices."""
+    dyn_ipa: leave the InterPodAffinity mask OUT of static_mask and expose
+    its static parts (`ipa_*`) and the term gates separately, so the scan
+    can recombine them with its in-scan assumed-pod counts. The NodePorts
+    mask is always folded in: host-port templates ride the hoisted
+    session, a later slice of the port."""
 
     def one(p):
         node_match = K._node_match(c, p)
         _, mask_unsched, mask_taint, mask_ports, _ = K._filter_basics(c, p)
-        mask_ipa, _ = K.ipa_compose(p, K._ipa_filter_parts(c, p))
+        parts = K._ipa_filter_parts(c, p)
+        mask_ipa, _ = K.ipa_compose(p, parts)
         static_mask = (c["valid"] & mask_unsched & mask_taint & node_match
-                       & mask_ports & mask_ipa)
+                       & mask_ports)
+        if not dyn_ipa:
+            static_mask = static_mask & mask_ipa
         raw_ipa, ipa_present = K._score_ipa_raw(c, p)
         out = dict(
             static_mask=static_mask,
@@ -220,19 +285,25 @@ def _prologue(c: Dict, tp: Dict) -> Dict[str, torch.Tensor]:
             sc_image=K._score_image(c, p),
             sc_avoid=K._score_prefer_avoid(c, p),
         )
+        if dyn_ipa:
+            out.update({f"ipa_{k}": v for k, v in parts.items()})
         out.update(_pts_template_static(c, p, node_match))
         return out
 
     t_n = tp["self_ns"].shape[0]
     per_t = [one({k: v[t] for k, v in tp.items()}) for t in range(t_n)]
-    return {k: torch.stack([o[k] for o in per_t]) for k in per_t[0]}
+    S = {k: torch.stack([o[k] for o in per_t]) for k in per_t[0]}
+    if dyn_ipa:
+        S.update(_term_gates(tp))
+    return S
 
 
-def _session_prologue(c_all: Dict, tp: Dict) -> Dict[str, torch.Tensor]:
+def _session_prologue(c_all: Dict, tp: Dict, dyn_ipa: bool = False
+                      ) -> Dict[str, torch.Tensor]:
     """The prologue a session runs once at construction (counterpart of
     the reference's jitted _session_prologue)."""
     with torch.no_grad():
-        return _prologue(c_all, tp)
+        return _prologue(c_all, tp, dyn_ipa)
 
 
 def _eval_reqs_batch_np(op, key, pairs, pair_vecs, key_vecs):

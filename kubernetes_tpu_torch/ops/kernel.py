@@ -158,7 +158,8 @@ def _ipa_scatter_terms(c: Dict, match_pt, keys, valid):
         _seg_sum(m[:, t].to(_CNT), pair_pt[:, t], vnp)
         for t in range(pair_pt.shape[1])
     ])  # [T, Vnp]
-    out = cnt.sum(dim=0, dtype=_CNT)
+    # summed to int64, as the reference's jnp.sum of int32 counts
+    out = cnt.sum(dim=0, dtype=_I64)
     out[0] = 0
     return out  # [Vnp]
 

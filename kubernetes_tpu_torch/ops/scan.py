@@ -22,9 +22,16 @@ Layout notes (the same as the reference's, so the two compare directly):
   value) for the zone-presence registration of the score pass.
 - the node axis is padded to Np = ceil(N, 128).
 
-This slice runs mode "full" with one pod per step and no affinity-term
-templates or host ports; those shapes raise SessionUnsupported with a
-fixed reason slug and are later slices.
+- **affinity-term templates** (InterPodAffinity D1–D5, `_build_ipa`):
+  the assumed pods' effect on later pods is kept as per-node counts,
+  carry `ucnt` row (u*8 + ki) = assumed template-u pods in node n's
+  topology group of key ki, and `kcnt` row (u*8 + ki) = their total;
+  static template×term gate and weight matrices turn them into the
+  D1–D5 terms.
+
+This slice runs mode "full" with one pod per step, with or without
+affinity-term templates; host-port templates and multi-pod steps raise
+SessionUnsupported with a fixed reason slug and are later slices.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..models.encoding import _upload
 from ..models.vocab import bucket_capacity
 from .hoisted import (
     SESSION_TP_NP_KEYS,
+    TERM_NP_KEYS,
     _session_prologue,
     _stack_templates,
     batch_bucket,
@@ -49,7 +57,14 @@ from .hoisted import (
     templates_have_terms,
 )
 from .kernel import DEFAULT_WEIGHTS, MAX_NODE_SCORE
-from .scan_kernel import WEIGHT_ORDER, scan_full
+from .scan_kernel import (
+    IPA_STATIC_KEYS,
+    SMEM_DYNAMIC_MAX,
+    WEIGHT_ORDER,
+    log_weights,
+    scan_full,
+    smem_bytes,
+)
 
 VZ = 128          # compact pair-value lanes per shared-value key
 LANE = 128
@@ -57,9 +72,10 @@ SUB = 8
 POS_BIG = 2 ** 30
 
 CARRY_KEYS = ("requested", "nzpc", "cnt_fn", "cnt_sn")
+IPA_CARRY_KEYS = ("ucnt", "kcnt")
 STATIC_KEYS = ("scalars", "alloc", "stat", "zid", "regrow_f",
                "zvalid_node_s", "zvalid_s", "konn_f", "konn_s", "shasall",
-               "valid_n", "prow_f", "prow_s")
+               "valid_n", "prow_f", "prow_s", "logw")
 
 
 class SessionUnsupported(Exception):
@@ -67,7 +83,9 @@ class SessionUnsupported(Exception):
 
     `reason` is a FIXED slug per raise site (no interpolated shape
     numbers), the same slugs as the reference's PallasUnsupported, plus
-    the shapes this slice of the port leaves to later ones."""
+    `multipod` (a shape a later slice of the port takes) and
+    `smem-budget` (the CUDA kernel's shared-memory limit, which takes the
+    place of the reference's TPU `ipa-vmem-budget`)."""
 
     def __init__(self, message: str, reason: str = "other"):
         super().__init__(message)
@@ -137,11 +155,9 @@ class ScanSession:
                 "templates with host ports ride the hoisted session",
                 reason="host-ports",
             )
-        if templates_have_terms(template_arrays_list):
-            raise SessionUnsupported(
-                "affinity-term templates are not ported yet",
-                reason="affinity-terms",
-            )
+        # affinity-term templates ride the kernel's IPA branch: the D1-D5
+        # deltas become per-node count carries (see _build_ipa)
+        self.dyn_ipa = templates_have_terms(template_arrays_list)
         if multipod_k != 1:
             raise SessionUnsupported(
                 f"multipod_k={multipod_k}: only one pod per step is ported",
@@ -170,9 +186,38 @@ class ScanSession:
         # numpy copies of the selector tables schedule() evaluates on the
         # HOST per batch (match_matrices_np)
         self._tp_np = {k: _host(tp[k]) for k in SESSION_TP_NP_KEYS}
-        S = {k: _host(v) for k, v in _session_prologue(cluster, tp).items()}
+        # the templates' own affinity terms, as numpy: the reference's
+        # session-delta classifier reads them (a foreign pod matching one
+        # perturbs the prologue statics, not just the carry)
+        self._term_np = ({k: _host(tp[k]) for k in TERM_NP_KEYS}
+                         if self.dyn_ipa else None)
+        S = {k: _host(v) for k, v in
+             _session_prologue(cluster, tp, dyn_ipa=self.dyn_ipa).items()}
         c = {k: _host(v) for k, v in cluster.items()}
         self._build(c, S)
+        self._ipa = self._build_ipa(c, S) if self.dyn_ipa else None
+        if self._ipa is not None:
+            # scalar-table extension: [T,3] has_aff/self_match_all/
+            # aff_total, then anti_valid/aff_valid [T,8] each, then the
+            # w45 GCD scale — the reference's layout
+            extra = np.concatenate([
+                np.stack([
+                    self._ipa["has_aff"], self._ipa["self_match_all"],
+                    self._ipa["aff_total"],
+                ], axis=1).reshape(-1),
+                self._ipa["anti_valid"].reshape(-1),
+                self._ipa["aff_valid"].reshape(-1),
+                np.array([self._ipa["w45_scale"]]),
+            ]).astype(np.int32)
+            self._scalars = np.concatenate([self._scalars, extra])
+        self.UR = self._ipa["UR"] if self._ipa is not None else 0
+        self.carry_keys = CARRY_KEYS + (IPA_CARRY_KEYS if self.UR else ())
+        # the kernel stages the scalar table and the IPA gate matrices in
+        # shared memory: refuse what a block cannot hold
+        if smem_bytes(self.T, self.C, self.R, self.UR) > SMEM_DYNAMIC_MAX:
+            raise SessionUnsupported(
+                "scalar table and IPA gate matrices exceed the kernel's "
+                "shared memory", reason="smem-budget")
         self._carry: Optional[Dict[str, torch.Tensor]] = None
         self._statics: Optional[Dict[str, torch.Tensor]] = None
 
@@ -381,9 +426,195 @@ class ScanSession:
         if TCp > LANE:
             raise SessionUnsupported(f"T*CP={TCp} exceeds {LANE} match lanes",
                                      reason="too-many-match-lanes")
+        # PTS score weights log(n + 2), n in [0, Np]: one table read by the
+        # kernel and the plain version alike (bit-equal to the reference)
+        self._logw = log_weights(Np + 2)
+        # multipod IPA interference superset, row u / lane t (filled by
+        # _build_ipa; zeros without term templates) — read by the
+        # multi-pod conflict test, which is a later slice of the port
+        self._gmat = np.zeros((_ceil(T, SUB), LANE), np.float32)
 
         # scalar table (read once per launch into shared memory)
         self._scalars = self._pack_scalars(S)
+
+    def _build_ipa(self, c: Dict, S: Dict) -> Dict:
+        """InterPodAffinity term machinery for the kernel (the reference's
+        PallasSession._build_ipa, pallas_scan.py:582, array for array).
+
+        The hoisted scan's D1-D5 deltas all reduce to per-(assumed-template
+        u, topology key ki) counts gathered at each node's (ki, value)
+        group, kept PER NODE: carry row (u*8 + ki) of `ucnt` holds, for
+        every node n, the number of session-assumed u-pods in n's ki-group
+        — updated on assume with a same-pair mask from `prow_ipa` (pair id
+        per node per key; -1 where the node lacks the key, so rows never
+        accumulate on keyless nodes). `kcnt` row (u*8+ki) carries the
+        total (lanes all equal). Every D1-D5 read is then a STATIC
+        gate/weight matrix (template × term match booleans from
+        _term_gates) times ucnt:
+          D1 fail-existing  : g1[t] . (ucnt > 0) > 0
+          D2 own-anti counts: wanti[t-block] @ ucnt  (+ static anti rows)
+          D3 own-aff counts : waff[t-block] @ ucnt   (+ static aff rows)
+          D4+D5 score       : w45[t] @ ucnt  (weights pre-folded)
+          presence flags    : gpres[t] . rowany(ucnt > 0)
+          aff_total delta   : w3tot[t] . kcnt[:, 0]
+        The matrices are f32 as the reference's; their values are small
+        integers, and the kernel computes these products in int32."""
+        T, N, Np = self.T, self.N, self.Np
+        tp = self._tp
+        aa_key = _host(tp["ipaaa_key"])
+        aa_valid = _host(tp["ipaaa_valid"]).astype(bool)
+        a_key = _host(tp["ipaa_key"])
+        a_valid = _host(tp["ipaa_valid"]).astype(bool)
+        p_key = _host(tp["ipap_key"])
+        p_valid = _host(tp["ipap_valid"]).astype(bool)
+        p_w = _host(tp["ipap_weight"]).astype(np.int64)
+        if aa_key.shape[1] > SUB or a_key.shape[1] > SUB:
+            raise SessionUnsupported(
+                f"{max(aa_key.shape[1], a_key.shape[1])} required "
+                f"(anti-)affinity terms > {SUB} per template",
+                reason="too-many-ipa-terms")
+        # distinct topology keys across every template's valid terms
+        keys: set = set()
+        for k_tbl, v_tbl in ((aa_key, aa_valid), (a_key, a_valid),
+                             (p_key, p_valid)):
+            keys.update(int(x) for x in k_tbl[v_tbl])
+        ki_list = sorted(keys)
+        if len(ki_list) > SUB:
+            raise SessionUnsupported(f"{len(ki_list)} IPA topology keys > {SUB}",
+                                     reason="too-many-ipa-keys")
+        ki_of = {k: i for i, k in enumerate(ki_list)}
+        UR = T * SUB  # ucnt rows: (u * 8 + ki)
+        # (the reference's VMEM budget guard has no counterpart: the
+        # kernel's own limit is its shared memory, checked by the caller)
+
+        pok = c["pair_of_key"].astype(np.int64)  # [N, K]
+        nkey = c["nkey"].astype(bool)
+        valid_nodes = c["valid"].astype(bool)
+        prow_ipa = np.full((SUB, Np), -1, np.int32)
+        for i, key in enumerate(ki_list):
+            ok = nkey[:, key] & valid_nodes
+            prow_ipa[i, :N] = np.where(ok, pok[:, key], -1)
+        if prow_ipa.max(initial=0) >= 2 ** 24:
+            raise SessionUnsupported("IPA pair ids exceed exact-f32 range",
+                                     reason="pair-ids-exceed-f32")
+
+        M_anti = S["M_anti"].astype(bool)        # [T, TAA, T]
+        M_aff = S["M_aff"].astype(bool)          # [T, TA, T]
+        M_pref = S["M_pref"].astype(bool)        # [T, TP, T]
+        match_all = S["match_all"].astype(bool)  # [T, T]
+        hard_w = int(c["hard_pod_affinity_weight"])
+
+        # multipod template-interference superset (symmetrized: a false
+        # positive only costs a replay, never a wrong decision)
+        self._gmat[:T, :T] = S["G_ipa"].astype(np.float32)
+
+        t_pad = _ceil(T, SUB)  # per-template matrices: row t (T can be >8)
+        g1 = np.zeros((t_pad, UR), np.float32)
+        wanti = np.zeros((T * SUB, UR), np.float32)
+        waff = np.zeros((T * SUB, UR), np.float32)
+        w3tot = np.zeros((t_pad, UR), np.float32)
+        w45_i = np.zeros((t_pad, UR), np.int64)
+        gpres = np.zeros((t_pad, UR), np.float32)
+
+        def cx(u, key):
+            return u * SUB + ki_of[int(key)]
+
+        for t in range(T):
+            # D1: assumed u-pods' anti terms repel t where t matches them
+            for u in range(T):
+                for tau in range(aa_key.shape[1]):
+                    if aa_valid[u, tau] and M_anti[u, tau, t]:
+                        g1[t, cx(u, aa_key[u, tau])] = 1.0
+            # D2: assumed pods counting toward t's own anti terms
+            for tau in range(aa_key.shape[1]):
+                if not aa_valid[t, tau]:
+                    continue
+                for u in range(T):
+                    if M_anti[t, tau, u]:
+                        wanti[t * SUB + tau, cx(u, aa_key[t, tau])] = 1.0
+            # D3: assumed pods matching ALL of t's affinity terms
+            for tau in range(a_key.shape[1]):
+                if not a_valid[t, tau]:
+                    continue
+                for u in range(T):
+                    if match_all[t, u]:
+                        waff[t * SUB + tau, cx(u, a_key[t, tau])] = 1.0
+                        w3tot[t, cx(u, a_key[t, tau])] += 1.0
+            # D4: assumed pods' score terms vs t (required-aff at
+            # hardPodAffinityWeight; preferred at signed weight) and
+            # D5: t's own preferred terms vs assumed pods
+            for u in range(T):
+                for tau in range(a_key.shape[1]):
+                    if a_valid[u, tau] and M_aff[u, tau, t] and hard_w > 0:
+                        w45_i[t, cx(u, a_key[u, tau])] += hard_w
+                        gpres[t, cx(u, a_key[u, tau])] = 1.0
+                for tau in range(p_key.shape[1]):
+                    if p_valid[u, tau] and M_pref[u, tau, t]:
+                        w45_i[t, cx(u, p_key[u, tau])] += int(p_w[u, tau])
+                        gpres[t, cx(u, p_key[u, tau])] = 1.0
+                for tau in range(p_key.shape[1]):
+                    if p_valid[t, tau] and M_pref[t, tau, u]:
+                        w45_i[t, cx(u, p_key[t, tau])] += int(p_w[t, tau])
+                        gpres[t, cx(u, p_key[t, tau])] = 1.0
+        # score-dot exactness: the weights shed their common GCD (the
+        # kernel multiplies the int32 dot back by w45_scale), and with
+        # session assumed counts capped at 2^16 the scaled dot must stay
+        # below 2^24: sum|w/g| < 2^8 ...
+        w45_scale = _gcd_all(w45_i)
+        w45_i //= w45_scale
+        scaled_sum = int(np.abs(w45_i).sum(axis=1).max(initial=0))
+        if scaled_sum >= 256:
+            raise SessionUnsupported(
+                "IPA score weights too large for exact f32 dot",
+                reason="ipa-score-weights")
+        # ... and the restored magnitude keeps clear of the 2^30 score
+        # sentinel at the same count cap
+        if w45_scale * scaled_sum >= 2 ** 14:
+            raise SessionUnsupported(
+                "IPA score weights too large for int32 score headroom",
+                reason="ipa-score-weights")
+
+        # static per-term per-node blocks (rows t*8+term)
+        anti_static = np.zeros((T * SUB, Np), np.int32)
+        anti_konn = np.zeros((T * SUB, Np), np.int32)
+        aff_static = np.zeros((T * SUB, Np), np.int32)
+        anti_cnt_n = S["ipa_anti_cnt_n"]         # [T, N, TAA]
+        anti_kon = S["ipa_anti_key_on_node"]
+        aff_cnt_n = S["ipa_aff_cnt_n"]           # [T, N, TA]
+        for t in range(T):
+            for tau in range(aa_key.shape[1]):
+                anti_static[t * SUB + tau, :N] = anti_cnt_n[t, :, tau]
+                anti_konn[t * SUB + tau, :N] = anti_kon[t, :, tau]
+            for tau in range(a_key.shape[1]):
+                aff_static[t * SUB + tau, :N] = aff_cnt_n[t, :, tau]
+        # per-template per-node statics (rows t*2 / t*2+1)
+        ipa_stat = np.zeros((_ceil(2 * T, SUB), Np), np.int32)
+        for t in range(T):
+            ipa_stat[2 * t, :N] = S["ipa_fail_existing"][t]
+            ipa_stat[2 * t + 1, :N] = S["ipa_aff_all_keys"][t]
+        if max(int(anti_static.max(initial=0)),
+               int(aff_static.max(initial=0))) >= POS_BIG:
+            raise SessionUnsupported("IPA static counts exceed sentinel",
+                                     reason="score-magnitude")
+
+        def pad_tc(a):  # [T, X<=8] -> [T, 8] zero-padded
+            out = np.zeros((T, SUB), a.dtype)
+            out[:, :a.shape[1]] = a
+            return out
+
+        return dict(
+            UR=UR,
+            prow_ipa=prow_ipa, ipa_stat=ipa_stat,
+            anti_static=anti_static, anti_konn=anti_konn,
+            aff_static=aff_static,
+            g1=g1, wanti=wanti, waff=waff, w3tot=w3tot,
+            w45=w45_i.astype(np.float32), w45_scale=w45_scale, gpres=gpres,
+            has_aff=S["ipa_has_aff"].astype(np.int32),
+            self_match_all=S["ipa_self_match_all"].astype(np.int32),
+            aff_total=S["ipa_aff_total"].astype(np.int32),
+            anti_valid=pad_tc(aa_valid.astype(np.int32)),
+            aff_valid=pad_tc(a_valid.astype(np.int32)),
+        )
 
     def _pack_scalars(self, S) -> np.ndarray:
         per_t = np.concatenate([
@@ -416,18 +647,28 @@ class ScanSession:
         return _upload(a, self.device)
 
     def _initial_carry(self) -> Dict[str, torch.Tensor]:
-        return {
+        carry = {
             "requested": self._upload(self._requested0),
             "nzpc": self._upload(self._nzpc0),
             "cnt_fn": self._upload(self._cnt_fn0),
             "cnt_sn": self._upload(self._cnt_sn0),
         }
+        if self.UR:
+            # the session starts with zero ASSUMED pods (existing pods
+            # live in the static tables)
+            carry["ucnt"] = self._upload(np.zeros((self.UR, self.Np),
+                                                  np.int32))
+            carry["kcnt"] = self._upload(np.zeros((self.UR, LANE), np.int32))
+        return carry
 
     def _get_statics(self) -> Dict[str, torch.Tensor]:
         if self._statics is None:
             self._statics = {
                 k: self._upload(getattr(self, f"_{k}")) for k in STATIC_KEYS
             }
+            if self.UR:
+                self._statics.update(
+                    {k: self._upload(self._ipa[k]) for k in IPA_STATIC_KEYS})
         return self._statics
 
     def _pack_batch(self, B, Bp, tmpl, mfa, msa):

@@ -2,14 +2,19 @@
 
 Replaces the Pallas kernel of kubernetes_tpu/ops/pallas_scan.py
 (`_build_kernel` -> `kernel`, launched by `_dispatch`) in mode "full"
-with one pod per step and no affinity-term templates (ur = 0). For each
-pod of the batch, in order, against the live carry: the static mask,
-NodeResourcesFit on GCD-rescaled int32 resources, the PodTopologySpread
-filter, balanced / least allocated, the PodTopologySpread score with its
-log(n + 2) weights, the InterPodAffinity static normalize, the taint and
-node-affinity default normalize, the weighted total and the first-max
-argmax (min lane among the maxima); then the commit of the chosen node
-into the carries `requested`, `nzpc`, `cnt_fn`, `cnt_sn`, in place.
+with one pod per step, in two compile-time variants of one CUDA kernel:
+`scan_full` (ur = 0, no affinity-term templates) and `scan_full_ipa`
+(ur > 0: the InterPodAffinity term machinery, pallas_scan.py:1552-1592,
+:1680-1693, :1417-1435). For each pod of the batch, in order, against
+the live carry: the static mask, NodeResourcesFit on GCD-rescaled int32
+resources, the PodTopologySpread filter, with ur > 0 the IPA filter over
+the assumed-pod counts (D1-D3), balanced / least allocated, the
+PodTopologySpread score with its log(n + 2) weights, the InterPodAffinity
+normalize (with ur > 0 over the static raw score plus the assumed-pod
+terms D4+D5), the taint and node-affinity default normalize, the
+weighted total and the first-max argmax (min lane among the maxima);
+then the commit of the chosen node into the carries `requested`,
+`nzpc`, `cnt_fn`, `cnt_sn` (and `ucnt`, `kcnt` with ur > 0), in place.
 
 What bounds it on the card: not bytes and not arithmetic, but the chain
 of dependent steps. Each pod needs whole-node-axis reductions (the PTS
@@ -17,18 +22,18 @@ minimum, the feasible count and zone presence, the PTS score range, the
 argmax) before the next can start, and its commit before the next pod's
 filter. The design: one thread block strides the Np node lanes, keeps
 the pod loop inside the kernel (one launch per batch), does each
-reduction in shared memory, holds the scalar table in shared memory,
-and updates the carries in global memory column-locally — every thread
-only ever writes its own lanes, so the same-pair masks need nothing but
-`prow[row, best]`, read after the block agrees on `best`. At 5000 nodes
-the per-step working set is a few MB and stays in the 50 MB L2. A
-multi-block cooperative design is later work.
+reduction in shared memory, holds the scalar table (and the IPA gate
+matrices) in shared memory, and updates the carries in global memory
+column-locally — every thread only ever writes its own lanes, so the
+same-pair masks need nothing but `prow[row, best]`, read after the block
+agrees on `best`. At 5000 nodes the per-step working set is a few MB and
+stays in the 50 MB L2. A multi-block cooperative design is later work.
 
 `scan_full_reference` is the plain PyTorch version: a loop over pods of
 tensor ops with the same int32 / f32 arithmetic (floor divisions,
-truncating casts, no fused multiply-add, IEEE division, `log`). The
-wrapper `scan_full` sends CPU tensors to it and CUDA tensors to the
-kernel; on CUDA it raises if the build or the launch fails.
+truncating casts, no fused multiply-add, IEEE division, the `log_weights`
+table). The wrapper `scan_full` sends CPU tensors to it and CUDA tensors
+to the kernel; on CUDA it raises if the build or the launch fails.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import time
 from pathlib import Path
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 WEIGHT_ORDER = ("balanced", "image", "ipa", "least", "node_affinity",
@@ -54,9 +60,22 @@ MAX_NODE_SCORE = 100
 (W_F_VALID, W_S_VALID, W_F_SKEW, W_S_SKEW, W_F_SELF, W_S_FIRST,
  W_F_KEY, W_S_KEY, W_F_PERNO, W_S_PERNO) = range(10)
 
-# launches of the CUDA kernel (one per batch); the plain version does
-# not count
+# IPA statics of a term-template session, in the kernel's argument order
+IPA_STATIC_KEYS = ("ipa_stat", "anti_static", "anti_konn", "aff_static",
+                   "prow_ipa", "g1", "wanti", "waff", "w3tot", "w45",
+                   "gpres")
+# the per-template IPA scalar extension: has_aff/self_match_all/aff_total
+# [T, 3], anti_valid/aff_valid [T, 8] each, w45_scale
+IPA_SCALARS_PER_T = 3 + 2 * 8
+
+# launches of the CUDA kernel (one per batch), in all and per variant;
+# the plain version does not count
 LAUNCHES = 0
+VARIANT_LAUNCHES = {"scan_full": 0, "scan_full_ipa": 0}
+
+# dynamic shared memory the kernel may ask for: the card's 227 KB per
+# block less room for the kernel's static shared arrays
+SMEM_DYNAMIC_MAX = 227 * 1024 - 8 * 1024
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "scan_full.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -64,6 +83,58 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 
 _LIB = None
+
+# XLA's CPU f32 log (the Cephes / Eigen `plog` polynomial): the SQRT(1/2)
+# fold threshold, the 9 polynomial coefficients p0..p8, and ln 2 split as
+# q2 + q1 (bit patterns, so the constants are exactly the compiled ones)
+_LOG_SQRTHF = 0x3F3504F3
+_LOG_P = (0x3D9021BB, 0xBDEBD1B8, 0x3DEF251A, 0xBDFE5D4F, 0x3E11E9BF,
+          0xBE2AAE50, 0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA)
+_LOG_Q1 = -2.12194440e-4
+_LOG_Q2 = 0.693359375
+
+
+def _f32(bits: int) -> np.float32:
+    return np.array(bits, np.uint32).view(np.float32)[()]
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """f32 fused multiply-add, emulated: the f32 x f32 product is exact
+    in f64, and the f64 sum rounded to f32 equals the fused result on
+    every argument log_weights is held to (tests/test_torch_scan.py)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def log_weights(n: int) -> np.ndarray:
+    """f32 table [n]: logw[i] == log(f32(i) + 2) exactly as the reference
+    computes the PodTopologySpread score weight (`jnp.log` on the CPU,
+    pallas_scan.py:1655), bit for bit.
+
+    The weight's argument is always an integer in [0, Np] (n_scored or a
+    zone count), so the kernel and the plain version both index this
+    table instead of calling a log of their own: a correctly rounded log
+    (torch's) differs from XLA's by one ulp at 575 of the first 65536
+    arguments. This is a numpy emulation of XLA's CPU f32 log, operation
+    by operation in f32, with the multiply-adds fused where the compiled
+    code fuses them."""
+    f32 = np.float32
+    v = np.arange(n, dtype=f32) + f32(2.0)     # >= 2: normal, positive
+    u = v.view(np.uint32)
+    e = f32(1.0) + ((u >> 23).astype(np.int32) - 127).astype(f32)
+    m = ((u & np.uint32(0x807FFFFF)) | np.uint32(0x3F000000)).view(f32)
+    fold = m < _f32(_LOG_SQRTHF)               # mantissa in [0.5, 1)
+    x = (m - f32(1.0)) + np.where(fold, m, f32(0.0))
+    e = e - np.where(fold, f32(1.0), f32(0.0))
+    x2 = x * x
+    x3 = x2 * x
+    p = [_f32(b) for b in _LOG_P]
+    y = _fma(_fma(x, p[0], p[1]), x, p[2])
+    y1 = _fma(_fma(x, p[3], p[4]), x, p[5])
+    y2 = _fma(_fma(x, p[6], p[7]), x, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, f32(_LOG_Q1) * e)
+    r = _fma(f32(-0.5), x2, x) + y
+    return _fma(f32(_LOG_Q2), e, r)
 
 
 def _nvcc() -> str:
@@ -95,15 +166,29 @@ def build(verbose: bool = False) -> float:
     return time.perf_counter() - t0
 
 
+def n_scalars(T: int, C: int, R: int, UR: int) -> int:
+    """Length of ScanSession's scalar table (with the IPA extension when
+    UR > 0)."""
+    n = T * (2 * R + 4) + 10 * T * C + 2 * T * C * C
+    return n + (IPA_SCALARS_PER_T * T + 1 if UR else 0)
+
+
+def smem_bytes(T: int, C: int, R: int, UR: int) -> int:
+    """Dynamic shared memory of one launch: the scalar table, and with
+    UR > 0 the six gate matrices as int32 (g1, w3tot, w45, gpres [T, UR];
+    wanti, waff [T*8, UR])."""
+    return 4 * (n_scalars(T, C, R, UR) + (20 * T * UR if UR else 0))
+
+
 def _lib():
     global _LIB
     if _LIB is None:
         build()
         lib = ctypes.CDLL(str(BUILD_DIR / "libscan_full.so"))
-        P = ctypes.c_void_p
-        I = ctypes.c_int
-        lib.scan_full_launch.argtypes = [P] * 21 + [I] * 9 + [I] * 8 + [P]
-        lib.scan_full_launch.restype = I
+        lib.scan_full_launch.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+            ctypes.c_void_p]
+        lib.scan_full_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -118,11 +203,18 @@ def _check(name: str, t: torch.Tensor, dtype, shape: Tuple[int, ...],
             f"{t.device}")
 
 
-def _validate(meta, match, statics, carry, shapes):
+def _ceil8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def _validate(meta, match, statics, carry, shapes) -> int:
+    """Check every input the kernel reads; returns UR (0 without the
+    IPA carries)."""
     T, C, Np, R, SR, TCp, K, CP = shapes
+    UR = carry["ucnt"].shape[0] if "ucnt" in carry else 0
     Bp = meta.shape[0] - 1
     dev = meta.device
-    i32 = torch.int32
+    i32, f32 = torch.int32, torch.float32
     Rp = carry["requested"].shape[0]
     _check("meta", meta, i32, (1 + Bp,), dev)
     _check("match", match, torch.int8, (Bp, 2 * LANE), dev)
@@ -136,8 +228,9 @@ def _validate(meta, match, statics, carry, shapes):
     _check("shasall", statics["shasall"], i32,
            (statics["shasall"].shape[0], Np), dev)
     _check("valid_n", statics["valid_n"], i32, (8, Np), dev)
-    n_sc = T * (2 * R + 4) + 10 * T * C + 2 * T * C * C
-    _check("scalars", statics["scalars"], i32, (n_sc,), dev)
+    _check("logw", statics["logw"], f32, (Np + 2,), dev)
+    _check("scalars", statics["scalars"], i32, (n_scalars(T, C, R, UR),),
+           dev)
     _check("requested", carry["requested"], i32, (Rp, Np), dev)
     _check("nzpc", carry["nzpc"], i32, (8, Np), dev)
     _check("cnt_fn", carry["cnt_fn"], i32, (TCp, Np), dev)
@@ -145,6 +238,21 @@ def _validate(meta, match, statics, carry, shapes):
     if Rp < R or statics["shasall"].shape[0] < T or TCp != T * CP \
             or C > CP or K > 4 or TCp > LANE:
         raise ValueError(f"scan_full: inconsistent shapes {shapes}")
+    if UR:
+        if UR != T * 8:
+            raise ValueError(f"scan_full: UR={UR} != 8 * T ({T})")
+        _check("ipa_stat", statics["ipa_stat"], i32, (_ceil8(2 * T), Np),
+               dev)
+        for k in ("anti_static", "anti_konn", "aff_static"):
+            _check(k, statics[k], i32, (T * 8, Np), dev)
+        _check("prow_ipa", statics["prow_ipa"], i32, (8, Np), dev)
+        for k in ("g1", "w3tot", "w45", "gpres"):
+            _check(k, statics[k], f32, (_ceil8(T), UR), dev)
+        for k in ("wanti", "waff"):
+            _check(k, statics[k], f32, (T * 8, UR), dev)
+        _check("ucnt", carry["ucnt"], i32, (UR, Np), dev)
+        _check("kcnt", carry["kcnt"], i32, (UR, LANE), dev)
+    return UR
 
 
 def scan_full(meta: torch.Tensor, match: torch.Tensor,
@@ -152,12 +260,13 @@ def scan_full(meta: torch.Tensor, match: torch.Tensor,
               carry: Dict[str, torch.Tensor], shapes: Tuple[int, ...],
               weights: Tuple[int, ...]) -> torch.Tensor:
     """Schedule one batch: meta = [B_real | tmpl[Bp]] int32, match int8
-    [Bp, 256]; statics and carries as ScanSession lays them out; shapes
-    = (T, C, Np, R, SR, TCp, K, CP); weights in WEIGHT_ORDER. Updates the
-    carries in place and returns out int32 [8, Bp] (row 0 best lane or
-    −1, row 1 score or −1, row 2 n_feasible; −1 elsewhere)."""
+    [Bp, 256]; statics and carries as ScanSession lays them out (the IPA
+    statics and the `ucnt`/`kcnt` carries select the ur > 0 variant);
+    shapes = (T, C, Np, R, SR, TCp, K, CP); weights in WEIGHT_ORDER.
+    Updates the carries in place and returns out int32 [8, Bp] (row 0
+    best lane or −1, row 1 score or −1, row 2 n_feasible; −1 elsewhere)."""
     global LAUNCHES
-    _validate(meta, match, statics, carry, shapes)
+    UR = _validate(meta, match, statics, carry, shapes)
     if meta.device.type == "cpu":
         return scan_full_reference(meta, match, statics, carry, shapes,
                                    weights)
@@ -166,23 +275,32 @@ def scan_full(meta: torch.Tensor, match: torch.Tensor,
     T, C, Np, R, SR, TCp, K, CP = shapes
     Bp = meta.shape[0] - 1
     out = torch.full((8, Bp), -1, dtype=torch.int32, device=meta.device)
+    work = torch.empty((3, Np), dtype=torch.int32, device=meta.device)
     s = statics
-    ptrs = [meta, match, s["scalars"], s["alloc"], s["stat"], s["zid"],
-            s["regrow_f"], s["zvalid_node_s"], s["zvalid_s"], s["konn_f"],
-            s["konn_s"], s["shasall"], s["valid_n"], s["prow_f"],
-            s["prow_s"], carry["requested"], carry["nzpc"], carry["cnt_fn"],
-            carry["cnt_sn"], out,
-            torch.empty((2, Np), dtype=torch.int32, device=meta.device)]
+    # pointer order: the kernel's ArgPtr enum (csrc/scan_full.cu)
+    tensors = [meta, match, s["scalars"], s["alloc"], s["stat"], s["zid"],
+               s["regrow_f"], s["zvalid_node_s"], s["zvalid_s"],
+               s["konn_f"], s["konn_s"], s["shasall"], s["valid_n"],
+               s["prow_f"], s["prow_s"], s["logw"], carry["requested"],
+               carry["nzpc"], carry["cnt_fn"], carry["cnt_sn"], out, work]
+    ipa = [s[k] for k in IPA_STATIC_KEYS] + [carry["ucnt"], carry["kcnt"]] \
+        if UR else []
+    # without IPA carries the IPA pointers are null
+    ptrs = ([t.data_ptr() for t in tensors + ipa]
+            + [0] * (len(IPA_STATIC_KEYS) + 2 - len(ipa)))
+    # int order: the kernel's ArgDim enum; ScanSession refuses a session
+    # whose shared memory exceeds SMEM_DYNAMIC_MAX (`smem-budget`)
+    dims = [T, C, Np, R, SR, TCp, K, CP, Bp, UR, smem_bytes(T, C, R, UR),
+            *[int(w) for w in weights]]
     lib = _lib()
     with torch.cuda.device(meta.device):
         stream = torch.cuda.current_stream(meta.device).cuda_stream
-        err = lib.scan_full_launch(
-            *[t.data_ptr() for t in ptrs],
-            T, C, Np, R, SR, TCp, K, CP, Bp, *[int(w) for w in weights],
-            stream)
+        err = lib.scan_full_launch((ctypes.c_void_p * len(ptrs))(*ptrs),
+                                   (ctypes.c_int * len(dims))(*dims), stream)
     if err != 0:
         raise RuntimeError(f"scan_full kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    VARIANT_LAUNCHES["scan_full_ipa" if UR else "scan_full"] += 1
     return out
 
 
@@ -197,8 +315,11 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
                         weights: Tuple[int, ...]) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same function, a Python
     loop over pods of tensor ops on whatever device the inputs live on.
-    Pods at b >= B_real commit nothing and keep their −1 out column."""
+    Pods at b >= B_real commit nothing and keep their −1 out column. The
+    IPA gate products (ur > 0) are integer sums of products of the small
+    integer weights and the counts, as the reference's exact f32 dots."""
     T, C, Np, R, SR, TCp, K, CP = shapes
+    UR = carry["ucnt"].shape[0] if "ucnt" in carry else 0
     Wb, Wi, Wipa, Wl, Wna, Wpa, Wpts, Wt = (int(w) for w in weights)
     dev = meta.device
     i32, f32 = torch.int32, torch.float32
@@ -211,6 +332,10 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
     off_tc = T * row_len
     off_fsame = off_tc + 10 * T * C
     off_ssame = off_fsame + T * C * C
+    # IPA scalar extension (ur > 0)
+    off_ipa_t = off_ssame + T * C * C
+    off_av = off_ipa_t + 3 * T
+    off_w45s = off_av + 2 * T * 8
 
     def sm_t(t, i):
         return sc[t * row_len + i]
@@ -221,9 +346,18 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
     alloc, stat = statics["alloc"], statics["stat"]
     zid, zvalid_s = statics["zid"], statics["zvalid_s"]
     valid_n = statics["valid_n"][0]
+    logw = statics["logw"]
     requested, nzpc = carry["requested"], carry["nzpc"]
     cnt_fn, cnt_sn = carry["cnt_fn"], carry["cnt_sn"]
     prow_f, prow_s = statics["prow_f"], statics["prow_s"]
+    if UR:
+        ucnt, kcnt = carry["ucnt"], carry["kcnt"]
+        prow_ipa, ipa_stat = statics["prow_ipa"], statics["ipa_stat"]
+        # the f32 gate / weight matrices hold small integers
+        g1, wanti, waff, w3tot, w45, gpres = (
+            statics[k].to(i32) for k in ("g1", "wanti", "waff", "w3tot",
+                                          "w45", "gpres"))
+        w45_scale = sc[off_w45s]
     out = torch.full((8, Bp), -1, dtype=i32, device=dev)
     lane = torch.arange(Np, dtype=i32, device=dev)
     zero_i = torch.zeros(Np, dtype=i32, device=dev)
@@ -272,7 +406,43 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
             skew = cnt_n + sm_tc(W_F_SELF, t, ci) - min_c
             fail_pts |= ~konn | (skew > sm_tc(W_F_SKEW, t, ci))
 
-        feasible = ((static_mask != 0) & mask_fit & ~fail_pts
+        # ---- InterPodAffinity filter: static parts + assumed-pod counts
+        # (D1-D3 over the ucnt / kcnt carries) ----
+        mask_ipa = torch.ones(Np, dtype=torch.bool, device=dev)
+        if UR:
+            rows8 = slice(t * 8, t * 8 + 8)
+            pos = ucnt > 0                                       # [UR, Np]
+            # D1: assumed pods' anti terms repel this pod
+            fail1 = ((g1[t][:, None] != 0) & pos).any(dim=0)
+            # D2: assumed pods vs this pod's own anti terms
+            anti_dyn = (wanti[rows8, :, None] * ucnt[None]).sum(dim=1)
+            avld = torch.tensor(sc[off_av + t * 8:off_av + t * 8 + 8],
+                                device=dev) != 0
+            fail_anti = (avld[:, None] & (statics["anti_konn"][rows8] != 0)
+                         & ((statics["anti_static"][rows8] + anti_dyn) > 0)
+                         ).any(dim=0)
+            # D3: assumed pods matching ALL of this pod's affinity terms
+            aff_dyn = (waff[rows8, :, None] * ucnt[None]).sum(dim=1)
+            fvld = torch.tensor(
+                sc[off_av + (T + t) * 8:off_av + (T + t) * 8 + 8],
+                device=dev) != 0
+            pods_missing = (fvld[:, None]
+                            & ((statics["aff_static"][rows8] + aff_dyn) <= 0)
+                            ).any(dim=0)
+            at_dyn = int((w3tot[t] * kcnt[:, 0]).sum())
+            counts_empty = sc[off_ipa_t + t * 3 + 2] + at_dyn == 0
+            has_aff = sc[off_ipa_t + t * 3] != 0
+            smatch = sc[off_ipa_t + t * 3 + 1] != 0
+            aff_allk = ipa_stat[2 * t + 1] != 0
+            if has_aff:
+                aff_ok = aff_allk & (~pods_missing
+                                     | bool(counts_empty and smatch))
+            else:
+                aff_ok = mask_ipa
+            mask_ipa = (~((ipa_stat[2 * t] != 0) | fail1) & ~fail_anti
+                        & aff_ok)
+
+        feasible = ((static_mask != 0) & mask_fit & ~fail_pts & mask_ipa
                     & (valid_n != 0))
         n_feasible = int(feasible.sum())
 
@@ -332,8 +502,7 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
                     regn = torch.zeros(Np, dtype=torch.bool, device=dev)
                 wbase = topo if sm_tc(W_S_FIRST, t, cc) != 0 else 0
                 cnt_n = torch.where(regn, sh, zero_i)
-            weight = torch.log(
-                torch.tensor(float(wbase), dtype=f32, device=dev) + 2.0)
+            weight = logw[wbase]                  # log(wbase + 2) in f32
             konn = statics["konn_s"][row] != 0
             bias = torch.tensor(float(sm_tc(W_S_SKEW, t, cc) - 1), dtype=f32,
                                 device=dev)
@@ -351,11 +520,20 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
         norm = torch.where(ignored, zero_i, norm)
         sc_pts = norm if have_s else zero_i
 
-        # ---- InterPodAffinity static normalize ----
+        # ---- InterPodAffinity score: static raw + assumed-pod terms
+        # (D4+D5; the int32 dot on GCD-scaled weights, then the scale) ----
+        present = sm_t(t, 2 * R + 3) != 0
+        if UR:
+            dyn45 = (w45[t][:, None] * ucnt).sum(dim=0).to(i32)
+            raw_ipa = raw_ipa + dyn45 * w45_scale
+            rowany = pos.any(dim=1)                              # [UR]
+            present = present or bool(((gpres[t] != 0) & rowany).any())
+
+        # ---- InterPodAffinity normalize ----
         min_i = fmin(raw_ipa, feasible, POS_BIG)
         max_i = fmax(raw_ipa, feasible, NEG_BIG)
         diff = float(torch.tensor(max_i - min_i, dtype=i32).to(f32))
-        if diff > 0 and sm_t(t, 2 * R + 3) != 0:
+        if diff > 0 and present:
             dt = torch.tensor(diff, dtype=f32, device=dev)
             ipa = (((raw_ipa - min_i).to(f32) / dt) * 100.0).to(i32)
         else:
@@ -407,4 +585,12 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
                 pv = int(prow_s[row, best])
                 if factor and pv >= 0:
                     cnt_sn[row] += ms * factor * (prow_s[row] == pv).to(i32)
+        if UR:
+            # the assumed pod joins its node's topology group for every
+            # IPA key the node carries, in template t's 8-row block
+            for ki in range(8):
+                pv = int(prow_ipa[ki, best])
+                if pv >= 0:
+                    ucnt[t * 8 + ki] += (prow_ipa[ki] == pv).to(i32)
+                    kcnt[t * 8 + ki] += 1
     return out

@@ -15,11 +15,22 @@ from kubernetes_tpu.ops.hoisted import _stack_templates as ref_stack
 from kubernetes_tpu.ops.hoisted import template_fingerprint
 from kubernetes_tpu.testing.synth import synth_cluster, synth_pending_pods
 from kubernetes_tpu_torch.models.encoding import cluster_from_numpy
-from kubernetes_tpu_torch.ops.hoisted import _session_prologue, _stack_templates
+from kubernetes_tpu_torch.ops.hoisted import (
+    _session_prologue,
+    _stack_templates,
+    templates_have_terms,
+)
 
+from . import test_pallas_scan as pallas_tests
 from .test_hoisted import _encode_all, _presized_encoding
 from .test_kernel_parity import random_cluster, random_pending
 from .util import make_pod
+
+# TestPallasTerms' helpers (the module, not the class, is imported so
+# that pytest does not collect the reference's tests here a second time)
+_affinity = pallas_tests._affinity
+_nodes = pallas_tests.TestPallasTerms()._nodes
+_pref_only_affinity = pallas_tests.TestPallasTerms._pref_only_affinity
 
 
 def _capacity_nodes():
@@ -55,11 +66,12 @@ def _mixed_templates():
     return nodes, init_pods, pending
 
 
-def _fuzz(seed):
+def _fuzz(seed, keep_terms=False):
     """tests/test_pallas_scan.py TestPallasFuzz style: random nodes,
     existing pods with affinity terms and host ports; pending pods keep
     their spreads, tolerations, selectors and node affinity, without host
-    ports or pod (anti-)affinity terms (later slices of the port)."""
+    ports (a later slice of the port). keep_terms keeps the pending pods'
+    pod (anti-)affinity terms too, as TestPallasFuzz does."""
     rng = random.Random(1000 + seed)
     nodes, init_pods = random_cluster(rng)
     pending = []
@@ -68,12 +80,44 @@ def _fuzz(seed):
         p.metadata.name = f"fz-{seed}-{i}"
         for c in p.spec.containers:
             c.ports = None
-        if p.spec.affinity is not None:
+        if p.spec.affinity is not None and not keep_terms:
             p.spec.affinity.pod_affinity = None
             p.spec.affinity.pod_anti_affinity = None
         p.spec.node_name = ""
         pending.append(p)
     return nodes, init_pods, pending
+
+
+def _terms(lbl, affinity, n_nodes=16, n_existing=6, n_pending=24):
+    """TestPallasTerms._case: existing bound pods and pending pods share
+    one label set and one affinity."""
+    nodes = _nodes(n_nodes)
+    existing = [make_pod(f"ex-{i}", labels=dict(lbl), affinity=affinity,
+                         node_name=f"n-{i * 2}")
+                for i in range(n_existing)]
+    pending = [make_pod(f"p-{i}", labels=dict(lbl), affinity=affinity)
+               for i in range(n_pending)]
+    return nodes, existing, pending
+
+
+def _weight100_preferred(anti):
+    """Plain pods mixed with weight-100 preferred zone (anti-)affinity
+    pods (the SchedulingPreferredPod(Anti)Affinity template shape)."""
+    aff = _pref_only_affinity(100, {"app": "aff"}, anti=anti)
+    pending = [make_pod(f"pl-{i}", labels={"app": "aff"}) if i % 3 == 0
+               else make_pod(f"pr-{i}", labels={"app": "aff"}, affinity=aff)
+               for i in range(18)]
+    return _nodes(12), [], pending
+
+
+def _cross_template_anti():
+    """Template A's zone anti terms repel template B pods (which carry
+    A's selected label but no terms) assumed in the same session."""
+    aff_a = _affinity(zone=True, anti=True, labels={"grp": "x"})
+    pending = [make_pod(f"a-{i}", labels={"grp": "x"}, affinity=aff_a)
+               if i % 2 == 0 else make_pod(f"b-{i}", labels={"grp": "x"})
+               for i in range(16)]
+    return _nodes(12), [], pending
 
 
 # name -> (builder () -> (nodes, init_pods, pending), batch size)
@@ -92,14 +136,46 @@ SHAPES = {
         lambda: synth_cluster(12, pods_per_node=2)
         + (synth_pending_pods(24, spread=True),), 24),
 }
+# affinity-term templates: the shapes of tests/test_pallas_scan.py
+# TestPallasTerms
+TERM_SHAPES = {
+    "terms_hostname_required_anti": (
+        lambda: _terms({"app": "a"}, _affinity(zone=False, anti=True,
+                                               labels={"app": "a"})), 10),
+    "terms_zone_required_anti": (
+        lambda: _terms({"app": "z"}, _affinity(zone=True, anti=True,
+                                               labels={"app": "z"})), 10),
+    "terms_required_affinity_first_pod_escape": (
+        lambda: _terms({"svc": "b"}, _affinity(zone=True, anti=False,
+                                               labels={"svc": "b"}),
+                       n_existing=0), 10),
+    "terms_preferred_score": (
+        lambda: _terms({"w": "c"}, _affinity(zone=False, anti=True,
+                                             labels={"w": "c"},
+                                             pref=(40, {"w": "c"}, True))),
+        10),
+    "terms_weight100_preferred": (lambda: _weight100_preferred(False), 6),
+    "terms_weight100_preferred_anti": (lambda: _weight100_preferred(True), 6),
+    "terms_cross_template_anti": (_cross_template_anti, 8),
+    "terms_survive_batches": (
+        lambda: _terms({"app": "m"}, _affinity(zone=False, anti=True,
+                                               labels={"app": "m"}),
+                       n_nodes=10, n_existing=0, n_pending=20), 4),
+}
+SHAPES.update(TERM_SHAPES)
 FUZZ_SEEDS = (0, 2, 5)
-CASES = list(SHAPES) + [f"fuzz-{s}" for s in FUZZ_SEEDS]
+# TestPallasFuzz seeds whose pending pods keep their (anti-)affinity terms
+TERM_FUZZ_SEEDS = (1, 3, 6)
+CASES = (list(SHAPES) + [f"fuzz-{s}" for s in FUZZ_SEEDS]
+         + [f"fuzzterms-{s}" for s in TERM_FUZZ_SEEDS])
 
 
 def build_case(name):
     """(reference encoding, pending pod arrays, templates, batch)."""
-    if name.startswith("fuzz-"):
-        nodes, init_pods, pending = _fuzz(int(name.split("-")[1]))
+    if name.startswith("fuzz"):
+        kind, seed = name.split("-")
+        nodes, init_pods, pending = _fuzz(int(seed),
+                                          keep_terms=kind == "fuzzterms")
         batch = 5
     else:
         builder, batch = SHAPES[name]
@@ -119,10 +195,17 @@ def build_case(name):
 
 @pytest.mark.parametrize("case", CASES)
 def test_session_prologue_equals_reference(case):
+    """Term-template cases run the dyn_ipa prologue (the affinity mask
+    left out of static_mask, its parts and the term gates exposed)."""
     enc, _, templates, _ = build_case(case)
-    ref = ref_prologue(enc.device_state(), ref_stack(templates))
+    dyn_ipa = templates_have_terms(templates)
+    assert dyn_ipa == (case.startswith("terms_")
+                       or case.startswith("fuzzterms-"))
+    ref = ref_prologue(enc.device_state(), ref_stack(templates),
+                       dyn_ipa=dyn_ipa)
     got = _session_prologue(cluster_from_numpy(enc.host_snapshot(), "cpu"),
-                            _stack_templates(templates, "cpu"))
+                            _stack_templates(templates, "cpu"),
+                            dyn_ipa=dyn_ipa)
     assert set(got) == set(ref)
     for k in sorted(ref):
         a, b = np.asarray(ref[k]), got[k].numpy()
