@@ -30,7 +30,31 @@ Phases (each raises on failure; the script then exits non-zero):
    app=aff pods, 5000 pending pods with the preferred (or required) zone
    affinity toward app=aff, batches of 904 (warm-up), 2048 and 2048;
    every pod must be placed, the ur > 0 variant launched once per batch,
-   and the first measured batch must equal the plain version.
+   and the first measured batch must equal the plain version;
+7. multi-pod steps (mk = 4 pods per step, the conflict-suffix contract):
+   a. on the phase-3 and phase-5 clusters, one mk=4 launch against the
+      plain version (out rows 0-3 and carries), then `schedule_exact`
+      (the suffix replay) over every batch, whose decisions and final
+      carries must equal an mk=1 session's;
+   b. at full size on a zone-pinned tenant mix: synth_cluster(5000,
+      n_zones=4) and 3 x 4096 pods of four tenants, tenant t pinned to
+      zone-t by a required node affinity (SchedulingNodeAffinity-5000n,
+      scripts/bench_configs.py:290-295, split into four node pools); an
+      mk=1 and an mk=4 session over the same batches must place every
+      pod with equal decisions and carries, and the first measured mk=4
+      batch must equal the plain version; scan_multi and scan_full are
+      timed on that batch from the same carry;
+   c. at full size on the conflict-heavy batches (the phase-4 zone-spread
+      batch and the phase-6 preferred-affinity batch): one `schedule` of
+      an mk=4 session on the same cluster, from a copy of the carry (one
+      launch each), rows and carries == plain version;
+8. the "eval" and "apply" modes: on the first batch of the phase-3 and
+   phase-5 clusters, eval -> apply pod by pod replays full mode exactly
+   and a forced -1 leaves the carries bit-identical; each mode's kernel
+   equals the plain version; at full size, the phase-4 session's
+   `evaluate` over its first measured batch and `apply_decisions` of
+   that batch's decisions, from the carry before it (one launch each):
+   both == plain version, and the apply reproduces full mode's carry.
 
 It prints the kernels' line, then `{"ok": true, "device": {...}}` last.
 It needs a CUDA card and imports nothing of JAX or of the JAX package.
@@ -48,8 +72,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH = 4096
 AFF_BATCHES = (904, 2048, 2048)   # scheduler_perf max_batch 2048, 5000 pods
+MK = 4                           # pods per multi-pod step in phase 7
+TENANTS = 4
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
+SOURCE = "kubernetes_tpu_torch/ops/csrc/scan_full.cu"
+REPLACES = "kubernetes_tpu/ops/pallas_scan.py"
 
 
 def log(msg: str) -> None:
@@ -130,68 +158,129 @@ def reset_counts(sk):
     sk.VARIANT_LAUNCHES.update(dict.fromkeys(sk.VARIANT_LAUNCHES, 0))
 
 
-def batch_inputs(sess, arrays):
-    """The kernel inputs ScanSession.schedule builds for this batch."""
+def only(sk, **counts):
+    """The launch counts expected when only the named variants ran."""
+    want = dict.fromkeys(sk.VARIANT_LAUNCHES, 0)
+    want.update(counts)
+    return want
+
+
+def batch_inputs(sess, arrays, mode="full"):
+    """The kernel inputs ScanSession builds for this batch."""
     import torch
     from kubernetes_tpu_torch.ops.scan import LANE, batch_prologue
 
     Bp, tmpl, mfa, msa = batch_prologue(sess._fps, sess._tp_np, arrays,
-                                        minimum=LANE)
+                                        minimum=LANE,
+                                        require_unbound=mode == "full")
     meta, match = sess._pack_batch(len(arrays), Bp, tmpl, mfa, msa)
     return (torch.from_numpy(meta).to(sess.device),
             torch.from_numpy(match).to(sess.device))
+
+
+def forced_pairs(sess, decisions, Bp):
+    """apply's int32 [2*Bp] payload of (lane | -1, ok) pairs."""
+    import torch
+
+    fv = torch.zeros(2 * Bp, dtype=torch.int32)
+    for i, d in enumerate(decisions):
+        fv[2 * i] = d if d >= 0 else -1
+        fv[2 * i + 1] = 1 if d >= 0 else 0
+    return fv.to(sess.device)
 
 
 def clone(carry):
     return {k: v.clone() for k, v in carry.items()}
 
 
+def carries_equal(a, b) -> bool:
+    import torch
+
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def carry_err(carry_a, carry_b) -> int:
+    return max(int((carry_a[k].long() - carry_b[k].long()).abs().max())
+               for k in carry_a)
+
+
 def max_abs_err(out_a, out_b, n, carry_a, carry_b) -> int:
-    err = int((out_a[:3, :n].long() - out_b[:3, :n].long()).abs().max())
-    for k in carry_a:
-        err = max(err, int((carry_a[k].long() - carry_b[k].long())
-                           .abs().max()))
-    return err
+    err = int((out_a[:4, :n].long() - out_b[:4, :n].long()).abs().max())
+    return max(err, carry_err(carry_a, carry_b))
 
 
-def kernel_vs_plain(sess, arrays, carry):
-    """Kernel and plain version on the same inputs from equal carries;
-    returns (max_abs_err, kernel out, kernel ms, plain ms). `carry` is
-    advanced by the kernel."""
+def weights_of(sk, sess):
+    return tuple(int(sess.weights[k]) for k in sk.WEIGHT_ORDER)
+
+
+def kernel_vs_plain(sess, arrays, carry, mode="full", mk=1, decisions=None):
+    """Kernel and plain version on the same inputs from equal carries, in
+    `mode` with mk pods per step (apply: `decisions` forced); returns
+    (max_abs_err, kernel out, kernel ms, plain ms). `carry` is advanced
+    by the kernel."""
     import torch
     from kubernetes_tpu_torch.ops import scan_kernel as sk
 
-    meta, match = batch_inputs(sess, arrays)
-    weights = tuple(int(sess.weights[k]) for k in sk.WEIGHT_ORDER)
+    meta, match = batch_inputs(sess, arrays, mode)
+    forced = (forced_pairs(sess, decisions, meta.shape[0] - 1)
+              if mode == "apply" else None)
+    weights = weights_of(sk, sess)
     ref_carry = clone(carry)
     statics = sess._get_statics()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
-    out = sk.scan_full(meta, match, statics, carry, sess.shapes, weights)
+    out = sk.scan_full(meta, match, statics, carry, sess.shapes, weights,
+                       mode=mode, mk=mk, forced=forced)
     e1.record()
     torch.cuda.synchronize()
     kernel_ms = e0.elapsed_time(e1)
     t0 = time.perf_counter()
     ref = sk.scan_full_reference(meta, match, statics, ref_carry,
-                                 sess.shapes, weights)
+                                 sess.shapes, weights, mode=mode, mk=mk,
+                                 forced=forced)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     n = len(arrays)
-    equal = torch.equal(out[:3, :n], ref[:3, :n]) and all(
-        torch.equal(carry[k], ref_carry[k]) for k in carry)
+    equal = torch.equal(out[:4, :n], ref[:4, :n]) and carries_equal(
+        carry, ref_carry)
     err = max_abs_err(out, ref, n, carry, ref_carry)
     if not equal:
-        raise AssertionError(f"scan_full (UR={sess.UR}) kernel != plain "
-                             f"version (max abs err {err})")
+        raise AssertionError(f"scan_full (UR={sess.UR}, mode={mode}, "
+                             f"mk={mk}) kernel != plain version (max abs "
+                             f"err {err})")
     return err, out, kernel_ms, plain_ms
 
 
-def phase_small():
-    """~600 nodes, 4 templates, 2 batches of 256: kernel == plain."""
+def time_kernel(sess, arrays, carry, mode="full", mk=1, decisions=None,
+                runs=3):
+    """Median CUDA-event ms of `runs` launches, each from a copy of
+    `carry`; returns (median, the runs)."""
+    import torch
+    from kubernetes_tpu_torch.ops import scan_kernel as sk
+
+    meta, match = batch_inputs(sess, arrays, mode)
+    forced = (forced_pairs(sess, decisions, meta.shape[0] - 1)
+              if mode == "apply" else None)
+    times = []
+    for _ in range(runs):
+        c = clone(carry)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        sk.scan_full(meta, match, sess._get_statics(), c, sess.shapes,
+                     weights_of(sk, sess), mode=mode, mk=mk, forced=forced)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times), times
+
+
+def small_case():
+    """~600 nodes, 4 templates, 512 pods in batches of 256 (phase 3)."""
     from kubernetes_tpu_torch.api import types as v1
-    from kubernetes_tpu_torch.ops.scan import ScanSession
     from kubernetes_tpu_torch.testing.synth import make_pod, synth_cluster
 
     nodes, init_pods = synth_cluster(600, pods_per_node=1, seed=7)
@@ -234,7 +323,17 @@ def phase_small():
         pending.append(p)
     enc, pe = presized_encoding(nodes, init_pods, pending)
     arrays, templates = encode_templates(pe, pending)
-    sess = ScanSession(enc.device_state("cuda"), templates, device="cuda")
+    return {"label": "phase-3 cluster", "enc": enc, "arrays": arrays,
+            "templates": templates, "batch": 256, "nodes": len(nodes)}
+
+
+def phase_small(case):
+    """Phase 3: kernel == plain on the ~600-node cluster."""
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+
+    arrays = case["arrays"]
+    sess = ScanSession(case["enc"].device_state("cuda"), case["templates"],
+                       multipod_k=1, device="cuda")
     carry = sess._initial_carry()
     err = 0
     placed = unplaced = 0
@@ -250,7 +349,7 @@ def phase_small():
     if unplaced == 0 or placed == 0:
         raise AssertionError(f"small cluster: expected both placed and "
                              f"unplaced pods, got {placed}/{unplaced}")
-    log(f"phase 3: kernel == plain on {len(nodes)} nodes, T={sess.T}, "
+    log(f"phase 3: kernel == plain on {case['nodes']} nodes, T={sess.T}, "
         f"{len(arrays)} pods in 2 batches ({placed} placed, {unplaced} "
         "unschedulable)")
     log(f"phase 3: scan_full {[round(x, 3) for x in kernel_ms]} ms per "
@@ -280,12 +379,11 @@ def affinity(v1, kind, labels, key):
         required_during_scheduling_ignored_during_execution=[term]))
 
 
-def phase_terms_small(gpu):
-    """~600 nodes, 4 term templates, 2 batches of 512: the ur > 0 kernel
-    == plain. Bound pods carry the hostname anti-affinity on 400 of the
-    nodes, so the anti-affine template runs out of nodes."""
+def terms_case():
+    """~600 nodes, 4 term templates, 1024 pods in batches of 512 (phase
+    5). Bound pods carry the hostname anti-affinity on 400 of the nodes,
+    so the anti-affine template runs out of nodes."""
     from kubernetes_tpu_torch.api import types as v1
-    from kubernetes_tpu_torch.ops.scan import ScanSession
     from kubernetes_tpu_torch.testing.synth import make_pod, synth_cluster
 
     nodes, init_pods = synth_cluster(600, pods_per_node=1, seed=11)
@@ -307,15 +405,26 @@ def phase_terms_small(gpu):
                                            v1.LABEL_ZONE))
         elif t == 2:  # weight-100 preferred zone anti-affinity
             p = make_pod(f"pref-{i}", cpu="200m", labels={"tier": "pref"},
-                       affinity=affinity(v1, "pref-anti", {"tier": "pref"},
-                                         v1.LABEL_ZONE))
+                         affinity=affinity(v1, "pref-anti", {"tier": "pref"},
+                                           v1.LABEL_ZONE))
         else:         # plain, with the label template 0's terms select
             p = make_pod(f"plain-{i}", cpu="50m", labels={"app": "anti"})
         pending.append(p)
     enc, pe = reserved_encoding(nodes, init_pods, pending,
                                 anti_terms=len(init_pods) + len(pending))
     arrays, templates = encode_templates(pe, pending)
-    sess = ScanSession(enc.device_state("cuda"), templates, device="cuda")
+    return {"label": "phase-5 cluster", "enc": enc, "arrays": arrays,
+            "templates": templates, "batch": 512, "nodes": len(nodes)}
+
+
+def phase_terms_small(gpu, case):
+    """Phase 5: the ur > 0 kernel == plain on the ~600-node term
+    cluster."""
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+
+    arrays = case["arrays"]
+    sess = ScanSession(case["enc"].device_state("cuda"), case["templates"],
+                       multipod_k=1, device="cuda")
     if not sess.UR:
         raise AssertionError("term templates did not select the ur > 0 "
                              "variant")
@@ -336,7 +445,7 @@ def phase_terms_small(gpu):
         raise AssertionError(f"term cluster: expected unschedulable "
                              f"anti-affine pods and every other template "
                              f"placed, got {placed} of 256 each")
-    log(f"phase 5: scan_full_ipa == plain on {len(nodes)} nodes, "
+    log(f"phase 5: scan_full_ipa == plain on {case['nodes']} nodes, "
         f"T={sess.T}, UR={sess.UR}, {len(arrays)} pods in 2 batches, "
         f"placed per template {placed} of 256")
     log(f"phase 5: scan_full_ipa {[round(x, 3) for x in kernel_ms]} ms per "
@@ -344,10 +453,112 @@ def phase_terms_small(gpu):
     return err
 
 
+def phase_zone_spread(sk, gpu):
+    """Phase 4: the main path at full size. Returns its numbers and the
+    session (and its mk=4 twin on the same cluster), the first measured
+    batch, the carry before it and the carry after it (the kernel's, from
+    that carry)."""
+    import torch
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+    from kubernetes_tpu_torch.testing.synth import (
+        synth_cluster,
+        synth_pending_pods,
+    )
+
+    t0 = time.perf_counter()
+    nodes, init_pods = synth_cluster(5000, pods_per_node=2)
+    pending = synth_pending_pods(3 * BATCH, spread=True)
+    enc, pe = presized_encoding(nodes, init_pods, pending)
+    _, templates = encode_templates(pe, pending)
+    log(f"setup: {len(nodes)} nodes, {len(init_pods)} init pods, "
+        f"{len(pending)} pending in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sess = ScanSession(enc.device_state("cuda"), templates, multipod_k=1,
+                       device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # the same session at mk pods per step, for phase 7c
+    multi = ScanSession(enc.device_state("cuda"), templates, multipod_k=MK,
+                        device="cuda")
+    log(f"session build: {build_s:.3f} s (N={sess.N}, Np={sess.Np}, "
+        f"T={sess.T}, C={sess.C}, R={sess.R}, K={sess.K}) [{gpu}]")
+
+    stage = {"encode": 0.0, "schedule": 0.0, "wait": 0.0, "harvest": 0.0}
+
+    def run_batch(lo):
+        """bench.py's session loop for one batch: encode, schedule (one
+        kernel launch), wait for the decisions, bind them back into the
+        encoding."""
+        pods = pending[lo:lo + BATCH]
+        t = [time.perf_counter()]
+        batch = [{k: v for k, v in pe.encode(p).items()
+                  if not k.startswith("_")} for p in pods]
+        t.append(time.perf_counter())
+        ys = sess.schedule(batch)
+        t.append(time.perf_counter())
+        decisions = ScanSession.decisions(ys)
+        t.append(time.perf_counter())
+        for pod, best in zip(pods, decisions):
+            if best >= 0:
+                pod.spec.node_name = enc.node_names[best]
+                enc.add_pod(pod, pod.spec.node_name)
+        t.append(time.perf_counter())
+        for name, a, b in zip(stage, t, t[1:]):
+            stage[name] += b - a
+        return batch, ys, decisions
+
+    reset_counts(sk)
+    _, _, decisions = run_batch(0)  # warm-up
+    torch.cuda.synchronize()
+    carry_before = clone(sess._carry)
+    stage.update(dict.fromkeys(stage, 0.0))
+    t0 = time.perf_counter()
+    batch1, ys1, d1 = run_batch(BATCH)
+    _, _, d2 = run_batch(2 * BATCH)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    decisions += d1 + d2
+    launches = sk.LAUNCHES
+    pods_per_s = 2 * BATCH / window_s
+    if launches != 3 or sk.VARIANT_LAUNCHES != only(sk, scan_full=3):
+        raise AssertionError(f"scan_full launched {sk.VARIANT_LAUNCHES} "
+                             "times for 3 batches")
+    unplaced = sum(d < 0 for d in decisions)
+    if unplaced:
+        raise AssertionError(f"{unplaced} of {len(decisions)} pods unplaced")
+    log(f"main path: {len(decisions)} pods placed, {launches} launches "
+        f"for 3 batches; {pods_per_s:.1f} pods/s over the 2 measured "
+        f"batches [{gpu}]")
+    log("main path window (2 batches): " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in stage.items())
+        + f", total {window_s * 1e3:.1f} ms")
+
+    # the first measured batch again, from the same carry: kernel timing
+    # (CUDA events) and the plain version on the card
+    after1 = clone(carry_before)
+    err, out, _, plain_ms = kernel_vs_plain(sess, batch1, after1)
+    if not torch.equal(out[:3, :BATCH], ys1["rows"][:3, :BATCH]):
+        raise AssertionError("replayed batch differs from the main path's")
+    kernel_ms, times = time_kernel(sess, batch1, carry_before)
+    meta, match = batch_inputs(sess, batch1)
+    bound_ms, bound_by, nbytes, ops = bound(sess, meta, match, out, BATCH)
+    log(f"scan_full: {kernel_ms:.3f} ms per {BATCH}-pod batch at "
+        f"{sess.N} nodes (runs {[round(x, 3) for x in times]}), plain "
+        f"version {plain_ms:.1f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes} bytes, {ops} ops) [{gpu}]")
+    return {"cell": "zone spread 5000n", "launches": launches, "err": err,
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "sess": sess, "multi": multi,
+            "batch": batch1, "carry_before": carry_before, "after": after1,
+            "out": out}
+
+
 def phase_affinity(sk, gpu, kind):
     """scheduler_perf's Scheduling{Preferred,}PodAffinity-5000n through
     the session: every pod placed, the ur > 0 variant once per batch, the
-    first measured batch == plain. Returns this phase's numbers."""
+    first measured batch == plain. Returns this phase's numbers, the
+    session (and its mk=4 twin on the same cluster), the first measured
+    batch and the carry before it."""
     import torch
     from kubernetes_tpu_torch.api import types as v1
     from kubernetes_tpu_torch.ops.scan import ScanSession
@@ -370,9 +581,13 @@ def phase_affinity(sk, gpu, kind):
     _, templates = encode_templates(pe, pending)
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sess = ScanSession(enc.device_state("cuda"), templates, device="cuda")
+    sess = ScanSession(enc.device_state("cuda"), templates, multipod_k=1,
+                       device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    # the same session at mk pods per step, for phase 7c
+    multi = ScanSession(enc.device_state("cuda"), templates, multipod_k=MK,
+                        device="cuda")
     w45_scale = int(sess._ipa["w45_scale"]) if sess.UR else None
     log(f"phase 6 {name}: setup {setup_s:.1f} s, session build "
         f"{build_s:.3f} s (N={sess.N}, Np={sess.Np}, T={sess.T}, "
@@ -416,7 +631,7 @@ def phase_affinity(sk, gpu, kind):
     if enc._rebuild_needed:
         raise AssertionError(f"{name}: binding the placed pods deferred a "
                              "rebuild of the encoding")
-    if launches != {"scan_full": 0, "scan_full_ipa": len(AFF_BATCHES)}:
+    if launches != only(sk, scan_full_ipa=len(AFF_BATCHES)):
         raise AssertionError(f"{name}: launches {launches} for "
                              f"{len(AFF_BATCHES)} batches")
     unplaced = sum(x < 0 for x in decisions)
@@ -440,21 +655,8 @@ def phase_affinity(sk, gpu, kind):
     if not torch.equal(out[:3, :n1], ys1["rows"][:3, :n1]):
         raise AssertionError(f"{name}: replayed batch differs from the "
                              "session's")
+    kernel_ms, times = time_kernel(sess, batch1, carry_before)
     meta, match = batch_inputs(sess, batch1)
-    weights = tuple(int(sess.weights[k]) for k in sk.WEIGHT_ORDER)
-    times = []
-    for _ in range(3):
-        c = clone(carry_before)
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        sk.scan_full(meta, match, sess._get_statics(), c, sess.shapes,
-                     weights)
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    kernel_ms = statistics.median(times)
     bound_ms, bound_by, nbytes, ops = bound(sess, meta, match, out, n1)
     log(f"phase 6 {name}: scan_full_ipa {kernel_ms:.3f} ms per {n1}-pod "
         f"batch at {sess.N} nodes (runs {[round(x, 3) for x in times]}), "
@@ -463,7 +665,377 @@ def phase_affinity(sk, gpu, kind):
         f"({nbytes} bytes, {ops} ops) [{gpu}]")
     return {"cell": name, "launches": launches["scan_full_ipa"], "err": err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "sess": sess, "multi": multi,
+            "batch": batch1, "carry_before": carry_before}
+
+
+def phase_multipod_small(sk, gpu, case):
+    """Phase 7a on one ~600-node cluster: one mk=4 launch == plain from
+    the initial carry, then `schedule_exact` at mk=4 over every batch,
+    whose decisions and final carries must equal an mk=1 session's."""
+    import torch
+    from kubernetes_tpu_torch.ops.scan import ScanSession, schedule_exact
+
+    arrays, bs = case["arrays"], case["batch"]
+    cluster = case["enc"].device_state("cuda")
+    multi = ScanSession(cluster, case["templates"], multipod_k=MK,
+                        device="cuda")
+    one = ScanSession(cluster, case["templates"], multipod_k=1,
+                      device="cuda")
+    variant = "scan_multi_ipa" if multi.UR else "scan_multi"
+    err, out, ms, plain_ms = kernel_vs_plain(
+        multi, arrays[:bs], multi._initial_carry(), mk=MK)
+    _, suffix = ScanSession.conflict_stats({"rows": out, "n": bs, "mk": MK})
+    n_batches = (len(arrays) + bs - 1) // bs
+    reset_counts(sk)
+    got, want = [], []
+    for lo in range(0, len(arrays), bs):
+        batch = arrays[lo:lo + bs]
+        got += schedule_exact(multi, batch)
+        want += ScanSession.decisions(one.schedule(batch))
+    torch.cuda.synchronize()
+    launches = dict(sk.VARIANT_LAUNCHES)
+    if got != want:
+        raise AssertionError(f"7a {case['label']}: schedule_exact at mk={MK} "
+                             "decided otherwise than one pod per step")
+    if not carries_equal(multi._carry, one._carry):
+        raise AssertionError(f"7a {case['label']}: mk={MK} carries differ "
+                             "from one pod per step")
+    if launches[variant] < n_batches or launches != only(
+            sk, **{variant: launches[variant],
+                   variant.replace("multi", "full"): n_batches}):
+        raise AssertionError(f"7a {case['label']}: launches {launches}")
+    relaunches = launches[variant] - n_batches
+    log(f"phase 7a {case['label']}: {variant} == plain at mk={MK} on the "
+        f"first {bs}-pod batch ({ms:.3f} ms, plain version "
+        f"{plain_ms:.1f} ms, suffix from pod {suffix}); schedule_exact over "
+        f"{n_batches} batches == mk=1 session (decisions and carries), "
+        f"{relaunches} conflicts, {launches[variant]} launches of "
+        f"{variant} ({relaunches} relaunches) [{gpu}]")
+    return {"cell": case["label"], "variant": variant,
+            "launches": launches[variant], "err": err, "ms": ms,
+            "plain_ms": plain_ms, "relaunches": relaunches}
+
+
+def tenant_pods(n):
+    """Pods of four tenants, round robin: tenant t is app=tenant-t,
+    100m/128Mi, with a required node affinity zone In [zone-t]."""
+    from kubernetes_tpu_torch.api import types as v1
+    from kubernetes_tpu_torch.testing.synth import make_pod
+
+    def pinned(zone):
+        return v1.Affinity(node_affinity=v1.NodeAffinity(
+            required_during_scheduling_ignored_during_execution=v1.NodeSelector(
+                node_selector_terms=[v1.NodeSelectorTerm(match_expressions=[
+                    v1.NodeSelectorRequirement(key=v1.LABEL_ZONE,
+                                               operator="In",
+                                               values=[zone])])])))
+
+    return [make_pod(f"tenant-{i}", cpu="100m", memory="128Mi",
+                     labels={"app": f"tenant-{i % TENANTS}"},
+                     affinity=pinned(f"zone-{i % TENANTS}"))
+            for i in range(n)]
+
+
+def phase_tenants(sk, gpu):
+    """Phase 7b: the zone-pinned tenant mix at 5000 nodes, an mk=1 and an
+    mk=4 session (the latter through schedule_exact) over the same
+    batches, each on an encoding of its own that its harvest binds
+    into."""
+    import torch
+    from kubernetes_tpu_torch.ops.scan import ScanSession, schedule_exact
+    from kubernetes_tpu_torch.testing.synth import synth_cluster
+
+    runs = {}
+    for mk in (1, MK):
+        t0 = time.perf_counter()
+        nodes, init_pods = synth_cluster(5000, n_zones=TENANTS,
+                                         pods_per_node=2)
+        pending = tenant_pods(3 * BATCH)
+        enc, pe = presized_encoding(nodes, init_pods, pending)
+        _, templates = encode_templates(pe, pending)
+        setup_s = time.perf_counter() - t0
+        sess = ScanSession(enc.device_state("cuda"), templates,
+                           multipod_k=mk, device="cuda")
+        stage = {"encode": 0.0, "schedule": 0.0, "harvest": 0.0}
+        decisions = []
+        reset_counts(sk)
+        for i in range(3):
+            if i == 1:
+                torch.cuda.synchronize()
+                carry_before = clone(sess._carry)
+                stage.update(dict.fromkeys(stage, 0.0))
+                t_window = time.perf_counter()
+            pods = pending[i * BATCH:(i + 1) * BATCH]
+            t = [time.perf_counter()]
+            batch = [{k: v for k, v in pe.encode(p).items()
+                      if not k.startswith("_")} for p in pods]
+            t.append(time.perf_counter())
+            d = schedule_exact(sess, batch)   # launches, waits, replays
+            t.append(time.perf_counter())
+            for pod, best in zip(pods, d):
+                if best >= 0:
+                    pod.spec.node_name = enc.node_names[best]
+                    enc.add_pod(pod, pod.spec.node_name)
+            t.append(time.perf_counter())
+            for key, a, b in zip(stage, t, t[1:]):
+                stage[key] += b - a
+            decisions += d
+            if i == 1:
+                batch1 = batch
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t_window
+        launches = dict(sk.VARIANT_LAUNCHES)
+        pods_per_s = 2 * BATCH / window_s
+        runs[mk] = {"sess": sess, "decisions": decisions,
+                    "launches": launches, "carry_before": carry_before,
+                    "batch": batch1, "pods_per_s": pods_per_s}
+        log(f"phase 7b tenant mix, mk={mk}: setup {setup_s:.1f} s "
+            f"(N={sess.N}, Np={sess.Np}, T={sess.T}); {len(decisions)} pods, "
+            f"launches {({k: v for k, v in launches.items() if v})}; "
+            f"{pods_per_s:.1f} pods/s over the 2 measured batches; window "
+            + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stage.items())
+            + f", total {window_s * 1e3:.1f} ms [{gpu}]")
+    one, multi = runs[1], runs[MK]
+    unplaced = sum(d < 0 for d in multi["decisions"])
+    if unplaced:
+        raise AssertionError(f"7b: {unplaced} of {len(multi['decisions'])} "
+                             f"pods unplaced at mk={MK}")
+    if multi["decisions"] != one["decisions"]:
+        raise AssertionError(f"7b: mk={MK} decisions differ from mk=1")
+    if not carries_equal(multi["sess"]._carry, one["sess"]._carry):
+        raise AssertionError(f"7b: mk={MK} carries differ from mk=1")
+    n_multi = multi["launches"]["scan_multi"]
+    if one["launches"] != only(sk, scan_full=3) or n_multi < 3 or \
+            multi["launches"] != only(sk, scan_multi=n_multi):
+        raise AssertionError(f"7b: launches {one['launches']} (mk=1), "
+                             f"{multi['launches']} (mk={MK})")
+    relaunches = n_multi - 3
+    sess, batch1 = multi["sess"], multi["batch"]
+    carry_before = multi["carry_before"]
+    err, out, _, plain_ms = kernel_vs_plain(sess, batch1,
+                                            clone(carry_before), mk=MK)
+    _, suffix = ScanSession.conflict_stats(
+        {"rows": out, "n": BATCH, "mk": MK})
+    if suffix is None and out[0, :BATCH].tolist() != \
+            multi["decisions"][BATCH:2 * BATCH]:
+        raise AssertionError("7b: replayed batch differs from the "
+                             "session's")
+    # the same batch from the same carry, in turns: scan_full, scan_multi
+    full_runs, multi_runs = [], []
+    for _ in range(3):
+        full_runs += time_kernel(sess, batch1, carry_before, runs=1)[1]
+        multi_runs += time_kernel(sess, batch1, carry_before, mk=MK,
+                                  runs=1)[1]
+    full_ms = statistics.median(full_runs)
+    multi_ms = statistics.median(multi_runs)
+    meta, match = batch_inputs(sess, batch1)
+    bound_ms, bound_by, nbytes, ops = bound(sess, meta, match, out, BATCH,
+                                            mk=MK)
+    log(f"phase 7b tenant mix: every pod placed, mk={MK} == mk=1 "
+        f"(decisions and carries); {relaunches} conflicts, {n_multi} "
+        f"launches of scan_multi for 3 batches ({relaunches} relaunches); "
+        f"scan_multi {multi_ms:.3f} ms (runs "
+        f"{[round(x, 3) for x in multi_runs]}) against scan_full "
+        f"{full_ms:.3f} ms (runs {[round(x, 3) for x in full_runs]}) per "
+        f"{BATCH}-pod batch from the same carry; plain version (mk={MK}) "
+        f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes} bytes, {ops} ops); pods/s mk=1 "
+        f"{one['pods_per_s']:.1f}, mk={MK} {multi['pods_per_s']:.1f} "
+        f"[{gpu}]")
+    return {"cell": "tenant mix 5000n (7b)", "launches": n_multi,
+            "err": err, "ms": multi_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "full_ms": full_ms, "relaunches": relaunches}
+
+
+def phase_conflict_heavy(sk, gpu, d):
+    """Phase 7c: one `schedule` of the mk=4 session over a
+    conflict-heavy full-size batch from a copy of its carry, rows and
+    carries == plain, no replay."""
+    import torch
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+
+    sess, batch, carry_before = d["multi"], d["batch"], d["carry_before"]
+    n = len(batch)
+    variant = "scan_multi_ipa" if sess.UR else "scan_multi"
+    sess._carry = clone(carry_before)
+    reset_counts(sk)
+    ys = sess.schedule(batch)
+    torch.cuda.synchronize()
+    launches = dict(sk.VARIANT_LAUNCHES)
+    if launches != only(sk, **{variant: 1}):
+        raise AssertionError(f"7c {d['cell']}: launches {launches}")
+    # the kernel again from the same carry, held to the plain version
+    after = clone(carry_before)
+    err, out, _, plain_ms = kernel_vs_plain(sess, batch, after, mk=MK)
+    if not (torch.equal(ys["rows"][:4, :n], out[:4, :n])
+            and carries_equal(sess._carry, after)):
+        raise AssertionError(f"7c {d['cell']}: the session's rows or "
+                             "carries differ from the plain version's")
+    _, suffix = ScanSession.conflict_stats(ys)
+    kernel_ms, times = time_kernel(sess, batch, carry_before, mk=MK)
+    meta, match = batch_inputs(sess, batch)
+    bound_ms, bound_by, nbytes, ops = bound(sess, meta, match, out, n,
+                                            mk=MK)
+    log(f"phase 7c {d['cell']}: ScanSession(multipod_k={MK}).schedule == "
+        f"plain (rows and carries), {launches[variant]} launch of "
+        f"{variant}, suffix from pod {suffix} of {n}; {kernel_ms:.3f} ms "
+        f"per batch (runs {[round(x, 3) for x in times]}), plain version "
+        f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes} bytes, {ops} ops) [{gpu}]")
+    return {"cell": f"{d['cell']}, conflict-heavy (7c)",
+            "launches": launches[variant], "err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "suffix": suffix}
+
+
+def phase_eval_apply(sk, gpu, cases, zone):
+    """Phase 8: eval -> apply pod by pod replays full mode on the first
+    batch of each ~600-node cluster, a forced -1 is a no-op, and each
+    mode's kernel equals the plain version; then one eval and one apply
+    launch over the phase-4 batch."""
+    import torch
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+
+    sessions = []
+    reset_counts(sk)
+    for case in cases:
+        batch = case["arrays"][:case["batch"]]
+        cluster = case["enc"].device_state("cuda")
+        full = ScanSession(cluster, case["templates"], multipod_k=1,
+                           device="cuda")
+        split = ScanSession(cluster, case["templates"], multipod_k=1,
+                            device="cuda")
+        want = ScanSession.decisions(full.schedule(batch))
+        got = []
+        for a in batch:
+            ((best, _),) = split.evaluate([a])
+            got.append(best)
+            split.apply_decisions([a], [best])
+        if got != want or not carries_equal(split._carry, full._carry):
+            raise AssertionError(f"8 {case['label']}: eval -> apply does "
+                                 "not replay full mode")
+        before = clone(split._carry)
+        split.apply_decisions([batch[0]], [-1])
+        if not carries_equal(split._carry, before):
+            raise AssertionError(f"8 {case['label']}: a forced -1 moved "
+                                 "the carries")
+        sessions.append((case, split))
+    torch.cuda.synchronize()
+    launches = dict(sk.VARIANT_LAUNCHES)
+    for name in ("scan_eval", "scan_eval_ipa", "scan_apply",
+                 "scan_apply_ipa"):
+        if not launches[name]:
+            raise AssertionError(f"8: {name} was not launched ({launches})")
+    err = 0
+    for case, split in sessions:
+        batch = case["arrays"][case["batch"]:2 * case["batch"]]
+        e, out, _, _ = kernel_vs_plain(split, batch, clone(split._carry),
+                                       mode="eval")
+        err = max(err, e)
+        e, _, _, _ = kernel_vs_plain(split, batch, clone(split._carry),
+                                     mode="apply",
+                                     decisions=out[0, :len(batch)].tolist())
+        err = max(err, e)
+    n_pods = sum(c["batch"] for c in cases)
+    log(f"phase 8: eval -> apply pod by pod == full mode on {n_pods} pods "
+        f"of the phase-3 and phase-5 clusters, a forced -1 leaves the "
+        f"carries bit-identical, eval and apply == plain; launches "
+        f"{({k: v for k, v in launches.items() if v})} [{gpu}]")
+
+    # full width: the phase-4 session's own evaluate / apply_decisions
+    # over its first measured batch, from the carry before it
+    sess, batch, carry_before = zone["sess"], zone["batch"], \
+        zone["carry_before"]
+    n = len(batch)
+    statics, weights = sess._get_statics(), weights_of(sk, sess)
+    sess._carry = clone(carry_before)
+    reset_counts(sk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pairs = sess.evaluate(batch)
+    eval_call_ms = (time.perf_counter() - t0) * 1e3
+    eval_launches = dict(sk.VARIANT_LAUNCHES)
+    if eval_launches != only(sk, scan_eval=1):
+        raise AssertionError(f"8: evaluate launched {eval_launches}")
+    meta, match = batch_inputs(sess, batch, "eval")
+    ref_carry = clone(carry_before)
+    t0 = time.perf_counter()
+    ref = sk.scan_full_reference(meta, match, statics, ref_carry,
+                                 sess.shapes, weights, mode="eval")
+    torch.cuda.synchronize()
+    eval_plain_ms = (time.perf_counter() - t0) * 1e3
+    got = torch.tensor(pairs, dtype=torch.int64).T
+    err = max(err, int((got - ref[:2, :n].long().cpu()).abs().max()))
+    if not (torch.equal(got, ref[:2, :n].long().cpu())
+            and carries_equal(sess._carry, carry_before)
+            and carries_equal(ref_carry, carry_before)):
+        raise AssertionError("8: evaluate differs from the plain version "
+                             "or moved the carries")
+    full_out = zone["out"]
+    if pairs[0] != (int(full_out[0, 0]), int(full_out[1, 0])):
+        raise AssertionError("8: the first pod's eval differs from full "
+                             "mode's decision")
+    decisions = full_out[0, :n].tolist()
+    reset_counts(sk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.apply_decisions(batch, decisions)
+    torch.cuda.synchronize()
+    apply_call_ms = (time.perf_counter() - t0) * 1e3
+    apply_launches = dict(sk.VARIANT_LAUNCHES)
+    if apply_launches != only(sk, scan_apply=1):
+        raise AssertionError(f"8: apply_decisions launched {apply_launches}")
+    forced = forced_pairs(sess, decisions, meta.shape[0] - 1)
+    ref_carry = clone(carry_before)
+    t0 = time.perf_counter()
+    sk.scan_full_reference(*batch_inputs(sess, batch, "apply"), statics,
+                           ref_carry, sess.shapes, weights, mode="apply",
+                           forced=forced)
+    torch.cuda.synchronize()
+    apply_plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(err, carry_err(sess._carry, ref_carry))
+    if not (carries_equal(sess._carry, ref_carry)
+            and carries_equal(sess._carry, zone["after"])):
+        raise AssertionError("8: apply_decisions of the batch's decisions "
+                             "differs from the plain version or from full "
+                             "mode's carry")
+    # kernel times: bare launches from copies of the carry (not counted)
+    eval_ms, eval_runs = time_kernel(sess, batch, carry_before, mode="eval")
+    apply_ms, apply_runs = time_kernel(sess, batch, carry_before,
+                                       mode="apply", decisions=decisions)
+    eval_bound = bound(sess, meta, match, ref, n, mode="eval")
+    apply_bound = bound(sess, meta, match, ref, n, mode="apply",
+                        forced=forced)
+    log(f"phase 8 full width ({n}-pod phase-4 batch): the session's "
+        f"evaluate ({eval_call_ms:.3f} ms for the call, 1 launch of "
+        f"scan_eval) == plain, carries untouched; apply_decisions of full "
+        f"mode's decisions ({apply_call_ms:.3f} ms for the call, 1 launch "
+        f"of scan_apply) == plain == full mode's carry; scan_eval "
+        f"{eval_ms:.3f} ms (runs {[round(x, 3) for x in eval_runs]}), plain "
+        f"version {eval_plain_ms:.1f} ms, bound {eval_bound[0]:.4f} ms by "
+        f"{eval_bound[1]} ({eval_bound[2]} bytes, {eval_bound[3]} ops); "
+        f"scan_apply {apply_ms:.3f} ms (runs "
+        f"{[round(x, 3) for x in apply_runs]}), plain version "
+        f"{apply_plain_ms:.1f} ms, bound {apply_bound[0]:.4f} ms by "
+        f"{apply_bound[1]} ({apply_bound[2]} bytes, {apply_bound[3]} ops) "
+        f"[{gpu}]")
+
+    def total(counts, name):
+        return counts[name] + counts[f"{name}_ipa"]
+
+    return {
+        "err": err,
+        "eval": {"launches": total(launches, "scan_eval")
+                 + total(eval_launches, "scan_eval"), "ms": eval_ms,
+                 "plain_ms": eval_plain_ms, "bound_ms": eval_bound[0],
+                 "bound_by": eval_bound[1], "call_ms": eval_call_ms},
+        "apply": {"launches": total(launches, "scan_apply")
+                  + total(apply_launches, "scan_apply"), "ms": apply_ms,
+                  "plain_ms": apply_plain_ms, "bound_ms": apply_bound[0],
+                  "bound_by": apply_bound[1], "call_ms": apply_call_ms},
+    }
 
 
 def ipa_ops(ipa, t) -> tuple:
@@ -492,48 +1064,109 @@ def ipa_ops(ipa, t) -> tuple:
     return d1 + d2 + d3, d45, per_pod
 
 
-def bound(sess, meta, match, out, n) -> tuple:
+# operations of the balanced / least rows on one lane (two IEEE divisions,
+# the fraction difference and scale, two floored least divisions, the
+# weighted sum)
+BALANCED_LEAST_OPS = 20
+
+
+def bound(sess, meta, match, out, n, mode="full", mk=1, forced=None):
     """Least time the card could take for one batch: the larger of the
-    bytes the function must move (inputs read once, outputs written once)
-    over the memory rate, and its elementwise int32/f32 operations over
-    the f32 rate. Counted from this batch's data: the filter sweeps run
-    on every lane, the score and argmax on the feasible lanes only, the
-    commit on the keys the chosen node has."""
+    bytes the function must move (inputs read once, outputs written once;
+    with mk > 1 the group scratch written and read once) over the memory
+    rate, and its elementwise int32/f32 operations over the f32 rate.
+    Counted from this batch's data: the filter sweeps run on every lane,
+    the score and argmax on the feasible lanes only (with mk > 1 not for
+    the pods of a group that starts inside the conflict suffix, which
+    need only their feasible count), the multi-pod recheck (a scratch
+    load and compare on every lane, the fit over R dims and the
+    balanced/least rows on the pod's feasible lanes) for pods 1.. of a
+    group before the suffix (the suffix's first pod is not charged: out
+    rows do not show whether its count legs fired first, which skips
+    the recheck), the commit on the pods committed and the keys the
+    chosen node has. "eval" does no commit and writes no carry; "apply" only
+    commits."""
     from kubernetes_tpu_torch.ops.scan import LANE
 
-    tensors = [meta, match, out, *sess._get_statics().values()]
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    nbytes += 2 * sum(t.numel() * t.element_size()
+    statics = sess._get_statics()
+    carry_bytes = sum(t.numel() * t.element_size()
                       for t in sess._carry.values())
+    if mode == "apply":
+        keys = ("scalars", "stat", "prow_f", "prow_s") + (
+            ("prow_ipa",) if sess.UR else ())
+        tensors = [meta, match, out, forced, *(statics[k] for k in keys)]
+    else:
+        tensors = [meta, match, out, *statics.values()]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    nbytes += carry_bytes * (1 if mode == "eval" else 2)
+    if mk > 1:
+        nbytes += 2 * (2 * mk * sess.Np * 4)
     sc = sess._scalars.tolist()
     T, C, R = sess.T, sess.C, sess.R
     off_tc = T * (2 * R + 4)
     tmpl = meta[1:1 + n].tolist()
-    best = out[0, :n].tolist()
+    if mode == "apply":
+        fv = forced.tolist()
+        commits = [fv[2 * b] if fv[2 * b + 1] else -1 for b in range(n)]
+    else:
+        commits = out[0, :n].tolist() if mode == "full" else [-1] * n
     feas = out[2, :n].tolist()
+    flags = out[3, :n].tolist()
     mrows = match[:n].ne(0).sum(dim=1).tolist()
     ipa = sess._ipa
     ipa_t = [ipa_ops(ipa, t) for t in range(T)] if sess.UR else None
+    suffix = next((b for b in range(n) if flags[b] > 0), n) if mk > 1 \
+        else n
     ops = 0
     for b in range(n):
         t = tmpl[b]
-        n_fv = sum(sc[off_tc + 0 * T * C + t * C + c] != 0 for c in range(C))
-        n_sv = sum(sc[off_tc + 1 * T * C + t * C + c] != 0 for c in range(C))
-        sweep = 3 * R + 3 + n_fv * (2 * C + 4) + 8 + sess.K
-        score = n_sv * (C + 6) + 55
-        ops += sess.Np * sweep + feas[b] * score + 2 * sess.Np * mrows[b]
-        if ipa_t:
-            lane_ops, feas_ops, pod_ops = ipa_t[t]
-            ops += sess.Np * lane_ops + feas[b] * feas_ops + pod_ops
-            if best[b] >= 0:
-                # commit: a compare and an add per lane of ucnt, and the
-                # 128 kcnt lanes, for each IPA key the chosen node has
-                keys = int((ipa["prow_ipa"][:, best[b]] >= 0).sum())
+        if mode != "apply":
+            n_fv = sum(sc[off_tc + 0 * T * C + t * C + c] != 0
+                       for c in range(C))
+            n_sv = sum(sc[off_tc + 1 * T * C + t * C + c] != 0
+                       for c in range(C))
+            sweep = 3 * R + 3 + n_fv * (2 * C + 4) + 8 + sess.K
+            score = n_sv * (C + 6) + 55
+            scored = b - b % mk <= suffix
+            ops += sess.Np * sweep + scored * feas[b] * score
+            if ipa_t:
+                lane_ops, feas_ops, pod_ops = ipa_t[t]
+                ops += (sess.Np * lane_ops + scored * feas[b] * feas_ops
+                        + pod_ops)
+        if mk > 1 and b % mk and b < suffix:
+            # the recheck: a load and a compare of the group scratch per
+            # lane, then the fit and the balanced/least rows on the lanes
+            # the pod found feasible
+            ops += 2 * sess.Np + feas[b] * (3 * R + 3 + BALANCED_LEAST_OPS)
+        if commits[b] >= 0:
+            # a compare and an add per lane for each matched row
+            ops += 2 * sess.Np * mrows[b]
+            if ipa_t:
+                # a compare and an add per lane of ucnt, and the 128
+                # kcnt lanes, for each IPA key the chosen node has
+                keys = int((ipa["prow_ipa"][:, commits[b]] >= 0).sum())
                 ops += keys * (2 * sess.Np + LANE)
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = ops / H100_F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations"), nbytes, ops
+
+
+def entry(name, replaces, d, **extra):
+    """One kernel's entry of the kernels line."""
+    e = {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": f"{REPLACES}:{replaces}", "launches": d["launches"],
+         "max_abs_err": d["err"], "ms": d["ms"], "plain_ms": d["plain_ms"],
+         "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+         "library_ms": None, "matched": True}
+    e.update(extra)
+    return e
+
+
+def cells(rows):
+    return [{k: r[k] for k in ("cell", "launches", "ms", "plain_ms",
+                               "bound_ms", "bound_by") if k in r}
+            for r in rows]
 
 
 def main() -> int:
@@ -555,147 +1188,42 @@ def main() -> int:
     log(f"phase 2: built scan_full in {built:.2f} s "
         f"({time.perf_counter() - t0:.2f} s with checks)")
 
-    small_err = phase_small()
-
-    # ---- phase 4: the main path at full size ----
-    from kubernetes_tpu_torch.ops.scan import ScanSession
-    from kubernetes_tpu_torch.testing.synth import (
-        synth_cluster,
-        synth_pending_pods,
-    )
-
-    t0 = time.perf_counter()
-    nodes, init_pods = synth_cluster(5000, pods_per_node=2)
-    pending = synth_pending_pods(3 * BATCH, spread=True)
-    enc, pe = presized_encoding(nodes, init_pods, pending)
-    _, templates = encode_templates(pe, pending)
-    log(f"setup: {len(nodes)} nodes, {len(init_pods)} init pods, "
-        f"{len(pending)} pending in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    sess = ScanSession(enc.device_state("cuda"), templates, device="cuda")
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    log(f"session build: {build_s:.3f} s (N={sess.N}, Np={sess.Np}, "
-        f"T={sess.T}, C={sess.C}, R={sess.R}, K={sess.K}) [{gpu}]")
-
-    stage = {"encode": 0.0, "schedule": 0.0, "wait": 0.0, "harvest": 0.0}
-
-    def run_batch(lo):
-        """bench.py's session loop for one batch: encode, schedule (one
-        kernel launch), wait for the decisions, bind them back into the
-        encoding."""
-        pods = pending[lo:lo + BATCH]
-        t = [time.perf_counter()]
-        batch = [{k: v for k, v in pe.encode(p).items()
-                  if not k.startswith("_")} for p in pods]
-        t.append(time.perf_counter())
-        ys = sess.schedule(batch)
-        t.append(time.perf_counter())
-        decisions = ScanSession.decisions(ys)
-        t.append(time.perf_counter())
-        for pod, best in zip(pods, decisions):
-            if best >= 0:
-                pod.spec.node_name = enc.node_names[best]
-                enc.add_pod(pod, pod.spec.node_name)
-        t.append(time.perf_counter())
-        for name, a, b in zip(stage, t, t[1:]):
-            stage[name] += b - a
-        return batch, ys, decisions
-
-    reset_counts(sk)
-    _, _, decisions = run_batch(0)  # warm-up
-    torch.cuda.synchronize()
-    carry_before = clone(sess._carry)
-    stage.update(dict.fromkeys(stage, 0.0))
-    t0 = time.perf_counter()
-    batch1, ys1, d1 = run_batch(BATCH)
-    _, _, d2 = run_batch(2 * BATCH)
-    torch.cuda.synchronize()
-    window_s = time.perf_counter() - t0
-    decisions += d1 + d2
-    launches = sk.LAUNCHES
-    pods_per_s = 2 * BATCH / window_s
-    if launches != 3 or sk.VARIANT_LAUNCHES != {"scan_full": 3,
-                                                "scan_full_ipa": 0}:
-        raise AssertionError(f"scan_full launched {sk.VARIANT_LAUNCHES} "
-                             "times for 3 batches")
-    unplaced = sum(d < 0 for d in decisions)
-    if unplaced:
-        raise AssertionError(f"{unplaced} of {len(decisions)} pods unplaced")
-    log(f"main path: {len(decisions)} pods placed, {launches} launches "
-        f"for 3 batches; {pods_per_s:.1f} pods/s over the 2 measured "
-        f"batches [{gpu}]")
-    log("main path window (2 batches): " + ", ".join(
-        f"{k} {v * 1e3:.1f} ms" for k, v in stage.items())
-        + f", total {window_s * 1e3:.1f} ms")
-
-    # the first measured batch again, from the same carry: kernel timing
-    # (CUDA events) and the plain version on the card
-    err, out, _, plain_ms = kernel_vs_plain(sess, batch1,
-                                            clone(carry_before))
-    if not torch.equal(out[:3, :BATCH], ys1["rows"][:3, :BATCH]):
-        raise AssertionError("replayed batch differs from the main path's")
-    meta, match = batch_inputs(sess, batch1)
-    weights = tuple(int(sess.weights[k]) for k in sk.WEIGHT_ORDER)
-    times = []
-    for _ in range(3):
-        c = clone(carry_before)
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        sk.scan_full(meta, match, sess._get_statics(), c, sess.shapes,
-                     weights)
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    kernel_ms = statistics.median(times)
-    bound_ms, bound_by, nbytes, ops = bound(sess, meta, match, out, BATCH)
-    log(f"scan_full: {kernel_ms:.3f} ms per {BATCH}-pod batch at "
-        f"{sess.N} nodes (runs {[round(x, 3) for x in times]}), plain "
-        f"version {plain_ms:.1f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-        f"({nbytes} bytes, {ops} ops) [{gpu}]")
-
-    # ---- phase 5: affinity-term templates, kernel == plain ----
-    terms_err = phase_terms_small(gpu)
-
-    # ---- phase 6: the pod-affinity 5000-node path (ur > 0) ----
+    small = small_case()
+    small_err = phase_small(small)
+    zone = phase_zone_spread(sk, gpu)                              # phase 4
+    terms = terms_case()
+    terms_err = phase_terms_small(gpu, terms)                      # phase 5
     aff = [phase_affinity(sk, gpu, kind) for kind in ("pref-aff", "aff")]
+    multi_small = [phase_multipod_small(sk, gpu, c)                # 7a
+                   for c in (small, terms)]
+    tenants = phase_tenants(sk, gpu)                               # 7b
+    heavy = [phase_conflict_heavy(sk, gpu, d) for d in (zone, aff[0])]
+    ev = phase_eval_apply(sk, gpu, (small, terms), zone)           # 8
 
-    source = "kubernetes_tpu_torch/ops/csrc/scan_full.cu"
+    zone["err"] = max(zone["err"], small_err)
     # scan_full_ipa reports its slower cell; `cells` keeps both cells'
     # numbers
     slow = max(aff, key=lambda a: a["ms"])
-    kernels = [{
-        "name": "scan_full",
-        "route": "cuda",
-        "source": source,
-        "replaces": "kubernetes_tpu/ops/pallas_scan.py:1247",
-        "launches": launches,
-        "max_abs_err": max(err, small_err),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-        "matched": True,
-    }, {
-        "name": "scan_full_ipa",
-        "route": "cuda",
-        "source": source,
-        "replaces": "kubernetes_tpu/ops/pallas_scan.py:1552",
-        "launches": sum(a["launches"] for a in aff),
-        "max_abs_err": max(terms_err, *(a["err"] for a in aff)),
-        "cell": slow["cell"],
-        "ms": slow["ms"],
-        "plain_ms": slow["plain_ms"],
-        "bound_ms": slow["bound_ms"],
-        "bound_by": slow["bound_by"],
-        "library_ms": None,
-        "matched": True,
-        "cells": [{k: a[k] for k in ("cell", "launches", "ms", "plain_ms",
-                                     "bound_ms", "bound_by")} for a in aff],
-    }]
+    ipa = dict(slow, launches=sum(a["launches"] for a in aff),
+               err=max(terms_err, *(a["err"] for a in aff)))
+    # scan_multi reports the tenant mix; `cells` lists every phase-7 cell
+    # (both variants) and `launches` sums their counted launches
+    multi_cells = [tenants] + [
+        dict(m, cell=f"{m['cell']}, {m['variant']} (7a)")
+        for m in multi_small] + heavy
+    multi = dict(tenants, launches=sum(c["launches"] for c in multi_cells),
+                 err=max(c["err"] for c in multi_cells))
+    kernels = [
+        entry("scan_full", 1247, zone),
+        entry("scan_full_ipa", 1552, ipa, cell=slow["cell"],
+              cells=cells(aff)),
+        entry("scan_multi", 1798, multi, cell=tenants["cell"],
+              cells=cells(multi_cells)),
+        entry("scan_eval", 1751, dict(ev["eval"], err=ev["err"]),
+              call_ms=ev["eval"]["call_ms"]),
+        entry("scan_apply", 1737, dict(ev["apply"], err=ev["err"]),
+              call_ms=ev["apply"]["call_ms"]),
+    ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,13 +1,24 @@
 // scan_full: the batched scheduling scan as ONE kernel launch per batch.
 //
 // Replaces the Pallas kernel of kubernetes_tpu/ops/pallas_scan.py
-// (_build_kernel -> kernel, launched by _dispatch) in mode "full", one pod
-// per step, as two instantiations of one template: scan_full_kernel<false>
-// (ur = 0, no affinity-term templates) and scan_full_kernel<true> (ur > 0:
-// the InterPodAffinity term machinery of pallas_scan.py:1552-1592 filter,
-// :1680-1693 score, :1417-1435 commit). The plain PyTorch version of the
-// same function is scan_full_reference in ops/scan_kernel.py; the two
-// agree bit for bit.
+// (_build_kernel -> kernel, launched by _dispatch) in its three modes, as
+// instantiations of one template scan_kernel<IPA, MODE>: IPA = false for
+// sessions without affinity-term templates (ur = 0), true for the
+// InterPodAffinity term machinery (ur > 0: pallas_scan.py:1552-1592
+// filter, :1680-1693 score, :1417-1435 commit); MODE is
+//   MODE_FULL  mode "full", one pod per step: evaluate, pick, commit;
+//   MODE_MULTI mode "full", mk > 1 pods per step (multi_group :1798-1866):
+//              the group's pods are evaluated against the group-start
+//              carry, then committed in order, each gated by the exact
+//              conflict test; the first conflict starts the suffix that
+//              stays uncommitted (out row 3) for the host to replay;
+//   MODE_EVAL  mode "eval" (:1751-1766): out rows 0-2, carries untouched;
+//   MODE_APPLY mode "apply" (:1736-1746): commit forced (lane, ok) pairs.
+// The pod body is split as the reference splits it: eval_pod (filter,
+// score, argmax against the current carry) and commit_pod (the carry
+// updates for one placement). The plain PyTorch version of the same
+// function is scan_full_reference in ops/scan_kernel.py; the two agree bit
+// for bit.
 //
 // What bounds it on the card: the chain of dependent steps, not bytes or
 // arithmetic. Every pod needs whole-node-axis reductions (PTS filter
@@ -21,7 +32,10 @@
 // is column-local: a thread only ever writes its own lanes, so the
 // same-pair masks need nothing but prow[row, best], read after the block
 // agrees on best. The per-step working set (a few MB at 5000 nodes) stays
-// in L2.
+// in L2. The multi-pod step keeps that ownership: each group pod's per-lane
+// total and balanced/least share live in a scratch row that only the
+// lane's owner writes and reads, and the utilization recheck is one
+// block-wide OR (__syncthreads_or) per pod.
 //
 // Arithmetic that must match the plain version exactly: f32 products and
 // sums go through __fmul_rn / __fadd_rn (no fused multiply-add; the file
@@ -45,27 +59,33 @@ constexpr int LANE = 128;     // match lanes per side
 constexpr int MAXC = 8;       // constraint rows per template (CP)
 constexpr int MAXK = 4;       // shared-value topology keys
 constexpr int SUB = 8;        // IPA terms / topology keys per template
+constexpr int MAXMK = 64;     // pods per multi-pod step
 constexpr int POS_BIG = 1 << 30;
 constexpr int NEG_BIG = -(1 << 30);
 constexpr int MAX_NODE_SCORE = 100;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr long long NO_KEY = -(1LL << 62);
 
+// the launcher's mode argument (ops/scan_kernel.py MODE_IDS)
+enum { MODE_FULL, MODE_MULTI, MODE_EVAL, MODE_APPLY };
+
 // indices of the per-(template, constraint) scalar blocks
 enum { W_F_VALID, W_S_VALID, W_F_SKEW, W_S_SKEW, W_F_SELF, W_S_FIRST,
        W_F_KEY, W_S_KEY, W_F_PERNO, W_S_PERNO };
 
 // the launcher's pointer and integer arguments, in the wrapper's order
-// (ops/scan_kernel.py scan_full); the IPA pointers are null when UR == 0
+// (ops/scan_kernel.py scan_full); the IPA pointers are null when UR == 0,
+// `forced` is null outside MODE_APPLY
 enum ArgPtr { P_META, P_MATCH, P_SCALARS, P_ALLOC, P_STAT, P_ZID,
               P_REGROW_F, P_ZVALID_NODE_S, P_ZVALID_S, P_KONN_F, P_KONN_S,
-              P_SHASALL, P_VALID_N, P_PROW_F, P_PROW_S, P_LOGW,
+              P_SHASALL, P_VALID_N, P_PROW_F, P_PROW_S, P_LOGW, P_GMAT,
               P_REQUESTED, P_NZPC, P_CNT_FN, P_CNT_SN, P_OUT, P_WORK,
+              P_FORCED,
               P_IPA_STAT, P_ANTI_STATIC, P_ANTI_KONN, P_AFF_STATIC,
               P_PROW_IPA, P_G1, P_WANTI, P_WAFF, P_W3TOT, P_W45, P_GPRES,
               P_UCNT, P_KCNT };
 enum ArgDim { D_T, D_C, D_NP, D_R, D_SR, D_TCP, D_K, D_CP, D_BP, D_UR,
-              D_SMEM, D_W0 };
+              D_SMEM, D_MODE, D_MK, D_W0 };
 
 struct Args {
   const int* meta;           // [1 + Bp]: B_real | tmpl
@@ -84,6 +104,8 @@ struct Args {
   const int* prow_f;         // [TCp, Np]
   const int* prow_s;         // [TCp, Np]
   const float* logw;         // [Np + 2]: log(i + 2) in f32
+  const float* gmat;         // [ceil8(T), LANE] IPA template interference
+  const int* forced;         // [2*Bp]: (lane | -1, ok) per pod (apply)
   // InterPodAffinity term machinery (ur > 0; ScanSession._build_ipa)
   const int* ipa_stat;       // [ceil8(2T), Np]: fail_existing | aff_all_keys
   const int* anti_static;    // [T*8, Np] existing-pod anti counts per term
@@ -103,11 +125,37 @@ struct Args {
   int* cnt_fn;               // carry [TCp, Np]
   int* cnt_sn;               // carry [TCp, Np]
   int* out;                  // [8, Bp]
-  int* work;                 // scratch [3, Np]: lane flags, raw PTS score,
-                             // raw IPA score with the assumed-pod terms
-  int T, C, Np, R, SR, TCp, K, CP, Bp, UR;
+  int* work;                 // scratch [3 (+ 2*mk), Np]: lane flags, raw
+                             // PTS score, raw IPA score with the assumed-pod
+                             // terms; with MODE_MULTI then per group pod
+                             // its total (-1 where infeasible) and wbl
+  int T, C, Np, R, SR, TCp, K, CP, Bp, UR, mk;
   int w[8];                  // balanced image ipa least node_affinity
                              // prefer_avoid pts taint
+};
+
+// the kernel's static shared memory
+struct Shared {
+  int red1[WARPS * MAXC];      // PTS filter minima
+  int red2[WARPS * 6];         // feasible-set reductions
+  int red3[WARPS * 2];         // PTS raw score range
+  long long red4[WARPS];       // argmax keys
+  int zflag[MAXK * VZ];        // zone presence among scored
+  float wsh[MAXC];             // PTS score weights
+  // multi-pod group: each pod's eval result, written by thread 0
+  int g_t[MAXMK], g_best[MAXMK], g_m[MAXMK], g_nf[MAXMK];
+};
+
+// offsets into the shared scalar table and the shared IPA gate matrices
+struct Ctx {
+  const int* sc;
+  int row_len, off_tc, off_fsame, off_ssame, off_ipa_t, off_av, off_w45s;
+  const int *g1s, *w3s, *w45s, *gps, *wantis, *waffs;
+};
+
+// one pod's evaluation, the same in every thread of the block
+struct Eval {
+  int t, best, m, n_feas;
 };
 
 __device__ __forceinline__ int floordiv(int a, int b) {
@@ -140,38 +188,469 @@ __device__ __forceinline__ long long warp_max64(long long x) {
   return x;
 }
 
-template <bool IPA>
-__global__ void __launch_bounds__(THREADS, 1) scan_full_kernel(Args a) {
-  // the scalar table, then (IPA) the gate matrices as int32
-  extern __shared__ int sc[];
-  __shared__ int red1[WARPS * MAXC];      // PTS filter minima
-  __shared__ int red2[WARPS * 6];         // feasible-set reductions
-  __shared__ int red3[WARPS * 2];         // PTS raw score range
-  __shared__ long long red4[WARPS];       // argmax keys
-  __shared__ int zflag[MAXK * VZ];        // zone presence among scored
-  __shared__ float wsh[MAXC];             // PTS score weights
+// NodeResourcesFit of a template-t pod on lane n against the CURRENT carry
+// (exact int32 after the GCD rescale); tsc = template t's scalar row.
+// Shared by the eval and the multi-pod recheck (pallas_scan.py fit_row).
+__device__ __forceinline__ bool fits(const Args& a, const int* tsc, int n) {
+  const int R = a.R, Np = a.Np;
+  bool over = false;
+  for (int r = 0; r < R; ++r)
+    if (tsc[R + r] != 0
+        && tsc[r] > a.alloc[r * Np + n] - a.requested[r * Np + n])
+      over = true;
+  const bool fail_dims = tsc[2 * R] != 0 && over;
+  const bool fail_count = a.nzpc[2 * Np + n] + 1 > a.nzpc[3 * Np + n];
+  return !(fail_dims || fail_count);
+}
 
+// balanced allocation (f32) times its weight plus least allocated (int32,
+// floored) times its weight, on lane n against the CURRENT carry (the
+// reference's resource_rows; nzr0 / nzr1 = the template's non-zero cpu /
+// memory request)
+__device__ __forceinline__ int resource_score(const Args& a, int nzr0,
+                                              int nzr1, int n) {
+  const int Np = a.Np;
+  const int req0 = a.nzpc[n] + nzr0, req1 = a.nzpc[Np + n] + nzr1;
+  const int cap0 = a.alloc[n], cap1 = a.alloc[Np + n];
+  const float fc = cap0 == 0 ? 1.0f : __fdiv_rn((float)req0, (float)cap0);
+  const float fm = cap1 == 0 ? 1.0f : __fdiv_rn((float)req1, (float)cap1);
+  int balanced = 0;
+  if (!(fc >= 1.0f || fm >= 1.0f))
+    balanced = (int)__fmul_rn(__fsub_rn(1.0f, fabsf(__fsub_rn(fc, fm))),
+                              (float)MAX_NODE_SCORE);
+  const int l0 = (cap0 == 0 || req0 > cap0)
+      ? 0 : floordiv((cap0 - req0) * MAX_NODE_SCORE, cap0);
+  const int l1 = (cap1 == 0 || req1 > cap1)
+      ? 0 : floordiv((cap1 - req1) * MAX_NODE_SCORE, cap1);
+  const int least = floordiv(l0 + l1, 2);
+  return balanced * a.w[0] + least * a.w[3];
+}
+
+// Filter + score pod b against the CURRENT carry WITHOUT committing (the
+// reference's eval_pod, pallas_scan.py:1489). With MODE_MULTI it also
+// writes, per own lane, the total (-1 where infeasible) to gtot and the
+// balanced/least share of it to gwbl. With `scores` false it stops after
+// the feasible count (best 0, m -1): a pod of the conflict suffix needs
+// nothing else.
+template <bool IPA, int MODE>
+__device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
+                                         Shared& s, int b, bool scores,
+                                         int* gtot, int* gwbl) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int T = a.T, C = a.C, Np = a.Np, R = a.R, SR = a.SR, K = a.K;
-  const int CP = a.CP, TCp = a.TCp, Bp = a.Bp, UR = a.UR;
-  const int row_len = 2 * R + 4;
-  const int off_tc = T * row_len;
-  const int off_fsame = off_tc + 10 * T * C;
-  const int off_ssame = off_fsame + T * C * C;
+  const int CP = a.CP, UR = a.UR;
+  const int* sc = x.sc;
+  int* flags = a.work;           // bit 0 feasible, bit 1 scored
+  int* rawv = a.work + Np;       // truncated raw PTS score (scored lanes)
+  int* rawi = a.work + 2 * Np;   // raw IPA score incl. D4+D5 (IPA)
+
+  const int t = a.meta[1 + b];
+  const int base = t * CP;
+  const int* tsc = sc + t * x.row_len;
+  const int* tc = sc + x.off_tc + t * C;   // tc[which*T*C + c]
+  const int TC = T * C;
+  for (int i = tid; i < K * VZ; i += THREADS) s.zflag[i] = 0;
+
+  // ---- phase 1: PTS filter minimum count per constraint over the
+  // registered pairs (same-key constraints share one count map) ----
+  int minc[MAXC];
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) minc[c] = POS_BIG;
+  for (int n = tid; n < Np; n += THREADS) {
+#pragma unroll
+    for (int ci = 0; ci < MAXC; ++ci) {
+      if (ci >= C || !tc[W_F_VALID * TC + ci]) continue;
+      if (a.regrow_f[(base + ci) * Np + n] == 0) continue;
+      int sh = 0;
+      for (int cj = 0; cj < C; ++cj)
+        if (sc[x.off_fsame + (t * C + ci) * C + cj])
+          sh += a.cnt_fn[(base + cj) * Np + n];
+      minc[ci] = min(minc[ci], sh);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) {
+    if (c >= C) continue;
+    int v = warp_min(minc[c]);
+    if (lane == 0) s.red1[warp * MAXC + c] = v;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) {
+    if (c >= C) continue;
+    int v = s.red1[c];
+    for (int w = 1; w < WARPS; ++w) v = min(v, s.red1[w * MAXC + c]);
+    minc[c] = v == POS_BIG ? 0 : v;
+  }
+
+  // ---- per-pod IPA scalars from the kcnt carry (written by thread 0
+  // in the previous pod's commit; visible after the barrier above) ----
+  bool pres_dyn = false, counts_empty = false, has_aff = false,
+       smatch = false;
+  int w45_scale = 0;
+  if (IPA) {
+    const int* w3 = x.w3s + t * UR;
+    const int* gp = x.gps + t * UR;
+    int at_dyn = 0;
+    for (int r = 0; r < UR; ++r) {
+      const int k0 = a.kcnt[r * LANE];
+      at_dyn += w3[r] * k0;
+      // rowany_r = max_n (ucnt[r, n] > 0) is kcnt[r, 0] > 0 within a
+      // session: both start at zero, and each commit raises kcnt[r]
+      // exactly when it raises some lane of ucnt[r] (at least the
+      // chosen node's own), so no whole-row reduction is needed
+      if (gp[r] != 0 && k0 > 0) pres_dyn = true;
+    }
+    has_aff = sc[x.off_ipa_t + 3 * t] != 0;
+    smatch = sc[x.off_ipa_t + 3 * t + 1] != 0;
+    counts_empty = sc[x.off_ipa_t + 3 * t + 2] + at_dyn == 0;
+    w45_scale = sc[x.off_w45s];
+  }
+
+  // ---- phase 2: feasibility, zone presence, feasible-set ranges ----
+  int n_feas = 0, n_scored = 0, min_i = POS_BIG, max_i = NEG_BIG;
+  int mx_taint = 0, mx_naff = 0;
+  for (int n = tid; n < Np; n += THREADS) {
+    bool feas = a.valid_n[n] != 0 && a.stat[(t * SR + 0) * Np + n] != 0;
+    if (feas) feas = fits(a, tsc, n);  // NodeResourcesFit
+    if (feas) {  // PodTopologySpread filter
+#pragma unroll
+      for (int ci = 0; ci < MAXC; ++ci) {
+        if (ci >= C || !tc[W_F_VALID * TC + ci]) continue;
+        const int row = base + ci;
+        if (a.konn_f[row * Np + n] == 0) { feas = false; continue; }
+        int cnt = 0;
+        if (a.regrow_f[row * Np + n] != 0)
+          for (int cj = 0; cj < C; ++cj)
+            if (sc[x.off_fsame + (t * C + ci) * C + cj])
+              cnt += a.cnt_fn[(base + cj) * Np + n];
+        const int skew = cnt + tc[W_F_SELF * TC + ci] - minc[ci];
+        if (skew > tc[W_F_SKEW * TC + ci]) feas = false;
+      }
+    }
+    const int* ucol = a.ucnt + n;    // ucol[r * Np] = ucnt[r, n]
+    if (IPA && feas) {  // InterPodAffinity: static parts + D1-D3
+      bool fail = a.ipa_stat[(2 * t) * Np + n] != 0;
+      // D1: assumed pods' anti terms repel this pod
+      const int* g1r = x.g1s + t * UR;
+      for (int r = 0; r < UR && !fail; ++r)
+        if (g1r[r] != 0 && ucol[(size_t)r * Np] > 0) fail = true;
+      // D2: assumed pods vs this pod's own anti terms
+      for (int tau = 0; tau < SUB && !fail; ++tau) {
+        const int row = t * SUB + tau;
+        if (sc[x.off_av + t * SUB + tau] == 0
+            || a.anti_konn[row * Np + n] == 0) continue;
+        int cnt = a.anti_static[row * Np + n];
+        const int* w = x.wantis + row * UR;
+        for (int r = 0; r < UR; ++r)
+          if (w[r] != 0) cnt += w[r] * ucol[(size_t)r * Np];
+        if (cnt > 0) fail = true;
+      }
+      // D3: assumed pods matching ALL of this pod's affinity terms, with
+      // the first-pod escape (counts empty and the pod matches itself)
+      if (!fail && has_aff) {
+        bool ok = a.ipa_stat[(2 * t + 1) * Np + n] != 0;
+        if (ok) {
+          bool missing = false;
+          for (int tau = 0; tau < SUB && !missing; ++tau) {
+            if (sc[x.off_av + (T + t) * SUB + tau] == 0) continue;
+            const int row = t * SUB + tau;
+            int cnt = a.aff_static[row * Np + n];
+            const int* w = x.waffs + row * UR;
+            for (int r = 0; r < UR; ++r)
+              if (w[r] != 0) cnt += w[r] * ucol[(size_t)r * Np];
+            if (cnt <= 0) missing = true;
+          }
+          ok = !missing || (counts_empty && smatch);
+        }
+        fail = !ok;
+      }
+      feas = !fail;
+    }
+    int f = 0;
+    if (feas) {
+      f = 1;
+      ++n_feas;
+      if (a.shasall[t * Np + n] != 0) {
+        f |= 2;
+        ++n_scored;
+        for (int k = 0; k < K; ++k) {
+          const int z = a.zid[k * Np + n];
+          if (z >= 0) s.zflag[k * VZ + z] = 1;
+        }
+      }
+      int ri = a.stat[(t * SR + 1) * Np + n];
+      if (IPA) {  // D4+D5: the int32 dot on GCD-scaled weights, rescaled
+        const int* w = x.w45s + t * UR;
+        int dyn45 = 0;
+        for (int r = 0; r < UR; ++r)
+          if (w[r] != 0) dyn45 += w[r] * ucol[(size_t)r * Np];
+        ri += dyn45 * w45_scale;
+        rawi[n] = ri;
+      }
+      min_i = min(min_i, ri);
+      max_i = max(max_i, ri);
+      mx_taint = max(mx_taint, a.stat[(t * SR + 2) * Np + n]);
+      mx_naff = max(mx_naff, a.stat[(t * SR + 3) * Np + n]);
+    }
+    flags[n] = f;
+  }
+  {
+    const int v0 = warp_sum(n_feas), v1 = warp_sum(n_scored);
+    const int v2 = warp_min(min_i), v3 = warp_max(max_i);
+    const int v4 = warp_max(mx_taint), v5 = warp_max(mx_naff);
+    if (lane == 0) {
+      int* p = s.red2 + warp * 6;
+      p[0] = v0; p[1] = v1; p[2] = v2; p[3] = v3; p[4] = v4; p[5] = v5;
+    }
+  }
+  __syncthreads();
+  n_feas = 0; n_scored = 0; min_i = POS_BIG; max_i = NEG_BIG;
+  mx_taint = 0; mx_naff = 0;
+  for (int w = 0; w < WARPS; ++w) {
+    const int* p = s.red2 + w * 6;
+    n_feas += p[0]; n_scored += p[1];
+    min_i = min(min_i, p[2]); max_i = max(max_i, p[3]);
+    mx_taint = max(mx_taint, p[4]); mx_naff = max(mx_naff, p[5]);
+  }
+  Eval e;
+  e.t = t;
+  e.n_feas = n_feas;
+  e.m = -1;
+  e.best = 0;
+  if (!scores) return e;  // block-uniform
+
+  // PTS score weights: log(n_scored + 2) for per-node (hostname) rows,
+  // log(present zones + 2) for the first constraint of a shared key
+  if (tid < C && tc[W_S_VALID * TC + tid]) {
+    int wbase;
+    if (tc[W_S_PERNO * TC + tid]) {
+      wbase = n_scored;
+    } else {
+      const int key = tc[W_S_KEY * TC + tid];
+      int topo = 0;
+      if (key >= 0)
+        for (int z = 0; z < VZ; ++z)
+          topo += (s.zflag[key * VZ + z] != 0)
+                  && (a.zvalid_s[(base + tid) * VZ + z] != 0);
+      wbase = tc[W_S_FIRST * TC + tid] ? topo : 0;
+    }
+    s.wsh[tid] = a.logw[wbase];  // log(wbase + 2); wbase <= Np
+  }
+  __syncthreads();
+
+  // ---- phase 3: raw PTS score on scored lanes, and its range ----
+  int have_s = 0;
+  for (int c = 0; c < C; ++c) have_s |= tc[W_S_VALID * TC + c] != 0;
+  int min_r = POS_BIG, max_r = 0;
+  for (int n = tid; n < Np; n += THREADS) {
+    if (!(flags[n] & 2)) continue;
+    float raw = 0.0f;
+    for (int c = 0; c < C; ++c) {
+      if (!tc[W_S_VALID * TC + c]) continue;
+      const int row = base + c;
+      if (a.konn_s[row * Np + n] == 0) continue;
+      int sh = 0;
+      for (int cj = 0; cj < C; ++cj)
+        if (sc[x.off_ssame + (t * C + c) * C + cj])
+          sh += a.cnt_sn[(base + cj) * Np + n];
+      int cnt = sh;
+      if (!tc[W_S_PERNO * TC + c]) {
+        const int key = tc[W_S_KEY * TC + c];
+        bool regn = false;
+        if (key >= 0 && a.zvalid_node_s[row * Np + n] != 0) {
+          const int z = a.zid[key * Np + n];
+          regn = z >= 0 && s.zflag[key * VZ + z] != 0;
+        }
+        cnt = regn ? sh : 0;
+      }
+      const float term = __fadd_rn(__fmul_rn((float)cnt, s.wsh[c]),
+                                   (float)(tc[W_S_SKEW * TC + c] - 1));
+      raw = __fadd_rn(raw, term);
+    }
+    const int ri = (int)raw;  // truncation toward zero
+    rawv[n] = ri;
+    min_r = min(min_r, ri);
+    max_r = max(max_r, ri);
+  }
+  {
+    const int v0 = warp_min(min_r), v1 = warp_max(max_r);
+    if (lane == 0) { s.red3[warp * 2] = v0; s.red3[warp * 2 + 1] = v1; }
+  }
+  __syncthreads();
+  min_r = POS_BIG; max_r = 0;
+  for (int w = 0; w < WARPS; ++w) {
+    min_r = min(min_r, s.red3[w * 2]);
+    max_r = max(max_r, s.red3[w * 2 + 1]);
+  }
+  if (min_r == POS_BIG) min_r = 0;
+
+  // ---- phase 4: weighted total and first-max argmax ----
+  const int nzr0 = tsc[2 * R + 1], nzr1 = tsc[2 * R + 2];
+  const bool ipa_on = tsc[2 * R + 3] != 0 || pres_dyn;
+  const float diff = (float)(max_i - min_i);
+  long long bestkey = NO_KEY;
+  for (int n = tid; n < Np; n += THREADS) {
+    const int f = flags[n];
+    if (!(f & 1)) {
+      if (MODE == MODE_MULTI) gtot[n] = -1;
+      continue;
+    }
+    // balanced allocation and least allocated, weighted
+    const int wbl = resource_score(a, nzr0, nzr1, n);
+    // PodTopologySpread normalize (ignored = feasible but not scored)
+    int pts = 0;
+    if (have_s && (f & 2))
+      pts = max_r == 0 ? MAX_NODE_SCORE
+          : floordiv(MAX_NODE_SCORE * (max_r + min_r - rawv[n]), max_r);
+    // InterPodAffinity static normalize
+    int ipa = 0;
+    if (ipa_on && diff > 0.0f) {
+      const int ri = IPA ? rawi[n] : a.stat[(t * SR + 1) * Np + n];
+      ipa = (int)__fmul_rn(__fdiv_rn((float)(ri - min_i), diff),
+                           (float)MAX_NODE_SCORE);
+    }
+    // default-normalized taint (reverse) and node affinity
+    const int ct = a.stat[(t * SR + 2) * Np + n];
+    const int taint = mx_taint == 0 ? MAX_NODE_SCORE
+        : MAX_NODE_SCORE - floordiv(MAX_NODE_SCORE * ct, mx_taint);
+    const int ca = a.stat[(t * SR + 3) * Np + n];
+    const int naff = mx_naff == 0 ? ca
+        : floordiv(MAX_NODE_SCORE * ca, mx_naff);
+    const int image = a.stat[(t * SR + 4) * Np + n];
+    const int avoid = a.stat[(t * SR + 5) * Np + n];
+    const int total = wbl + image * a.w[1] + ipa * a.w[2]
+        + naff * a.w[4] + avoid * a.w[5] + pts * a.w[6] + taint * a.w[7];
+    if (MODE == MODE_MULTI) {
+      gtot[n] = total;
+      gwbl[n] = wbl;
+    }
+    // max total first, then the minimum lane among equal totals
+    const long long key = (long long)total * 4294967296LL
+        + (long long)(0x7fffffff - n);
+    if (key > bestkey) bestkey = key;
+  }
+  {
+    const long long v = warp_max64(bestkey);
+    if (lane == 0) s.red4[warp] = v;
+  }
+  __syncthreads();
+  bestkey = s.red4[0];
+  for (int w = 1; w < WARPS; ++w)
+    bestkey = s.red4[w] > bestkey ? s.red4[w] : bestkey;
+  if (bestkey != NO_KEY) {
+    e.m = (int)(bestkey >> 32);
+    e.best = 0x7fffffff - (int)(bestkey & 0xffffffffLL);
+  }
+  return e;
+}
+
+// Commit pod b (template t) at node lane `best`: utilization columns and
+// same-pair count lanes (the reference's _apply_updates, :1361). Every
+// thread writes only its own lanes.
+template <bool IPA>
+__device__ __forceinline__ void commit_pod(const Args& a, const Ctx& x,
+                                           int b, int t, int best) {
+  const int tid = threadIdx.x;
+  const int T = a.T, C = a.C, Np = a.Np, R = a.R, SR = a.SR, CP = a.CP;
+  const int* sc = x.sc;
+  const int* tsc = sc + t * x.row_len;
+  const int TC = T * C;
+  if (best % THREADS == tid) {
+    for (int r = 0; r < R; ++r) a.requested[r * Np + best] += tsc[r];
+    a.nzpc[best] += tsc[2 * R + 1];
+    a.nzpc[Np + best] += tsc[2 * R + 2];
+    a.nzpc[2 * Np + best] += 1;
+  }
+  const int8_t* mrow = a.match + (size_t)b * 2 * LANE;
+  for (int row = 0; row < a.TCp; ++row) {
+    const int mf = mrow[row];
+    if (mf) {
+      const int pv = a.prow_f[row * Np + best];
+      if (pv >= 0)
+        for (int n = tid; n < Np; n += THREADS)
+          if (a.prow_f[row * Np + n] == pv) a.cnt_fn[row * Np + n] += mf;
+    }
+    const int ms = mrow[LANE + row];
+    const int tt = row / CP, cc = row % CP;
+    if (ms && cc < C) {
+      const int factor = sc[x.off_tc + W_S_PERNO * TC + tt * C + cc]
+          ? 1 : a.stat[(tt * SR + 7) * Np + best];
+      const int pv = a.prow_s[row * Np + best];
+      if (factor && pv >= 0)
+        for (int n = tid; n < Np; n += THREADS)
+          if (a.prow_s[row * Np + n] == pv)
+            a.cnt_sn[row * Np + n] += ms * factor;
+    }
+  }
+  if (IPA) {
+    // the assumed pod joins its node's topology group for every IPA
+    // key the node carries, in template t's 8-row block of ucnt; kcnt
+    // lane l belongs to thread l
+    for (int ki = 0; ki < SUB; ++ki) {
+      const int pv = a.prow_ipa[ki * Np + best];
+      if (pv < 0) continue;
+      int* urow = a.ucnt + (size_t)(t * SUB + ki) * Np;
+      for (int n = tid; n < Np; n += THREADS)
+        if (a.prow_ipa[ki * Np + n] == pv) urow[n] += 1;
+      if (tid < LANE) a.kcnt[(t * SUB + ki) * LANE + tid] += 1;
+    }
+  }
+}
+
+// The block-uniform legs of the multi-pod conflict test between group pod
+// e (batch index be_b, template te, committed at lane be) and the later
+// group pod of template t whose speculative pick is `best` (:1817-1837):
+// same node; pod e's PTS filter / score match lanes of template t's valid
+// constraints (a sum, as the reference's gated dot); with ur > 0 the IPA
+// template-interference superset gmat[te, t].
+template <bool IPA>
+__device__ __forceinline__ bool count_conflict(const Args& a, const Ctx& x,
+                                               int be_b, int te, int be,
+                                               int t, int best, int m) {
+  if (be == best && m >= 0) return true;
+  const int C = a.C, TC = a.T * a.C;
+  const int* tc = x.sc + x.off_tc + t * C;
+  const int8_t* me = a.match + (size_t)be_b * 2 * LANE + t * a.CP;
+  int hit = 0;
+  for (int c = 0; c < C; ++c)
+    hit += me[c] * tc[W_F_VALID * TC + c]
+        + me[LANE + c] * tc[W_S_VALID * TC + c];
+  if (hit > 0) return true;
+  return IPA && a.gmat[te * LANE + t] > 0.0f;
+}
+
+// __grid_constant__: the device functions take `a` by reference without
+// a copy of it to local memory
+template <bool IPA, int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+scan_kernel(const __grid_constant__ Args a) {
+  // the scalar table, then (IPA) the gate matrices as int32
+  extern __shared__ int sc[];
+  __shared__ Shared s;
+
+  const int tid = threadIdx.x;
+  const int T = a.T, C = a.C, Np = a.Np, R = a.R, UR = a.UR, Bp = a.Bp;
+  Ctx x;
+  x.sc = sc;
+  x.row_len = 2 * R + 4;
+  x.off_tc = T * x.row_len;
+  x.off_fsame = x.off_tc + 10 * T * C;
+  x.off_ssame = x.off_fsame + T * C * C;
   // IPA scalar extension: has_aff / self_match_all / aff_total [T, 3],
   // anti_valid then aff_valid [T, 8] each, then the w45 GCD scale
-  const int off_ipa_t = off_ssame + T * C * C;
-  const int off_av = off_ipa_t + 3 * T;
-  const int off_w45s = off_av + 2 * T * SUB;
-  const int n_sc = IPA ? off_w45s + 1 : off_ipa_t;
+  x.off_ipa_t = x.off_ssame + T * C * C;
+  x.off_av = x.off_ipa_t + 3 * T;
+  x.off_w45s = x.off_av + 2 * T * SUB;
+  const int n_sc = IPA ? x.off_w45s + 1 : x.off_ipa_t;
   for (int i = tid; i < n_sc; i += THREADS) sc[i] = a.scalars[i];
   // IPA gate matrices (values are small integers stored as f32)
   const int TU = T * UR;
-  int* g1s = sc + n_sc;          // [T, UR]
-  int* w3s = g1s + TU;           // [T, UR]
-  int* w45s = w3s + TU;          // [T, UR]
-  int* gps = w45s + TU;          // [T, UR]
-  int* wantis = gps + TU;        // [T*8, UR]
+  int* g1s = sc + n_sc;            // [T, UR]
+  int* w3s = g1s + TU;             // [T, UR]
+  int* w45s = w3s + TU;            // [T, UR]
+  int* gps = w45s + TU;            // [T, UR]
+  int* wantis = gps + TU;          // [T*8, UR]
   int* waffs = wantis + SUB * TU;  // [T*8, UR]
   if (IPA) {
     for (int i = tid; i < TU; i += THREADS) {
@@ -185,382 +664,127 @@ __global__ void __launch_bounds__(THREADS, 1) scan_full_kernel(Args a) {
       waffs[i] = (int)a.waff[i];
     }
   }
+  x.g1s = g1s; x.w3s = w3s; x.w45s = w45s; x.gps = gps;
+  x.wantis = wantis; x.waffs = waffs;
   __syncthreads();
 
-  int* flags = a.work;           // bit 0 feasible, bit 1 scored
-  int* rawv = a.work + Np;       // truncated raw PTS score (scored lanes)
-  int* rawi = a.work + 2 * Np;   // raw IPA score incl. D4+D5 (IPA)
   const int B = min(a.meta[0], Bp);
 
-  for (int b = 0; b < B; ++b) {
-    const int t = a.meta[1 + b];
-    const int base = t * CP;
-    const int* tsc = sc + t * row_len;
-    const int* tc = sc + off_tc + t * C;   // tc[which*T*C + c]
-    const int TC = T * C;
-    for (int i = tid; i < K * VZ; i += THREADS) zflag[i] = 0;
-
-    // ---- phase 1: PTS filter minimum count per constraint over the
-    // registered pairs (same-key constraints share one count map) ----
-    int minc[MAXC];
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) minc[c] = POS_BIG;
-    for (int n = tid; n < Np; n += THREADS) {
-#pragma unroll
-      for (int ci = 0; ci < MAXC; ++ci) {
-        if (ci >= C || !tc[W_F_VALID * TC + ci]) continue;
-        if (a.regrow_f[(base + ci) * Np + n] == 0) continue;
-        int sh = 0;
-        for (int cj = 0; cj < C; ++cj)
-          if (sc[off_fsame + (t * C + ci) * C + cj])
-            sh += a.cnt_fn[(base + cj) * Np + n];
-        minc[ci] = min(minc[ci], sh);
-      }
+  if (MODE == MODE_APPLY) {
+    // forced decisions: a commit where ok != 0 and the lane is on this
+    // node axis; a -1 lane (unplaced, or another shard's node) commits
+    // nothing
+    for (int b = 0; b < B; ++b) {
+      const int best = a.forced[2 * b], ok = a.forced[2 * b + 1];
+      if (ok != 0 && best >= 0 && best < Np)
+        commit_pod<IPA>(a, x, b, a.meta[1 + b], best);
     }
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      if (c >= C) continue;
-      int x = warp_min(minc[c]);
-      if (lane == 0) red1[warp * MAXC + c] = x;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      if (c >= C) continue;
-      int x = red1[c];
-      for (int w = 1; w < WARPS; ++w) x = min(x, red1[w * MAXC + c]);
-      minc[c] = x == POS_BIG ? 0 : x;
-    }
-
-    // ---- per-pod IPA scalars from the kcnt carry (written by thread 0
-    // in the previous pod's commit; visible after the barrier above) ----
-    bool pres_dyn = false, counts_empty = false, has_aff = false,
-         smatch = false;
-    int w45_scale = 0;
-    if (IPA) {
-      const int* w3 = w3s + t * UR;
-      const int* gp = gps + t * UR;
-      int at_dyn = 0;
-      for (int r = 0; r < UR; ++r) {
-        const int k0 = a.kcnt[r * LANE];
-        at_dyn += w3[r] * k0;
-        // rowany_r = max_n (ucnt[r, n] > 0) is kcnt[r, 0] > 0 within a
-        // session: both start at zero, and each commit raises kcnt[r]
-        // exactly when it raises some lane of ucnt[r] (at least the
-        // chosen node's own), so no whole-row reduction is needed
-        if (gp[r] != 0 && k0 > 0) pres_dyn = true;
-      }
-      has_aff = sc[off_ipa_t + 3 * t] != 0;
-      smatch = sc[off_ipa_t + 3 * t + 1] != 0;
-      counts_empty = sc[off_ipa_t + 3 * t + 2] + at_dyn == 0;
-      w45_scale = sc[off_w45s];
-    }
-
-    // ---- phase 2: feasibility, zone presence, feasible-set ranges ----
-    int n_feas = 0, n_scored = 0, min_i = POS_BIG, max_i = NEG_BIG;
-    int mx_taint = 0, mx_naff = 0;
-    for (int n = tid; n < Np; n += THREADS) {
-      bool feas = a.valid_n[n] != 0 && a.stat[(t * SR + 0) * Np + n] != 0;
-      if (feas) {  // NodeResourcesFit (exact int32 after the GCD rescale)
-        bool over = false;
-        for (int r = 0; r < R; ++r)
-          if (tsc[R + r] != 0
-              && tsc[r] > a.alloc[r * Np + n] - a.requested[r * Np + n])
-            over = true;
-        const bool fail_dims = tsc[2 * R] != 0 && over;
-        const bool fail_count = a.nzpc[2 * Np + n] + 1 > a.nzpc[3 * Np + n];
-        feas = !(fail_dims || fail_count);
-      }
-      if (feas) {  // PodTopologySpread filter
-#pragma unroll
-        for (int ci = 0; ci < MAXC; ++ci) {
-          if (ci >= C || !tc[W_F_VALID * TC + ci]) continue;
-          const int row = base + ci;
-          if (a.konn_f[row * Np + n] == 0) { feas = false; continue; }
-          int cnt = 0;
-          if (a.regrow_f[row * Np + n] != 0)
-            for (int cj = 0; cj < C; ++cj)
-              if (sc[off_fsame + (t * C + ci) * C + cj])
-                cnt += a.cnt_fn[(base + cj) * Np + n];
-          const int skew = cnt + tc[W_F_SELF * TC + ci] - minc[ci];
-          if (skew > tc[W_F_SKEW * TC + ci]) feas = false;
+  } else if (MODE == MODE_MULTI) {
+    const int mk = a.mk;
+    int* scratch = a.work + 3 * Np;  // [2*mk, Np]: total | wbl per pod
+    // the conflict-suffix flag; it carries across groups, since a later
+    // group's evals chained on a carry that lacks the suffix's commits
+    int seen = 0;
+    for (int g0 = 0; g0 < B; g0 += mk) {
+      const int gn = min(mk, B - g0);
+      // evaluate the group's pods against the group-start carry; inside
+      // the suffix only their feasible counts (out row 2) are needed
+      for (int i = 0; i < gn; ++i) {
+        const Eval e = eval_pod<IPA, MODE>(a, x, s, g0 + i, !seen,
+                                           scratch + 2 * i * Np,
+                                           scratch + (2 * i + 1) * Np);
+        if (tid == 0) {
+          s.g_t[i] = e.t; s.g_best[i] = e.best; s.g_m[i] = e.m;
+          s.g_nf[i] = e.n_feas;
         }
       }
-      const int* ucol = a.ucnt + n;    // ucol[r * Np] = ucnt[r, n]
-      if (IPA && feas) {  // InterPodAffinity: static parts + D1-D3
-        bool fail = a.ipa_stat[(2 * t) * Np + n] != 0;
-        // D1: assumed pods' anti terms repel this pod
-        const int* g1r = g1s + t * UR;
-        for (int r = 0; r < UR && !fail; ++r)
-          if (g1r[r] != 0 && ucol[(size_t)r * Np] > 0) fail = true;
-        // D2: assumed pods vs this pod's own anti terms
-        for (int tau = 0; tau < SUB && !fail; ++tau) {
-          const int row = t * SUB + tau;
-          if (sc[off_av + t * SUB + tau] == 0
-              || a.anti_konn[row * Np + n] == 0) continue;
-          int cnt = a.anti_static[row * Np + n];
-          const int* w = wantis + row * UR;
-          for (int r = 0; r < UR; ++r)
-            if (w[r] != 0) cnt += w[r] * ucol[(size_t)r * Np];
-          if (cnt > 0) fail = true;
-        }
-        // D3: assumed pods matching ALL of this pod's affinity terms, with
-        // the first-pod escape (counts empty and the pod matches itself)
-        if (!fail && has_aff) {
-          bool ok = a.ipa_stat[(2 * t + 1) * Np + n] != 0;
-          if (ok) {
-            bool missing = false;
-            for (int tau = 0; tau < SUB && !missing; ++tau) {
-              if (sc[off_av + (T + t) * SUB + tau] == 0) continue;
-              const int row = t * SUB + tau;
-              int cnt = a.aff_static[row * Np + n];
-              const int* w = waffs + row * UR;
-              for (int r = 0; r < UR; ++r)
-                if (w[r] != 0) cnt += w[r] * ucol[(size_t)r * Np];
-              if (cnt <= 0) missing = true;
+      __syncthreads();
+      // commit in order, each gated by the exact conflict test
+      for (int i = 0; i < gn; ++i) {
+        const int b = g0 + i, t = s.g_t[i], best = s.g_best[i];
+        const int m = s.g_m[i];
+        // pod 0 of a group evaluated against the carry it commits to:
+        // it cannot conflict, and once the suffix started nothing else
+        // is committed
+        if (!seen && i > 0) {
+          // every earlier pod of this group was committed iff it found
+          // a node (no conflict has been seen in the group yet)
+          bool conf = false;
+          for (int e = 0; e < i && !conf; ++e)
+            if (s.g_m[e] >= 0)
+              conf = count_conflict<IPA>(a, x, g0 + e, s.g_t[e],
+                                         s.g_best[e], t, best, m);
+          if (!conf) {
+            // utilization legs (the reference's recheck, mirroring
+            // kernel.multipod_utilization_conflicts): a speculatively
+            // feasible lane that no longer fits, or one whose refreshed
+            // total overtakes the pick, against the current carry
+            const int* gtot = scratch + 2 * i * Np;
+            const int* gwbl = gtot + Np;
+            const int* tsc = sc + t * x.row_len;
+            const int nzr0 = tsc[2 * R + 1], nzr1 = tsc[2 * R + 2];
+            int util = 0;
+            for (int n = tid; n < Np; n += THREADS) {
+              const int tot = gtot[n];
+              if (tot < 0) continue;
+              if (!fits(a, tsc, n)) { util = 1; continue; }
+              const int nt = tot - gwbl[n]
+                  + resource_score(a, nzr0, nzr1, n);
+              if (m >= 0 && (nt > m || (nt == m && n < best))) util = 1;
             }
-            ok = !missing || (counts_empty && smatch);
+            conf = __syncthreads_or(util) != 0;
           }
-          fail = !ok;
+          seen = conf ? 1 : 0;
         }
-        feas = !fail;
-      }
-      int f = 0;
-      if (feas) {
-        f = 1;
-        ++n_feas;
-        if (a.shasall[t * Np + n] != 0) {
-          f |= 2;
-          ++n_scored;
-          for (int k = 0; k < K; ++k) {
-            const int z = a.zid[k * Np + n];
-            if (z >= 0) zflag[k * VZ + z] = 1;
-          }
+        const bool okc = m >= 0 && !seen;
+        if (okc) commit_pod<IPA>(a, x, b, t, best);
+        if (tid == 0) {
+          a.out[b] = okc ? best : -1;
+          a.out[Bp + b] = okc ? m : -1;
+          a.out[2 * Bp + b] = s.g_nf[i];
+          a.out[3 * Bp + b] = seen;
         }
-        int ri = a.stat[(t * SR + 1) * Np + n];
-        if (IPA) {  // D4+D5: the int32 dot on GCD-scaled weights, rescaled
-          const int* w = w45s + t * UR;
-          int dyn45 = 0;
-          for (int r = 0; r < UR; ++r)
-            if (w[r] != 0) dyn45 += w[r] * ucol[(size_t)r * Np];
-          ri += dyn45 * w45_scale;
-          rawi[n] = ri;
-        }
-        min_i = min(min_i, ri);
-        max_i = max(max_i, ri);
-        mx_taint = max(mx_taint, a.stat[(t * SR + 2) * Np + n]);
-        mx_naff = max(mx_naff, a.stat[(t * SR + 3) * Np + n]);
-      }
-      flags[n] = f;
-    }
-    {
-      const int v0 = warp_sum(n_feas), v1 = warp_sum(n_scored);
-      const int v2 = warp_min(min_i), v3 = warp_max(max_i);
-      const int v4 = warp_max(mx_taint), v5 = warp_max(mx_naff);
-      if (lane == 0) {
-        int* p = red2 + warp * 6;
-        p[0] = v0; p[1] = v1; p[2] = v2; p[3] = v3; p[4] = v4; p[5] = v5;
       }
     }
-    __syncthreads();
-    n_feas = 0; n_scored = 0; min_i = POS_BIG; max_i = NEG_BIG;
-    mx_taint = 0; mx_naff = 0;
-    for (int w = 0; w < WARPS; ++w) {
-      const int* p = red2 + w * 6;
-      n_feas += p[0]; n_scored += p[1];
-      min_i = min(min_i, p[2]); max_i = max(max_i, p[3]);
-      mx_taint = max(mx_taint, p[4]); mx_naff = max(mx_naff, p[5]);
-    }
-
-    // PTS score weights: log(n_scored + 2) for per-node (hostname) rows,
-    // log(present zones + 2) for the first constraint of a shared key
-    if (tid < C && tc[W_S_VALID * TC + tid]) {
-      int wbase;
-      if (tc[W_S_PERNO * TC + tid]) {
-        wbase = n_scored;
-      } else {
-        const int key = tc[W_S_KEY * TC + tid];
-        int topo = 0;
-        if (key >= 0)
-          for (int z = 0; z < VZ; ++z)
-            topo += (zflag[key * VZ + z] != 0)
-                    && (a.zvalid_s[(base + tid) * VZ + z] != 0);
-        wbase = tc[W_S_FIRST * TC + tid] ? topo : 0;
+  } else {
+    // MODE_FULL and MODE_EVAL: one pod per step
+    for (int b = 0; b < B; ++b) {
+      const Eval e = eval_pod<IPA, MODE>(a, x, s, b, true, nullptr,
+                                         nullptr);
+      const bool ok = e.m >= 0;
+      if (tid == 0) {
+        a.out[2 * Bp + b] = e.n_feas;
+        if (ok) { a.out[b] = e.best; a.out[Bp + b] = e.m; }
       }
-      wsh[tid] = a.logw[wbase];  // log(wbase + 2); wbase <= Np
-    }
-    __syncthreads();
-
-    // ---- phase 3: raw PTS score on scored lanes, and its range ----
-    int have_s = 0;
-    for (int c = 0; c < C; ++c) have_s |= tc[W_S_VALID * TC + c] != 0;
-    int min_r = POS_BIG, max_r = 0;
-    for (int n = tid; n < Np; n += THREADS) {
-      if (!(flags[n] & 2)) continue;
-      float raw = 0.0f;
-      for (int c = 0; c < C; ++c) {
-        if (!tc[W_S_VALID * TC + c]) continue;
-        const int row = base + c;
-        if (a.konn_s[row * Np + n] == 0) continue;
-        int sh = 0;
-        for (int cj = 0; cj < C; ++cj)
-          if (sc[off_ssame + (t * C + c) * C + cj])
-            sh += a.cnt_sn[(base + cj) * Np + n];
-        int cnt = sh;
-        if (!tc[W_S_PERNO * TC + c]) {
-          const int key = tc[W_S_KEY * TC + c];
-          bool regn = false;
-          if (key >= 0 && a.zvalid_node_s[row * Np + n] != 0) {
-            const int z = a.zid[key * Np + n];
-            regn = z >= 0 && zflag[key * VZ + z] != 0;
-          }
-          cnt = regn ? sh : 0;
-        }
-        const float term = __fadd_rn(__fmul_rn((float)cnt, wsh[c]),
-                                     (float)(tc[W_S_SKEW * TC + c] - 1));
-        raw = __fadd_rn(raw, term);
-      }
-      const int ri = (int)raw;  // truncation toward zero
-      rawv[n] = ri;
-      min_r = min(min_r, ri);
-      max_r = max(max_r, ri);
-    }
-    {
-      const int v0 = warp_min(min_r), v1 = warp_max(max_r);
-      if (lane == 0) { red3[warp * 2] = v0; red3[warp * 2 + 1] = v1; }
-    }
-    __syncthreads();
-    min_r = POS_BIG; max_r = 0;
-    for (int w = 0; w < WARPS; ++w) {
-      min_r = min(min_r, red3[w * 2]);
-      max_r = max(max_r, red3[w * 2 + 1]);
-    }
-    if (min_r == POS_BIG) min_r = 0;
-
-    // ---- phase 4: weighted total and first-max argmax ----
-    const int nzr0 = tsc[2 * R + 1], nzr1 = tsc[2 * R + 2];
-    const bool ipa_on = tsc[2 * R + 3] != 0 || pres_dyn;
-    const float diff = (float)(max_i - min_i);
-    long long bestkey = NO_KEY;
-    for (int n = tid; n < Np; n += THREADS) {
-      const int f = flags[n];
-      if (!(f & 1)) continue;
-      // balanced allocation (f32) and least allocated (int32, floored)
-      const int req0 = a.nzpc[n] + nzr0, req1 = a.nzpc[Np + n] + nzr1;
-      const int cap0 = a.alloc[n], cap1 = a.alloc[Np + n];
-      const float fc = cap0 == 0 ? 1.0f : __fdiv_rn((float)req0, (float)cap0);
-      const float fm = cap1 == 0 ? 1.0f : __fdiv_rn((float)req1, (float)cap1);
-      int balanced = 0;
-      if (!(fc >= 1.0f || fm >= 1.0f))
-        balanced = (int)__fmul_rn(__fsub_rn(1.0f, fabsf(__fsub_rn(fc, fm))),
-                                  (float)MAX_NODE_SCORE);
-      const int l0 = (cap0 == 0 || req0 > cap0)
-          ? 0 : floordiv((cap0 - req0) * MAX_NODE_SCORE, cap0);
-      const int l1 = (cap1 == 0 || req1 > cap1)
-          ? 0 : floordiv((cap1 - req1) * MAX_NODE_SCORE, cap1);
-      const int least = floordiv(l0 + l1, 2);
-      // PodTopologySpread normalize (ignored = feasible but not scored)
-      int pts = 0;
-      if (have_s && (f & 2))
-        pts = max_r == 0 ? MAX_NODE_SCORE
-            : floordiv(MAX_NODE_SCORE * (max_r + min_r - rawv[n]), max_r);
-      // InterPodAffinity static normalize
-      int ipa = 0;
-      if (ipa_on && diff > 0.0f) {
-        const int ri = IPA ? rawi[n] : a.stat[(t * SR + 1) * Np + n];
-        ipa = (int)__fmul_rn(__fdiv_rn((float)(ri - min_i), diff),
-                             (float)MAX_NODE_SCORE);
-      }
-      // default-normalized taint (reverse) and node affinity
-      const int ct = a.stat[(t * SR + 2) * Np + n];
-      const int taint = mx_taint == 0 ? MAX_NODE_SCORE
-          : MAX_NODE_SCORE - floordiv(MAX_NODE_SCORE * ct, mx_taint);
-      const int ca = a.stat[(t * SR + 3) * Np + n];
-      const int naff = mx_naff == 0 ? ca
-          : floordiv(MAX_NODE_SCORE * ca, mx_naff);
-      const int image = a.stat[(t * SR + 4) * Np + n];
-      const int avoid = a.stat[(t * SR + 5) * Np + n];
-      const int total = balanced * a.w[0] + image * a.w[1] + ipa * a.w[2]
-          + least * a.w[3] + naff * a.w[4] + avoid * a.w[5] + pts * a.w[6]
-          + taint * a.w[7];
-      // max total first, then the minimum lane among equal totals
-      const long long key = (long long)total * 4294967296LL
-          + (long long)(0x7fffffff - n);
-      if (key > bestkey) bestkey = key;
-    }
-    {
-      const long long v = warp_max64(bestkey);
-      if (lane == 0) red4[warp] = v;
-    }
-    __syncthreads();
-    bestkey = red4[0];
-    for (int w = 1; w < WARPS; ++w) bestkey = red4[w] > bestkey ? red4[w] : bestkey;
-    int m = -1, best = 0;
-    if (bestkey != NO_KEY) {
-      m = (int)(bestkey >> 32);
-      best = 0x7fffffff - (int)(bestkey & 0xffffffffLL);
-    }
-    const bool ok = m >= 0;
-    if (tid == 0) {
-      a.out[2 * Bp + b] = n_feas;
-      if (ok) { a.out[b] = best; a.out[Bp + b] = m; }
-    }
-    if (!ok) continue;
-
-    // ---- commit: utilization columns and same-pair count lanes ----
-    if (best % THREADS == tid) {
-      for (int r = 0; r < R; ++r) a.requested[r * Np + best] += tsc[r];
-      a.nzpc[best] += nzr0;
-      a.nzpc[Np + best] += nzr1;
-      a.nzpc[2 * Np + best] += 1;
-    }
-    const int8_t* mrow = a.match + (size_t)b * 2 * LANE;
-    for (int row = 0; row < TCp; ++row) {
-      const int mf = mrow[row];
-      if (mf) {
-        const int pv = a.prow_f[row * Np + best];
-        if (pv >= 0)
-          for (int n = tid; n < Np; n += THREADS)
-            if (a.prow_f[row * Np + n] == pv) a.cnt_fn[row * Np + n] += mf;
-      }
-      const int ms = mrow[LANE + row];
-      const int tt = row / CP, cc = row % CP;
-      if (ms && cc < C) {
-        const int factor = sc[off_tc + W_S_PERNO * TC + tt * C + cc]
-            ? 1 : a.stat[(tt * SR + 7) * Np + best];
-        const int pv = a.prow_s[row * Np + best];
-        if (factor && pv >= 0)
-          for (int n = tid; n < Np; n += THREADS)
-            if (a.prow_s[row * Np + n] == pv)
-              a.cnt_sn[row * Np + n] += ms * factor;
-      }
-    }
-    if (IPA) {
-      // the assumed pod joins its node's topology group for every IPA
-      // key the node carries, in template t's 8-row block of ucnt; kcnt
-      // lane l belongs to thread l
-      for (int ki = 0; ki < SUB; ++ki) {
-        const int pv = a.prow_ipa[ki * Np + best];
-        if (pv < 0) continue;
-        int* urow = a.ucnt + (size_t)(t * SUB + ki) * Np;
-        for (int n = tid; n < Np; n += THREADS)
-          if (a.prow_ipa[ki * Np + n] == pv) urow[n] += 1;
-        if (tid < LANE) a.kcnt[(t * SUB + ki) * LANE + tid] += 1;
-      }
+      if (MODE == MODE_FULL && ok) commit_pod<IPA>(a, x, b, e.t, e.best);
     }
   }
 }
 
+typedef void (*KernelFn)(const Args);
+
+// [IPA][MODE]
+const KernelFn KERNELS[2][4] = {
+    {scan_kernel<false, MODE_FULL>, scan_kernel<false, MODE_MULTI>,
+     scan_kernel<false, MODE_EVAL>, scan_kernel<false, MODE_APPLY>},
+    {scan_kernel<true, MODE_FULL>, scan_kernel<true, MODE_MULTI>,
+     scan_kernel<true, MODE_EVAL>, scan_kernel<true, MODE_APPLY>},
+};
+
 }  // namespace
 
 // p: the ArgPtr pointers, d: the ArgDim integers then the 8 weights.
-// Launches the IPA instantiation when UR > 0. Returns 0 or a CUDA error
-// (-1 for shapes the kernel does not take).
+// Launches the instantiation for (UR > 0, mode). Returns 0 or a CUDA error
+// (-1 for shapes or modes the kernel does not take).
 extern "C" int scan_full_launch(void* const* p, const int* d, void* stream) {
   const int T = d[D_T], C = d[D_C], R = d[D_R], TCp = d[D_TCP];
   const int K = d[D_K], CP = d[D_CP], UR = d[D_UR];
+  const int mode = d[D_MODE], mk = d[D_MK];
   if (C > MAXC || K > MAXK || TCp > LANE || TCp != T * CP) return -1;
   if (UR != 0 && UR != T * SUB) return -1;
+  if (mode < MODE_FULL || mode > MODE_APPLY) return -1;
+  if (mode == MODE_MULTI ? (mk < 2 || mk > MAXMK) : mk != 1) return -1;
+  if (mode == MODE_APPLY && p[P_FORCED] == nullptr) return -1;
   Args a;
   a.meta = (const int*)p[P_META];
   a.match = (const int8_t*)p[P_MATCH];
@@ -578,6 +802,8 @@ extern "C" int scan_full_launch(void* const* p, const int* d, void* stream) {
   a.prow_f = (const int*)p[P_PROW_F];
   a.prow_s = (const int*)p[P_PROW_S];
   a.logw = (const float*)p[P_LOGW];
+  a.gmat = (const float*)p[P_GMAT];
+  a.forced = (const int*)p[P_FORCED];
   a.ipa_stat = (const int*)p[P_IPA_STAT];
   a.anti_static = (const int*)p[P_ANTI_STATIC];
   a.anti_konn = (const int*)p[P_ANTI_KONN];
@@ -598,13 +824,13 @@ extern "C" int scan_full_launch(void* const* p, const int* d, void* stream) {
   a.out = (int*)p[P_OUT];
   a.work = (int*)p[P_WORK];
   a.T = T; a.C = C; a.Np = d[D_NP]; a.R = R; a.SR = d[D_SR]; a.TCp = TCp;
-  a.K = K; a.CP = CP; a.Bp = d[D_BP]; a.UR = UR;
+  a.K = K; a.CP = CP; a.Bp = d[D_BP]; a.UR = UR; a.mk = mk;
   for (int i = 0; i < 8; ++i) a.w[i] = d[D_W0 + i];
   // dynamic shared memory: the scalar table (with the IPA extension),
   // then the six gate matrices as int32, sized by the caller
   // (scan_kernel.smem_bytes)
   const size_t smem = (size_t)d[D_SMEM];
-  void (*kernel)(Args) = UR ? scan_full_kernel<true> : scan_full_kernel<false>;
+  const KernelFn kernel = KERNELS[UR ? 1 : 0][mode];
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -362,3 +362,70 @@ def _score_ipa_raw(c: Dict, p: Dict):
     raw = torch.where(c["nkey"], per_label, torch.zeros_like(per_label)).sum(
         dim=1, dtype=_I64)
     return raw, present.any()
+
+
+# ---------------------------------------------------------------------------
+# Multi-pod scan steps: k pods decided per scan step with EXACT conflict
+# replay. The policy knob and the utilization-side conflict algebra the
+# kernel's multi-pod step mirrors (reference: kernel.py:678-758).
+
+# the reference's TPU default (kernel.py:684)
+DEFAULT_MULTIPOD_K = 4
+
+
+def multipod_k(explicit=None, dyn_ports: bool = False,
+               platform: str = "") -> int:
+    """Resolve the multi-pod step width for a session build.
+
+    The reference's precedence: port-carrying sessions are pinned to 1
+    (the NodePorts tables are outside the conflict algebra); then an
+    explicit constructor argument; then KTPU_MULTIPOD_K (=1 restores
+    one-pod-per-step everywhere); then the platform default. `platform`
+    is the session device's type ("cuda", "cpu"); the reference's 4
+    applies to "tpu" alone. The result is clamped to a power of two
+    <= 64, so every pow2 batch bucket divides into whole steps."""
+    from ..utils import knobs
+
+    if dyn_ports:
+        return 1
+    if explicit is not None:
+        k = int(explicit)
+    else:
+        env = knobs.get_int("KTPU_MULTIPOD_K", default=0)
+        if env:
+            k = int(env)
+        else:
+            # 1 on CUDA until a measurement on the card says otherwise:
+            # the one-block kernel evaluates a group's pods one after the
+            # other, so a step of k saves no sweep (PERF.md, multi-pod steps)
+            k = DEFAULT_MULTIPOD_K if platform == "tpu" else 1
+    k = max(1, k)
+    p = 1
+    while p * 2 <= min(k, 64):
+        p *= 2
+    return p
+
+
+def multipod_utilization_conflicts(feasible, total, best, score, lane,
+                                   fit_new, wbl_old, wbl_new):
+    """The utilization side of the exact multi-pod conflict test, on
+    per-node rows (reference: kernel.py:724).
+
+    With the PTS/IPA count gates clean, committing a step's earlier pods
+    changed this pod's true score vector only through NodeResourcesFit /
+    BalancedAllocation / LeastAllocated at the committed nodes. Against
+    the current carry:
+
+      fit_flip — a speculatively feasible node no longer fits: the
+                 feasible set changed, so the normalizations did;
+      overtake — a still-feasible node's refreshed total beats (or
+                 first-max-ties below) the speculative winner.
+
+    Returns (fit_flip_row, overtake_row) for the caller to reduce."""
+    new_total = total + (wbl_new - wbl_old)
+    fit_flip = feasible & ~fit_new
+    overtake = (
+        feasible & fit_new
+        & ((new_total > score) | ((new_total == score) & (lane < best)))
+    )
+    return fit_flip, overtake

@@ -7,7 +7,10 @@ layout (`_build`, `_pack_scalars`, copied as numpy so every static can be
 compared array for array with PallasSession's), and then schedules batch
 after batch against a device-resident carry: each `schedule()` is ONE
 launch of `scan_full` (ops/scan_kernel.py), which filters, scores, picks
-the node and commits each pod of the batch in turn.
+the node and commits each pod of the batch in turn — one pod per step,
+or `multipod_k` pods per step under the conflict-suffix contract
+(`schedule_exact` replays the suffix). `evaluate` / `apply_decisions` run
+the kernel's "eval" and "apply" modes.
 
 Layout notes (the same as the reference's, so the two compare directly):
 
@@ -29,9 +32,8 @@ Layout notes (the same as the reference's, so the two compare directly):
   static template×term gate and weight matrices turn them into the
   D1–D5 terms.
 
-This slice runs mode "full" with one pod per step, with or without
-affinity-term templates; host-port templates and multi-pod steps raise
-SessionUnsupported with a fixed reason slug and are later slices.
+Host-port templates raise SessionUnsupported with a fixed reason slug
+(they ride the reference's hoisted session, a later slice of the port).
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from .hoisted import (
     templates_have_terms,
 )
 from .kernel import DEFAULT_WEIGHTS, MAX_NODE_SCORE
+from .kernel import multipod_k as resolve_multipod_k
 from .scan_kernel import (
     IPA_STATIC_KEYS,
     SMEM_DYNAMIC_MAX,
@@ -75,7 +78,7 @@ CARRY_KEYS = ("requested", "nzpc", "cnt_fn", "cnt_sn")
 IPA_CARRY_KEYS = ("ucnt", "kcnt")
 STATIC_KEYS = ("scalars", "alloc", "stat", "zid", "regrow_f",
                "zvalid_node_s", "zvalid_s", "konn_f", "konn_s", "shasall",
-               "valid_n", "prow_f", "prow_s", "logw")
+               "valid_n", "prow_f", "prow_s", "logw", "gmat")
 
 
 class SessionUnsupported(Exception):
@@ -83,7 +86,6 @@ class SessionUnsupported(Exception):
 
     `reason` is a FIXED slug per raise site (no interpolated shape
     numbers), the same slugs as the reference's PallasUnsupported, plus
-    `multipod` (a shape a later slice of the port takes) and
     `smem-budget` (the CUDA kernel's shared-memory limit, which takes the
     place of the reference's TPU `ipa-vmem-budget`)."""
 
@@ -115,15 +117,17 @@ def _gcd_all(*arrays) -> int:
 
 
 def batch_prologue(fps: Dict, tp_np: Dict, pod_arrays_list: List[Dict],
-                   minimum: int):
+                   minimum: int, require_unbound: bool = True):
     """Host-side batch prep: pow2 length bucket, template ids, and the
     match matrices, computed on the HOST (match_matrices_np) so the
-    dispatch never waits on the device. Returns (Bp, tmpl[Bp], mfa, msa)."""
+    dispatch never waits on the device. Bound pods are refused unless
+    `require_unbound` is False (the eval / apply modes take them).
+    Returns (Bp, tmpl[Bp], mfa, msa)."""
     B = len(pod_arrays_list)
     Bp = batch_bucket(B, minimum=minimum)
     tmpl = np.zeros(Bp, np.int32)
     for i, pa in enumerate(pod_arrays_list):
-        if bool(np.asarray(pa["has_node_name"])):
+        if require_unbound and bool(np.asarray(pa["has_node_name"])):
             raise ValueError("session pods must be unbound")
         tmpl[i] = fps[template_fingerprint(pa)]
     mfa, msa = match_matrices_np(tp_np, pod_arrays_list)
@@ -138,19 +142,25 @@ class ScanSession:
     """Batched scheduling over a device-resident carry, one kernel launch
     per batch.
 
-    Semantics: those of the reference's PallasSession in mode "full" with
-    one pod per step (same prologue, same carry discipline, same int32 /
-    f32 arithmetic) — pinned by tests/test_torch_scan.py against
-    PallasSession in interpret mode and HoistedSession. The template set
-    is fixed at construction: a batch pod whose fingerprint is unknown
+    Semantics: those of the reference's PallasSession (same prologue,
+    same carry discipline, same int32 / f32 arithmetic, the same
+    multi-pod conflict-suffix contract and eval / apply modes) — pinned
+    by tests/test_torch_scan.py, test_torch_multipod.py and
+    test_torch_evalapply.py against PallasSession in interpret mode and
+    HoistedSession. `multipod_k` None resolves through
+    ops/kernel.multipod_k for the session's device. The template set is
+    fixed at construction: a batch pod whose fingerprint is unknown
     raises KeyError."""
 
     def __init__(self, cluster: Dict[str, torch.Tensor],
                  template_arrays_list: List[Dict],
                  weights: Optional[Dict[str, int]] = None,
-                 multipod_k: int = 1, device=None):
+                 multipod_k: Optional[int] = None, device=None):
         self.device = resolve_device(device)
-        if templates_have_ports(template_arrays_list):
+        dyn_ports = templates_have_ports(template_arrays_list)
+        self.multipod_k = resolve_multipod_k(
+            multipod_k, dyn_ports=dyn_ports, platform=self.device.type)
+        if dyn_ports:
             raise SessionUnsupported(
                 "templates with host ports ride the hoisted session",
                 reason="host-ports",
@@ -158,11 +168,6 @@ class ScanSession:
         # affinity-term templates ride the kernel's IPA branch: the D1-D5
         # deltas become per-node count carries (see _build_ipa)
         self.dyn_ipa = templates_have_terms(template_arrays_list)
-        if multipod_k != 1:
-            raise SessionUnsupported(
-                f"multipod_k={multipod_k}: only one pod per step is ported",
-                reason="multipod",
-            )
         self.weights = dict(weights or DEFAULT_WEIGHTS)
         self._fps = {
             template_fingerprint(t): i
@@ -431,7 +436,7 @@ class ScanSession:
         self._logw = log_weights(Np + 2)
         # multipod IPA interference superset, row u / lane t (filled by
         # _build_ipa; zeros without term templates) — read by the
-        # multi-pod conflict test, which is a later slice of the port
+        # kernel's multi-pod conflict test
         self._gmat = np.zeros((_ceil(T, SUB), LANE), np.float32)
 
         # scalar table (read once per launch into shared memory)
@@ -685,23 +690,111 @@ class ScanSession:
             match[:B, LANE + t * CP:LANE + t * CP + C] = msa[t].reshape(B, C)
         return meta, match
 
-    def schedule(self, pod_arrays_list: List[Dict]) -> Dict:
-        """Enqueue one batch (one kernel launch); returns the (8, Bp)
-        result rows on the device — row 0 best / row 1 score / row 2
-        n_feasible. decisions() waits for them."""
+    def _dispatch_mode(self, pod_arrays_list: List[Dict], mode: str,
+                       forced=None, mk: int = 1) -> Dict:
+        """One kernel launch over a batch in `mode` ("full" with mk pods
+        per step, "eval", or "apply" with `forced` (lane | −1, ok)
+        pairs); returns {"rows", "n"}."""
         B = len(pod_arrays_list)
         Bp, tmpl, mfa, msa = batch_prologue(
-            self._fps, self._tp_np, pod_arrays_list, minimum=LANE)
+            self._fps, self._tp_np, pod_arrays_list, minimum=LANE,
+            require_unbound=mode == "full")
         meta, match = self._pack_batch(B, Bp, tmpl, mfa, msa)
+        fvec = None
+        if mode == "apply":
+            fvec = np.zeros(2 * Bp, np.int32)
+            for i, (lane, ok) in enumerate(forced):
+                fvec[2 * i] = lane
+                fvec[2 * i + 1] = ok
+            fvec = self._upload(fvec)
         if self._carry is None:
             self._carry = self._initial_carry()
         out = scan_full(
             self._upload(meta), self._upload(match), self._get_statics(),
             self._carry, self.shapes,
             tuple(int(self.weights[k]) for k in WEIGHT_ORDER),
+            mode=mode, mk=mk, forced=fvec,
         )
         return {"rows": out, "n": B}
+
+    def schedule(self, pod_arrays_list: List[Dict]) -> Dict:
+        """Enqueue one batch (one kernel launch, `multipod_k` pods per
+        step); returns the (8, Bp) result rows on the device — row 0 best
+        / row 1 score / row 2 n_feasible / with mk > 1 row 3 the
+        conflict-suffix flag. decisions() waits for them."""
+        ys = self._dispatch_mode(pod_arrays_list, "full",
+                                 mk=self.multipod_k)
+        ys["mk"] = self.multipod_k
+        return ys
 
     @staticmethod
     def decisions(ys) -> List[int]:
         return [int(v) for v in ys["rows"][0, :ys["n"]].tolist()]
+
+    @staticmethod
+    def conflict_stats(ys):
+        """(n_conflicts, replay_suffix_start) from out row 3 (the
+        reference's PallasSession.conflict_stats): the kernel leaves the
+        conflicted suffix UNCOMMITTED (flag 1), and the host replays
+        exactly those pods through the session, whose carry holds the
+        committed prefix. n_conflicts is 1: one detection headed the
+        suffix, the flags after it are collateral, and a genuine later
+        conflict is detected again when the suffix runs. (0, None) when
+        the batch ran one pod per step (row 3 is the −1 init then)."""
+        if ys.get("mk", 1) <= 1:
+            return 0, None
+        flags = [v > 0 for v in ys["rows"][3, :ys["n"]].tolist()]
+        if not any(flags):
+            return 0, None
+        return 1, flags.index(True)
+
+    # -- split eval/apply (the sharded session's building blocks): the
+    # same kernel in mode "eval" (scores and local best, carries
+    # untouched) and "apply" (commit externally decided placements; −1
+    # lanes are no-ops), so eval -> argmax -> apply replays full mode
+
+    def evaluate(self, pod_arrays_list: List[Dict]):
+        """Local (best, score) per pod WITHOUT carry updates — every pod
+        evaluated against the same carry state."""
+        ys = self._dispatch_mode(pod_arrays_list, "eval")
+        rows = ys["rows"][:2, :ys["n"]].tolist()
+        return list(zip(rows[0], rows[1]))
+
+    def apply_decisions(self, pod_arrays_list: List[Dict],
+                        decisions: List[int]) -> None:
+        """Commit placements (node lane, or −1 = unplaced / off-shard) to
+        the session carry."""
+        forced = [(d if d >= 0 else -1, 1 if d >= 0 else 0)
+                  for d in decisions]
+        self._dispatch_mode(pod_arrays_list, "apply", forced=forced)
+
+
+def schedule_exact(session: ScanSession,
+                   pod_arrays_list: List[Dict]) -> List[int]:
+    """Schedule a batch to completion under the conflict-suffix contract:
+    schedule, keep the decisions before the suffix, and replay the suffix
+    through the same live session (whose carry holds the committed
+    prefix) until none is left. The decisions equal one pod per step.
+
+    The suffix loop of the reference's backend
+    (kubernetes_tpu/scheduler/tpu_backend.py:1977-2016), without its
+    metrics and watchdog; it moves into the port's
+    TPUBackend._session_schedule when the backend is ported. Raises
+    RuntimeError on a suffix at the batch head: a step's first pod was
+    evaluated against the carry it commits to, so it cannot conflict,
+    and every round lands at least one pod."""
+    decisions: List[int] = []
+    arrays = list(pod_arrays_list)
+    while arrays:
+        ys = session.schedule(arrays)
+        got = session.decisions(ys)
+        _, suffix = session.conflict_stats(ys)
+        if suffix is None:
+            decisions.extend(got)
+            break
+        if suffix <= 0:
+            raise RuntimeError("conflict suffix at batch head (kernel "
+                               "invariant violation)")
+        decisions.extend(got[:suffix])
+        arrays = arrays[suffix:]
+    return decisions

@@ -1,20 +1,35 @@
 """`scan_full`: the batched scheduling scan, as one CUDA kernel launch.
 
 Replaces the Pallas kernel of kubernetes_tpu/ops/pallas_scan.py
-(`_build_kernel` -> `kernel`, launched by `_dispatch`) in mode "full"
-with one pod per step, in two compile-time variants of one CUDA kernel:
-`scan_full` (ur = 0, no affinity-term templates) and `scan_full_ipa`
-(ur > 0: the InterPodAffinity term machinery, pallas_scan.py:1552-1592,
-:1680-1693, :1417-1435). For each pod of the batch, in order, against
-the live carry: the static mask, NodeResourcesFit on GCD-rescaled int32
-resources, the PodTopologySpread filter, with ur > 0 the IPA filter over
-the assumed-pod counts (D1-D3), balanced / least allocated, the
-PodTopologySpread score with its log(n + 2) weights, the InterPodAffinity
-normalize (with ur > 0 over the static raw score plus the assumed-pod
-terms D4+D5), the taint and node-affinity default normalize, the
-weighted total and the first-max argmax (min lane among the maxima);
-then the commit of the chosen node into the carries `requested`,
-`nzpc`, `cnt_fn`, `cnt_sn` (and `ucnt`, `kcnt` with ur > 0), in place.
+(`_build_kernel` -> `kernel`, launched by `_dispatch`) in its modes, as
+instantiations of one CUDA kernel: for sessions without affinity-term
+templates (ur = 0) and with them (ur > 0: the InterPodAffinity term
+machinery, pallas_scan.py:1552-1592, :1680-1693, :1417-1435), each in
+
+- mode "full" with one pod per step (`scan_full`, `scan_full_ipa`): for
+  each pod of the batch, in order, against the live carry: the static
+  mask, NodeResourcesFit on GCD-rescaled int32 resources, the
+  PodTopologySpread filter, with ur > 0 the IPA filter over the
+  assumed-pod counts (D1-D3), balanced / least allocated, the
+  PodTopologySpread score with its log(n + 2) weights, the
+  InterPodAffinity normalize (with ur > 0 over the static raw score plus
+  the assumed-pod terms D4+D5), the taint and node-affinity default
+  normalize, the weighted total and the first-max argmax (min lane among
+  the maxima); then the commit of the chosen node into the carries
+  `requested`, `nzpc`, `cnt_fn`, `cnt_sn` (and `ucnt`, `kcnt` with
+  ur > 0), in place;
+- mode "full" with mk > 1 pods per step (`scan_multi`, `scan_multi_ipa`;
+  `multi_group`, :1798-1866): each group of mk pods is evaluated against
+  the group-start carry, then committed in order, each commit gated by
+  the exact conflict test (same node, PTS match lanes, IPA template
+  interference, the fit / balanced / least recheck against the current
+  carry). The first conflict starts the suffix: it and every later pod
+  of the batch stay uncommitted and are flagged in out row 3, for the
+  host to replay (`scan.schedule_exact`);
+- mode "eval" (`scan_eval`, `scan_eval_ipa`; :1751-1766): out rows 0-2
+  per pod, every pod against the same carry, the carries untouched;
+- mode "apply" (`scan_apply`, `scan_apply_ipa`; :1736-1746): the commit
+  of forced (lane | -1, ok) pairs, without evaluating.
 
 What bounds it on the card: not bytes and not arithmetic, but the chain
 of dependent steps. Each pod needs whole-node-axis reductions (the PTS
@@ -32,8 +47,9 @@ stays in the 50 MB L2. A multi-block cooperative design is later work.
 `scan_full_reference` is the plain PyTorch version: a loop over pods of
 tensor ops with the same int32 / f32 arithmetic (floor divisions,
 truncating casts, no fused multiply-add, IEEE division, the `log_weights`
-table). The wrapper `scan_full` sends CPU tensors to it and CUDA tensors
-to the kernel; on CUDA it raises if the build or the launch fails.
+table), split as the reference is into `eval_pod` and `commit`. The
+wrapper `scan_full` sends CPU tensors to it and CUDA tensors to the
+kernel; on CUDA it raises if the build or the launch fails.
 """
 
 from __future__ import annotations
@@ -43,10 +59,12 @@ import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .kernel import multipod_utilization_conflicts
 
 WEIGHT_ORDER = ("balanced", "image", "ipa", "least", "node_affinity",
                 "prefer_avoid", "pts", "taint")
@@ -68,10 +86,21 @@ IPA_STATIC_KEYS = ("ipa_stat", "anti_static", "anti_konn", "aff_static",
 # [T, 3], anti_valid/aff_valid [T, 8] each, w45_scale
 IPA_SCALARS_PER_T = 3 + 2 * 8
 
+MODES = ("full", "eval", "apply")
+# the kernel's mode argument (csrc/scan_full.cu MODE_*): "full" with
+# mk > 1 is its multi-pod instantiation
+MODE_FULL, MODE_MULTI, MODE_EVAL, MODE_APPLY = range(4)
+MAX_MK = 64
+# the launched variant per kernel mode, without and with affinity-term
+# templates
+VARIANTS = {MODE_FULL: "scan_full", MODE_MULTI: "scan_multi",
+            MODE_EVAL: "scan_eval", MODE_APPLY: "scan_apply"}
+
 # launches of the CUDA kernel (one per batch), in all and per variant;
 # the plain version does not count
 LAUNCHES = 0
-VARIANT_LAUNCHES = {"scan_full": 0, "scan_full_ipa": 0}
+VARIANT_LAUNCHES = {f"{v}{suffix}": 0 for v in VARIANTS.values()
+                    for suffix in ("", "_ipa")}
 
 # dynamic shared memory the kernel may ask for: the card's 227 KB per
 # block less room for the kernel's static shared arrays
@@ -207,14 +236,36 @@ def _ceil8(n: int) -> int:
     return (n + 7) // 8 * 8
 
 
-def _validate(meta, match, statics, carry, shapes) -> int:
-    """Check every input the kernel reads; returns UR (0 without the
-    IPA carries)."""
+
+
+def _kernel_mode(mode: str, mk) -> int:
+    """The kernel's mode id for (mode, pods per step); raises on a pair
+    the kernel does not take."""
+    if mode not in MODES:
+        raise ValueError(f"scan_full: mode {mode!r} is not one of {MODES}")
+    if isinstance(mk, bool) or not isinstance(mk, (int, np.integer)) \
+            or not 1 <= mk <= MAX_MK or mk & (mk - 1):
+        raise ValueError(f"scan_full: mk={mk!r} must be a power of two "
+                         f"<= {MAX_MK}")
+    if mk > 1 and mode != "full":
+        raise ValueError(f"scan_full: mk={mk} needs mode 'full'")
+    if mode == "full":
+        return MODE_MULTI if mk > 1 else MODE_FULL
+    return MODE_EVAL if mode == "eval" else MODE_APPLY
+
+
+def _validate(meta, match, statics, carry, shapes, mode, mk,
+              forced) -> Tuple[int, int]:
+    """Check every input the kernel reads; returns (UR, kernel mode id),
+    UR = 0 without the IPA carries."""
     T, C, Np, R, SR, TCp, K, CP = shapes
     UR = carry["ucnt"].shape[0] if "ucnt" in carry else 0
     Bp = meta.shape[0] - 1
     dev = meta.device
     i32, f32 = torch.int32, torch.float32
+    kmode = _kernel_mode(mode, mk)
+    if Bp % mk:
+        raise ValueError(f"scan_full: mk={mk} does not divide Bp={Bp}")
     Rp = carry["requested"].shape[0]
     _check("meta", meta, i32, (1 + Bp,), dev)
     _check("match", match, torch.int8, (Bp, 2 * LANE), dev)
@@ -229,6 +280,7 @@ def _validate(meta, match, statics, carry, shapes) -> int:
            (statics["shasall"].shape[0], Np), dev)
     _check("valid_n", statics["valid_n"], i32, (8, Np), dev)
     _check("logw", statics["logw"], f32, (Np + 2,), dev)
+    _check("gmat", statics["gmat"], f32, (_ceil8(T), LANE), dev)
     _check("scalars", statics["scalars"], i32, (n_scalars(T, C, R, UR),),
            dev)
     _check("requested", carry["requested"], i32, (Rp, Np), dev)
@@ -238,6 +290,13 @@ def _validate(meta, match, statics, carry, shapes) -> int:
     if Rp < R or statics["shasall"].shape[0] < T or TCp != T * CP \
             or C > CP or K > 4 or TCp > LANE:
         raise ValueError(f"scan_full: inconsistent shapes {shapes}")
+    if mode == "apply":
+        if forced is None:
+            raise ValueError("scan_full: mode 'apply' needs `forced`")
+        _check("forced", forced, i32, (2 * Bp,), dev)
+    elif forced is not None:
+        raise ValueError(f"scan_full: `forced` is for mode 'apply', not "
+                         f"{mode!r}")
     if UR:
         if UR != T * 8:
             raise ValueError(f"scan_full: UR={UR} != 8 * T ({T})")
@@ -252,46 +311,60 @@ def _validate(meta, match, statics, carry, shapes) -> int:
             _check(k, statics[k], f32, (T * 8, UR), dev)
         _check("ucnt", carry["ucnt"], i32, (UR, Np), dev)
         _check("kcnt", carry["kcnt"], i32, (UR, LANE), dev)
-    return UR
+    return UR, kmode
 
 
 def scan_full(meta: torch.Tensor, match: torch.Tensor,
               statics: Dict[str, torch.Tensor],
               carry: Dict[str, torch.Tensor], shapes: Tuple[int, ...],
-              weights: Tuple[int, ...]) -> torch.Tensor:
-    """Schedule one batch: meta = [B_real | tmpl[Bp]] int32, match int8
+              weights: Tuple[int, ...], mode: str = "full", mk: int = 1,
+              forced: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run one batch: meta = [B_real | tmpl[Bp]] int32, match int8
     [Bp, 256]; statics and carries as ScanSession lays them out (the IPA
     statics and the `ucnt`/`kcnt` carries select the ur > 0 variant);
     shapes = (T, C, Np, R, SR, TCp, K, CP); weights in WEIGHT_ORDER.
-    Updates the carries in place and returns out int32 [8, Bp] (row 0
-    best lane or −1, row 1 score or −1, row 2 n_feasible; −1 elsewhere)."""
+
+    mode "full" schedules the batch, mk pods per step (a power of two
+    <= 64 dividing Bp); "eval" evaluates every pod against the carry as
+    it stands; "apply" commits `forced`, int32 [2*Bp] of (lane | -1, ok)
+    pairs. "full" and "apply" update the carries in place. Returns out
+    int32 [8, Bp]: row 0 best lane or −1, row 1 score or −1, row 2
+    n_feasible, and with mk > 1 row 3 the conflict-suffix flag (1 = not
+    committed, to be replayed); −1 elsewhere and for pods b >= B_real."""
     global LAUNCHES
-    UR = _validate(meta, match, statics, carry, shapes)
+    UR, kmode = _validate(meta, match, statics, carry, shapes, mode, mk,
+                          forced)
     if meta.device.type == "cpu":
         return scan_full_reference(meta, match, statics, carry, shapes,
-                                   weights)
+                                   weights, mode=mode, mk=mk, forced=forced)
     if meta.device.type != "cuda":
         raise ValueError(f"scan_full: unsupported device {meta.device}")
     T, C, Np, R, SR, TCp, K, CP = shapes
     Bp = meta.shape[0] - 1
     out = torch.full((8, Bp), -1, dtype=torch.int32, device=meta.device)
-    work = torch.empty((3, Np), dtype=torch.int32, device=meta.device)
+    # lane flags, raw PTS and IPA scores; the multi-pod step adds each
+    # group pod's total and balanced/least rows
+    rows = 3 + (2 * mk if kmode == MODE_MULTI else 0)
+    work = torch.empty((rows, Np), dtype=torch.int32, device=meta.device)
     s = statics
     # pointer order: the kernel's ArgPtr enum (csrc/scan_full.cu)
     tensors = [meta, match, s["scalars"], s["alloc"], s["stat"], s["zid"],
                s["regrow_f"], s["zvalid_node_s"], s["zvalid_s"],
                s["konn_f"], s["konn_s"], s["shasall"], s["valid_n"],
-               s["prow_f"], s["prow_s"], s["logw"], carry["requested"],
-               carry["nzpc"], carry["cnt_fn"], carry["cnt_sn"], out, work]
+               s["prow_f"], s["prow_s"], s["logw"], s["gmat"],
+               carry["requested"], carry["nzpc"], carry["cnt_fn"],
+               carry["cnt_sn"], out, work]
     ipa = [s[k] for k in IPA_STATIC_KEYS] + [carry["ucnt"], carry["kcnt"]] \
         if UR else []
-    # without IPA carries the IPA pointers are null
-    ptrs = ([t.data_ptr() for t in tensors + ipa]
+    # `forced` and, without IPA carries, the IPA pointers are null
+    ptrs = ([t.data_ptr() for t in tensors]
+            + [forced.data_ptr() if forced is not None else 0]
+            + [t.data_ptr() for t in ipa]
             + [0] * (len(IPA_STATIC_KEYS) + 2 - len(ipa)))
     # int order: the kernel's ArgDim enum; ScanSession refuses a session
     # whose shared memory exceeds SMEM_DYNAMIC_MAX (`smem-budget`)
     dims = [T, C, Np, R, SR, TCp, K, CP, Bp, UR, smem_bytes(T, C, R, UR),
-            *[int(w) for w in weights]]
+            kmode, int(mk), *[int(w) for w in weights]]
     lib = _lib()
     with torch.cuda.device(meta.device):
         stream = torch.cuda.current_stream(meta.device).cuda_stream
@@ -300,7 +373,7 @@ def scan_full(meta: torch.Tensor, match: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"scan_full kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
-    VARIANT_LAUNCHES["scan_full_ipa" if UR else "scan_full"] += 1
+    VARIANT_LAUNCHES[VARIANTS[kmode] + ("_ipa" if UR else "")] += 1
     return out
 
 
@@ -312,11 +385,17 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
                         statics: Dict[str, torch.Tensor],
                         carry: Dict[str, torch.Tensor],
                         shapes: Tuple[int, ...],
-                        weights: Tuple[int, ...]) -> torch.Tensor:
+                        weights: Tuple[int, ...], mode: str = "full",
+                        mk: int = 1,
+                        forced: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same function, a Python
-    loop over pods of tensor ops on whatever device the inputs live on.
-    Pods at b >= B_real commit nothing and keep their −1 out column. The
-    IPA gate products (ur > 0) are integer sums of products of the small
+    loop over pods of tensor ops on whatever device the inputs live on,
+    structured as the reference's kernel body: `eval_pod` (filter, score
+    and argmax against the current carry), `commit` (the carry updates of
+    one placement), one pod per step or `multi_group`'s mk. Pods at
+    b >= B_real are not evaluated and keep their −1 out column. The IPA
+    gate products (ur > 0) are integer sums of products of the small
     integer weights and the counts, as the reference's exact f32 dots."""
     T, C, Np, R, SR, TCp, K, CP = shapes
     UR = carry["ucnt"].shape[0] if "ucnt" in carry else 0
@@ -326,6 +405,7 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
     Bp = meta.shape[0] - 1
     m_host = meta.tolist()
     b_real, tmpl = m_host[0], m_host[1:]
+    B = min(b_real, Bp)
     mt = match.tolist()
     sc = statics["scalars"].tolist()
     row_len = 2 * R + 4
@@ -358,6 +438,7 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
             statics[k].to(i32) for k in ("g1", "wanti", "waff", "w3tot",
                                           "w45", "gpres"))
         w45_scale = sc[off_w45s]
+        gmat = statics["gmat"].tolist()
     out = torch.full((8, Bp), -1, dtype=i32, device=dev)
     lane = torch.arange(Np, dtype=i32, device=dev)
     zero_i = torch.zeros(Np, dtype=i32, device=dev)
@@ -369,7 +450,44 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
     def fmin(x, mask, init):
         return min(init, int(torch.where(mask, x, init).min()))
 
-    for b in range(min(b_real, Bp)):
+    def fit_row(t):
+        """NodeResourcesFit against the current carry (exact int32 after
+        the GCD rescale), shared by the eval and the multi-pod recheck."""
+        over = torch.zeros(Np, dtype=torch.bool, device=dev)
+        for r in range(R):
+            if sm_t(t, R + r) != 0:
+                over |= sm_t(t, r) > (alloc[r] - requested[r])
+        fail_dims = over if sm_t(t, 2 * R) != 0 else torch.zeros_like(over)
+        fail_count = (nzpc[2] + 1) > nzpc[3]
+        return ~(fail_count | fail_dims)
+
+    def wbl_row(t):
+        """balanced * w_b + least * w_l against the current carry, shared
+        by the eval and the multi-pod recheck."""
+        nzr0, nzr1 = sm_t(t, 2 * R + 1), sm_t(t, 2 * R + 2)
+        nz_cpu = (nzpc[0] + nzr0).to(f32)
+        nz_mem = (nzpc[1] + nzr1).to(f32)
+        cap_cpu = alloc[0].to(f32)
+        cap_mem = alloc[1].to(f32)
+        one = torch.ones((), dtype=f32, device=dev)
+        frac_c = torch.where(cap_cpu == 0, one, nz_cpu / cap_cpu)
+        frac_m = torch.where(cap_mem == 0, one, nz_mem / cap_mem)
+        balanced = ((1.0 - (frac_c - frac_m).abs()) * 100.0).to(i32)
+        balanced = torch.where((frac_c >= 1) | (frac_m >= 1), zero_i, balanced)
+
+        def least_dim(cap, reqq):
+            d = _floordiv((cap - reqq) * MAX_NODE_SCORE,
+                          torch.where(cap == 0, 1, cap))
+            return torch.where((cap == 0) | (reqq > cap), zero_i, d)
+
+        least = _floordiv(least_dim(alloc[0], nzpc[0] + nzr0)
+                          + least_dim(alloc[1], nzpc[1] + nzr1), 2)
+        return balanced * Wb + least * Wl
+
+    def eval_pod(b):
+        """Filter + score pod b against the current carry without
+        committing: (t, best, m, n_feasible, total, wbl) — total is −1
+        on infeasible lanes, m its maximum (−1: no feasible node)."""
         t = tmpl[b]
         base = t * CP
         static_mask = stat[t * SR + 0]
@@ -379,14 +497,8 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
         sc_image = stat[t * SR + 4]
         sc_avoid = stat[t * SR + 5]
 
-        # ---- NodeResourcesFit (exact int32 after the GCD rescale) ----
-        over = torch.zeros(Np, dtype=torch.bool, device=dev)
-        for r in range(R):
-            if sm_t(t, R + r) != 0:
-                over |= sm_t(t, r) > (alloc[r] - requested[r])
-        fail_dims = over if sm_t(t, 2 * R) != 0 else torch.zeros_like(over)
-        fail_count = (nzpc[2] + 1) > nzpc[3]
-        mask_fit = ~(fail_count | fail_dims)
+        # ---- NodeResourcesFit ----
+        mask_fit = fit_row(t)
 
         # ---- PTS filter (per-node counts; same-key constraints share
         # one (key, value) map) ----
@@ -447,24 +559,7 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
         n_feasible = int(feasible.sum())
 
         # ---- resource scores ----
-        nzr0, nzr1 = sm_t(t, 2 * R + 1), sm_t(t, 2 * R + 2)
-        nz_cpu = (nzpc[0] + nzr0).to(f32)
-        nz_mem = (nzpc[1] + nzr1).to(f32)
-        cap_cpu = alloc[0].to(f32)
-        cap_mem = alloc[1].to(f32)
-        one = torch.ones((), dtype=f32, device=dev)
-        frac_c = torch.where(cap_cpu == 0, one, nz_cpu / cap_cpu)
-        frac_m = torch.where(cap_mem == 0, one, nz_mem / cap_mem)
-        balanced = ((1.0 - (frac_c - frac_m).abs()) * 100.0).to(i32)
-        balanced = torch.where((frac_c >= 1) | (frac_m >= 1), zero_i, balanced)
-
-        def least_dim(cap, reqq):
-            d = _floordiv((cap - reqq) * MAX_NODE_SCORE,
-                          torch.where(cap == 0, 1, cap))
-            return torch.where((cap == 0) | (reqq > cap), zero_i, d)
-
-        least = _floordiv(least_dim(alloc[0], nzpc[0] + nzr0)
-                          + least_dim(alloc[1], nzpc[1] + nzr1), 2)
+        wbl = wbl_row(t)
 
         # ---- PTS score ----
         shasall = statics["shasall"][t] != 0
@@ -551,24 +646,20 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
         sc_taint = norm_default(cnt_taint, True)
         sc_nodeaff = norm_default(cnt_nodeaff, False)
 
-        total = (balanced * Wb + sc_image * Wi + ipa * Wipa + least * Wl
-                 + sc_nodeaff * Wna + sc_avoid * Wpa + sc_pts * Wpts
-                 + sc_taint * Wt)
+        total = (wbl + sc_image * Wi + ipa * Wipa + sc_nodeaff * Wna
+                 + sc_avoid * Wpa + sc_pts * Wpts + sc_taint * Wt)
         total = torch.where(feasible, total, torch.full_like(total, -1))
         m = int(total.max())
         best = int(torch.where(total == m, lane, POS_BIG).min())
-        ok = m >= 0
-        out[2, b] = n_feasible
-        if not ok:
-            continue
-        out[0, b] = best
-        out[1, b] = m
+        return t, best, m, n_feasible, total, wbl
 
-        # ---- commit: utilization columns + same-pair count lanes ----
+    def commit(b, t, best):
+        """The carry updates of pod b (template t) placed at lane best:
+        utilization columns and same-pair count lanes."""
         for r in range(R):
             requested[r, best] += sm_t(t, r)
-        nzpc[0, best] += nzr0
-        nzpc[1, best] += nzr1
+        nzpc[0, best] += sm_t(t, 2 * R + 1)
+        nzpc[1, best] += sm_t(t, 2 * R + 2)
         nzpc[2, best] += 1
         mrow = mt[b]
         for row in range(TCp):
@@ -593,4 +684,66 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
                 if pv >= 0:
                     ucnt[t * 8 + ki] += (prow_ipa[ki] == pv).to(i32)
                     kcnt[t * 8 + ki] += 1
+
+    def write(b, best, m, n_feasible, placed):
+        out[2, b] = n_feasible
+        if placed:
+            out[0, b] = best
+            out[1, b] = m
+
+    def count_conflict(e, be, te, t, best, m):
+        """The count legs of the multi-pod conflict test between group pod
+        e (batch index, template te, committed at lane be) and a later pod
+        of template t with speculative pick best: same node, pod e's PTS
+        match lanes of t's valid constraints (summed), the IPA template
+        interference gmat[te, t]."""
+        if be == best and m >= 0:
+            return True
+        me = mt[e]
+        hit = sum(me[t * CP + cc] * sm_tc(W_F_VALID, t, cc)
+                  + me[LANE + t * CP + cc] * sm_tc(W_S_VALID, t, cc)
+                  for cc in range(C))
+        return hit > 0 or bool(UR) and gmat[te][t] > 0
+
+    if mode == "apply":
+        # forced (lane | −1, ok): a commit where ok and the lane is on the
+        # node axis; −1 commits nothing
+        fv = forced.tolist()
+        for b in range(B):
+            best, ok = fv[2 * b], fv[2 * b + 1]
+            if ok != 0 and 0 <= best < Np:
+                commit(b, tmpl[b], best)
+        return out
+
+    if mode == "full" and mk > 1:
+        # multi_group: evals against the group-start carry, then in-order
+        # commits gated by the exact conflict test; `seen` (the suffix
+        # flag) carries across groups
+        seen = 0
+        for g0 in range(0, B, mk):
+            evs = [eval_pod(b) for b in range(g0, min(g0 + mk, B))]
+            committed = []  # (batch index, lane, committed, template)
+            for i, (t, best, m, n_feasible, total, wbl) in enumerate(evs):
+                b = g0 + i
+                conf = any(okc_e and count_conflict(e, be, te, t, best, m)
+                           for e, be, okc_e, te in committed)
+                flip, over = multipod_utilization_conflicts(
+                    total >= 0, total, best, m, lane, fit_row(t), wbl,
+                    wbl_row(t))
+                conf = conf or bool(flip.any()) or (bool(over.any())
+                                                    and m >= 0)
+                seen = max(seen, int(conf))
+                okc = m >= 0 and not seen
+                if okc:
+                    commit(b, t, best)
+                committed.append((b, best, okc, t))
+                write(b, best, m, n_feasible, okc)
+                out[3, b] = seen
+        return out
+
+    for b in range(B):
+        t, best, m, n_feasible, _, _ = eval_pod(b)
+        write(b, best, m, n_feasible, m >= 0)
+        if mode == "full" and m >= 0:
+            commit(b, t, best)
     return out
