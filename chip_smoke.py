@@ -7,7 +7,7 @@ Phases (each raises on failure; the script then exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from the sources in this checkout
-   (into build/torch_kernels/);
+   (into build/torch_kernels/; one nvcc per source, started together);
 3. each kernel against its plain PyTorch version on the card, on a mixed
    ~600-node cluster (hostname DoNotSchedule spread, zone ScheduleAnyway
    spread, no constraint, tainted and unschedulable nodes, a
@@ -54,7 +54,28 @@ Phases (each raises on failure; the script then exits non-zero):
    equals the plain version; at full size, the phase-4 session's
    `evaluate` over its first measured batch and `apply_decisions` of
    that batch's decisions, from the carry before it (one launch each):
-   both == plain version, and the apply reproduces full mode's carry.
+   both == plain version, and the apply reproduces full mode's carry;
+9. cluster churn into the live session (the kernel's delta mode): from the
+   phase-4 session after its three batches, one flush of 4096 events, the
+   backend's queue cap — 1024 evictions of pods phase 4 placed, 2048
+   foreign pods bound to random nodes with the spread templates' labels
+   and requests, 992 foreign pods with other labels, 32 allocatable-only
+   node updates by a GCD multiple — each classified as the backend
+   classifies it (kubernetes_tpu_torch/testing/churn.py); `apply_deltas`
+   is one launch of scan_delta, which equals the plain version on a copy
+   of the carry; the carries then equal a fresh session's built from the
+   mutated encoding (unscaled, valid lanes), the next 4096-pod batch
+   decides as the fresh session does, and so does a session built before
+   the churn that takes the flush through the host seed path. The same on
+   the phase-6 preferred-affinity session (ur > 0) with 256 foreign pods
+   that match no term (`ucnt` / `kcnt` untouched), where an `app=aff`
+   pod classifies as structural. 1-event and 4096-event flushes are timed
+   beside the fresh session's build;
+10. the probes (kubernetes_tpu_torch/probes/, the counterparts of
+   scripts/probe_pallas.py, probe_pallas2.py and probe_fixed_cost.py):
+   each kernel == its plain version, probe_scan's first decisions 0..7,
+   the fixed launch cost (first and steady launches, wall and CUDA-event
+   time).
 
 It prints the kernels' line, then `{"ok": true, "device": {...}}` last.
 It needs a CUDA card and imports nothing of JAX or of the JAX package.
@@ -77,7 +98,10 @@ TENANTS = 4
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
 SOURCE = "kubernetes_tpu_torch/ops/csrc/scan_full.cu"
+PROBES = "kubernetes_tpu_torch/probes/csrc/probes.cu"
 REPLACES = "kubernetes_tpu/ops/pallas_scan.py"
+CHURN = {"evict": 1024, "spread": 2048, "other": 992, "alloc": 32}
+AFF_FOREIGN = 256
 
 
 def log(msg: str) -> None:
@@ -335,6 +359,7 @@ def phase_small(case):
     sess = ScanSession(case["enc"].device_state("cuda"), case["templates"],
                        multipod_k=1, device="cuda")
     carry = sess._initial_carry()
+    carry0 = clone(carry)
     err = 0
     placed = unplaced = 0
     kernel_ms = []
@@ -352,8 +377,12 @@ def phase_small(case):
     log(f"phase 3: kernel == plain on {case['nodes']} nodes, T={sess.T}, "
         f"{len(arrays)} pods in 2 batches ({placed} placed, {unplaced} "
         "unschedulable)")
+    # the first batch again from the same carry: is its first launch slow
+    # because it is the process's first, or because of its work?
+    _, again = time_kernel(sess, arrays[:256], carry0)
     log(f"phase 3: scan_full {[round(x, 3) for x in kernel_ms]} ms per "
-        f"256-pod batch at Np={sess.Np}")
+        f"256-pod batch at Np={sess.Np}; the first batch again from its "
+        f"carry {[round(x, 3) for x in again]} ms")
     return err
 
 
@@ -520,6 +549,7 @@ def phase_zone_spread(sk, gpu):
     decisions += d1 + d2
     launches = sk.LAUNCHES
     pods_per_s = 2 * BATCH / window_s
+    carry_end = clone(sess._carry)   # after the 3 batches, for phase 9
     if launches != 3 or sk.VARIANT_LAUNCHES != only(sk, scan_full=3):
         raise AssertionError(f"scan_full launched {sk.VARIANT_LAUNCHES} "
                              "times for 3 batches")
@@ -550,7 +580,8 @@ def phase_zone_spread(sk, gpu):
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "sess": sess, "multi": multi,
             "batch": batch1, "carry_before": carry_before, "after": after1,
-            "out": out}
+            "out": out, "enc": enc, "pe": pe, "templates": templates,
+            "pending": pending, "carry_end": carry_end, "build_s": build_s}
 
 
 def phase_affinity(sk, gpu, kind):
@@ -666,7 +697,9 @@ def phase_affinity(sk, gpu, kind):
     return {"cell": name, "launches": launches["scan_full_ipa"], "err": err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "sess": sess, "multi": multi,
-            "batch": batch1, "carry_before": carry_before}
+            "batch": batch1, "carry_before": carry_before, "enc": enc,
+            "pe": pe, "templates": templates, "affinity": aff,
+            "labels": labels, "build_s": build_s}
 
 
 def phase_multipod_small(sk, gpu, case):
@@ -1038,6 +1071,422 @@ def phase_eval_apply(sk, gpu, cases, zone):
     }
 
 
+def unscaled(sess, carry):
+    """The four carries and alloc in the encoding's units (x the
+    session's GCD), on the valid node lanes, as int64 numpy."""
+    import numpy as np
+
+    g, R, N = sess._gcd, sess.R, sess.N
+    valid = sess._valid_n[0, :N] != 0
+    c = {k: carry[k].cpu().numpy().astype(np.int64)
+         for k in ("requested", "nzpc", "cnt_fn", "cnt_sn")}
+    c["requested"] = c["requested"][:R] * g[:, None]
+    c["nzpc"][:2] *= g[:2, None]
+    c["alloc"] = sess._alloc[:R].astype(np.int64) * g[:, None]
+    return {k: v[:, :N][:, valid] for k, v in c.items()}
+
+
+def churn_events(d, rng):
+    """Phase 9's flush on the zone-spread cell: CHURN evictions of placed
+    pods, foreign pods bound to random nodes with the spread templates'
+    labels and requests and with other (init-pod) labels, and
+    allocatable-only updates of random nodes by a GCD multiple of cpu and
+    one pod; shuffled. -> [(kind, object)]."""
+    import copy
+
+    from kubernetes_tpu_torch.testing.synth import (
+        make_pod,
+        synth_pending_pods,
+    )
+
+    enc, sess = d["enc"], d["sess"]
+    names = [n for n in enc.node_names if n is not None]
+    placed = [p for p in d["pending"] if p.spec.node_name]
+    events = [("remove", p) for p in rng.sample(placed, CHURN["evict"])]
+    for i, p in enumerate(synth_pending_pods(CHURN["spread"], spread=True)):
+        p.metadata.name = f"foreign-{i}"
+        p.spec.node_name = rng.choice(names)
+        events.append(("add", p))
+    for i in range(CHURN["other"]):
+        events.append(("add", make_pod(
+            f"foreign-other-{i}", cpu="100m", memory="128Mi",
+            labels={"app": f"init-{i % 8}"}, node_name=rng.choice(names))))
+    A = enc._arrays
+    g0 = int(sess._gcd[0])
+    bump = g0 * max(1, 1000 // g0)              # about one core
+    for name in rng.sample(names, CHURN["alloc"]):
+        i = enc.node_index[name]
+        node = copy.deepcopy(enc._nodes[name])
+        for res in (node.status.allocatable, node.status.capacity):
+            res["cpu"] = f"{int(A['alloc'][i][0]) + bump}m"
+            res["pods"] = str(int(A["allowed_pods"][i]) + 1)
+        events.append(("alloc", node))
+    rng.shuffle(events)
+    return events
+
+
+def classify(sess, enc, events):
+    """Each event through the backend's classifiers (the encoding mutated
+    as the backend mutates it): (deltas, refused)."""
+    from kubernetes_tpu_torch.testing import churn
+
+    deltas, refused = [], 0
+    for kind, obj in events:
+        if kind == "alloc":
+            delta = churn.alloc_patch(sess, enc, obj)
+        elif kind == "add":
+            delta = churn.pod_delta(
+                sess, enc, obj, obj.spec.node_name, 1,
+                lambda p=obj: enc.add_pod(p, p.spec.node_name))
+        else:
+            delta = churn.pod_delta(sess, enc, obj, obj.spec.node_name, -1,
+                                    lambda p=obj: enc.remove_pod(p))
+        if delta is None:
+            refused += 1
+        else:
+            deltas.append(delta)
+    return deltas, refused
+
+
+def time_delta(sess, node, rows, carry, runs=3):
+    """Median CUDA-event ms of `runs` bare delta launches, each on a copy
+    of `carry` (not counted as the main path's)."""
+    import torch
+    from kubernetes_tpu_torch.ops import scan_kernel as sk
+
+    times = []
+    for _ in range(runs):
+        c = clone(carry)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        sk.carry_delta(node, rows, sess._get_statics(), c, sess.shapes)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times), times
+
+
+def phase_churn(sk, gpu, d, events, next_pods, label):
+    """Phase 9 on one cell: the live session `d["sess"]` (its carry as
+    the cell's batches left it) absorbs `events` in one flush. Returns
+    this cell's numbers."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+
+    sess, enc, pe, templates = d["sess"], d["enc"], d["pe"], d["templates"]
+    # a session from the encoding as it stands, before the churn: it
+    # takes the flush through the host seed path, never launched before
+    seeded = ScanSession(enc.device_state("cuda"), templates, multipod_k=1,
+                         device="cuda")
+    t0 = time.perf_counter()
+    deltas, refused = classify(sess, enc, events)
+    classify_ms = (time.perf_counter() - t0) * 1e3
+    if refused or len(deltas) != len(events):
+        raise AssertionError(f"9 {label}: {refused} of {len(events)} events "
+                             "refused as structural")
+    if not all(seeded.delta_compatible(x["dres"], x["dnz"])
+               for x in deltas if x["kind"] != "node-alloc"):
+        raise AssertionError(f"9 {label}: a delta falls outside the seeded "
+                             "session's GCD envelope")
+    carry_before = clone(sess._carry)
+    node, payload = ScanSession._pack_deltas(
+        [sess._delta_rows(x) for x in deltas])
+    node_t = torch.from_numpy(node).cuda()
+    rows_t = torch.from_numpy(payload).cuda()
+    statics = sess._get_statics()
+    # (b) the kernel against the plain version on copies of the carry
+    by_kernel, by_plain = clone(carry_before), clone(carry_before)
+    sk.carry_delta(node_t, rows_t, statics, by_kernel, sess.shapes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sk.carry_delta_reference(node_t, rows_t, statics, by_plain, sess.shapes)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = carry_err(by_kernel, by_plain)
+    if not carries_equal(by_kernel, by_plain):
+        raise AssertionError(f"9 {label}: scan_delta != plain version (max "
+                             f"abs err {err})")
+    # (a) the session's own flush: one counted launch
+    ipa_before = {k: sess._carry[k].clone() for k in ("ucnt", "kcnt")
+                  if k in sess._carry}
+    reset_counts(sk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.apply_deltas(deltas)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(sk.VARIANT_LAUNCHES)
+    if launches != only(sk, scan_delta=1):
+        raise AssertionError(f"9 {label}: apply_deltas launched {launches}")
+    if not carries_equal({k: sess._carry[k] for k in by_kernel}, by_kernel):
+        raise AssertionError(f"9 {label}: the session's flush differs from "
+                             "the bare kernel's")
+    if not all(torch.equal(sess._carry[k], v) for k, v in ipa_before.items()):
+        raise AssertionError(f"9 {label}: the flush moved ucnt / kcnt")
+    # a 1-event flush (a zero node-alloc patch): the call and the kernel
+    zero = {"kind": "node-alloc", "node": 0, "dallowed": 0,
+            "dalloc": np.zeros(sess.R, np.int64)}
+    reset_counts(sk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.apply_deltas([zero])
+    torch.cuda.synchronize()
+    one_call_ms = (time.perf_counter() - t0) * 1e3
+    if sk.VARIANT_LAUNCHES != only(sk, scan_delta=1):
+        raise AssertionError(f"9 {label}: a 1-event flush launched "
+                             f"{sk.VARIANT_LAUNCHES}")
+    kernel_ms, runs = time_delta(sess, node_t, rows_t, carry_before)
+    one_node, one_rows = ScanSession._pack_deltas([sess._delta_rows(zero)])
+    one_ms, _ = time_delta(sess, torch.from_numpy(one_node).cuda(),
+                           torch.from_numpy(one_rows).cuda(), carry_before)
+    # (c) a fresh session from the mutated encoding: what a rebuild costs,
+    # and the carries it starts from
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh = ScanSession(enc.device_state("cuda"), templates, multipod_k=1,
+                        device="cuda")
+    fresh._carry = fresh._initial_carry()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    got, want = unscaled(sess, sess._carry), unscaled(fresh, fresh._carry)
+    diff = [k for k in want if not np.array_equal(got[k], want[k])]
+    if diff:
+        raise AssertionError(f"9 {label}: {diff} differ from a fresh "
+                             "session's")
+    # (e) the seeded session through the seed path (no launch)
+    reset_counts(sk)
+    seeded.apply_deltas(deltas)
+    if seeded._carry is not None or sk.LAUNCHES:
+        raise AssertionError(f"9 {label}: the seed path launched")
+    seed_got = {k: getattr(seeded, f"_{k}0") for k in
+                ("requested", "nzpc", "cnt_fn", "cnt_sn")}
+    if any(not np.array_equal(a, b) for a, b in zip(
+            unscaled(seeded, {k: torch.from_numpy(v)
+                              for k, v in seed_got.items()}).values(),
+            want.values())):
+        raise AssertionError(f"9 {label}: the seed path's arrays differ "
+                             "from a fresh session's")
+    # (d) the next batch in all three sessions
+    batch = [{k: v for k, v in pe.encode(p).items()
+              if not k.startswith("_")} for p in next_pods]
+    decided = [ScanSession.decisions(x.schedule(batch))
+               for x in (sess, fresh, seeded)]
+    if decided[0] != decided[1] or decided[2] != decided[1]:
+        raise AssertionError(f"9 {label}: the next batch decides otherwise "
+                             "than a fresh session")
+    placed = sum(x >= 0 for x in decided[0])
+    nbound = delta_bound(sess, node, payload)
+    counts = {x["kind"]: 0 for x in deltas}
+    for x in deltas:
+        counts[x["kind"]] += 1
+    log(f"phase 9 {label}: {len(events)} events classified in "
+        f"{classify_ms:.1f} ms ({counts}, {refused} refused); apply_deltas "
+        f"1 launch of scan_delta == plain (max abs err {err}), ucnt/kcnt "
+        f"untouched; carries == a fresh session's (unscaled, valid lanes); "
+        f"the next {len(batch)}-pod batch ({placed} placed) decides as the "
+        f"fresh session and the seed-path session do. scan_delta "
+        f"{kernel_ms:.3f} ms per {len(deltas)}-event flush (runs "
+        f"{[round(x, 3) for x in runs]}), {one_ms:.3f} ms per 1-event "
+        f"flush; apply_deltas call {call_ms:.3f} ms ({len(deltas)} events) "
+        f"and {one_call_ms:.3f} ms (1 event); plain version {plain_ms:.1f} "
+        f"ms; "
+        f"bound {nbound[0]:.4f} ms by {nbound[1]} ({nbound[2]} bytes, "
+        f"{nbound[3]} ops); a rebuild: fresh session build {build_s:.3f} s "
+        f"[{gpu}]")
+    return {"cell": label, "launches": 2, "err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": nbound[0],
+            "bound_by": nbound[1], "one_ms": one_ms, "call_ms": call_ms,
+            "one_call_ms": one_call_ms, "build_s": build_s,
+            "events": len(deltas), "refused": refused}
+
+
+def phase_churn_zone(sk, gpu, zone):
+    """Phase 9 on the zone-spread cell."""
+    import random
+
+    from kubernetes_tpu_torch.testing.synth import synth_pending_pods
+
+    zone["sess"]._carry = clone(zone["carry_end"])
+    events = churn_events(zone, random.Random(9))
+    next_pods = synth_pending_pods(BATCH, spread=True)
+    for i, p in enumerate(next_pods):
+        p.metadata.name = f"next-{i}"
+    return phase_churn(sk, gpu, zone, events, next_pods, "zone spread 5000n")
+
+
+def phase_churn_affinity(sk, gpu, d):
+    """Phase 9 on the preferred-affinity cell (ur > 0): foreign pods that
+    match no term, and an app=aff pod that classifies as structural."""
+    import random
+
+    from kubernetes_tpu_torch.ops.hoisted import ipa_term_match_np
+    from kubernetes_tpu_torch.testing import churn
+    from kubernetes_tpu_torch.testing.synth import make_pod
+
+    sess, enc = d["sess"], d["enc"]
+    rng = random.Random(6)
+    names = [n for n in enc.node_names if n is not None]
+    probe = make_pod("foreign-aff", cpu="100m", memory="128Mi",
+                     labels=dict(d["labels"]), node_name=names[0])
+    rows = churn.pod_self_rows(enc, probe)
+    if not ipa_term_match_np(sess._term_np, rows) or churn.pod_delta(
+            sess, enc, probe, names[0], 1, lambda: None) is not None:
+        raise AssertionError("9: an app=aff pod did not classify as "
+                             "structural")
+    events = [("add", make_pod(f"foreign-{i}", cpu="100m", memory="128Mi",
+                               node_name=rng.choice(names)))
+              for i in range(AFF_FOREIGN)]
+    next_pods = [make_pod(f"next-{i}", cpu="100m", memory="128Mi",
+                          labels=dict(d["labels"]), affinity=d["affinity"])
+                 for i in range(AFF_BATCHES[-1])]
+    got = phase_churn(sk, gpu, d, events, next_pods, d["cell"])
+    log(f"phase 9 {d['cell']}: an {d['labels']} pod classifies as "
+        "structural (ipa_term_match_np)")
+    return got
+
+
+def wall_ms(fn):
+    """Host ms of fn() on the card, synchronized before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def phase_probes(gpu):
+    """Phase 10: each probe through its entry point (counted), held to
+    its plain version, timed, and bounded. Returns the kernels-line
+    entries."""
+    import torch
+    from kubernetes_tpu_torch.probes import event_ms
+    from kubernetes_tpu_torch.probes import probe_fixed_cost as pf
+    from kubernetes_tpu_torch.probes import probe_layouts as pl
+    from kubernetes_tpu_torch.probes import probe_scan as ps
+
+    entries = []
+
+    def add(name, replaces, launches, err, ms, plain_ms, nbound,
+            library_ms=None, **extra):
+        entries.append(entry(name, replaces, {
+            "launches": launches, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": nbound[0], "bound_by": nbound[1],
+            "library_ms": library_ms}, source=PROBES, **extra))
+        return nbound
+
+    # probe_scan (scripts/probe_pallas.py:38)
+    req, alloc = ps.inputs("cuda")
+    ps.LAUNCHES.update(dict.fromkeys(ps.LAUNCHES, 0))
+    out = ps.probe_scan(req, alloc)
+    torch.cuda.synchronize()
+    n_scan = ps.LAUNCHES["probe_scan"]
+    plain_ms, ref = wall_ms(lambda: ps.probe_scan_reference(req, alloc))
+    err = int((out.long() - ref.long()).abs().max())
+    first = out[:8, 0].tolist()
+    if err or first != list(range(8)):
+        raise AssertionError(f"10: probe_scan != plain version (err {err}) "
+                             f"or first decisions {first}")
+    times = event_ms(lambda: ps.probe_scan(req, alloc))
+    ms = statistics.median(times)
+    B, N = ps.B, ps.N
+    # fit (add, compare), score (subtract, select), the argmax compare per
+    # lane and step; the one-hot update per step
+    nb = add("probe_scan", "scripts/probe_pallas.py:38", n_scan, err, ms,
+             plain_ms, roofline(4 * (B + N + B * ps.OUT_LANES),
+                                5 * B * N + B),
+             us_per_step=ms * 1e3 / B)
+    log(f"phase 10: probe_scan == plain, first decisions {first}; "
+        f"{ms:.3f} ms for {B} steps over {N} lanes ({ms * 1e3 / B:.2f} us "
+        f"per step; runs {[round(x, 3) for x in times]}), plain version "
+        f"{plain_ms:.1f} ms, bound {nb[0]:.5f} ms by {nb[1]} [{gpu}]")
+
+    # probe_int64 (scripts/probe_pallas.py:69)
+    a = ps.int64_input("cuda")
+    out = ps.probe_int64(a)
+    torch.cuda.synchronize()
+    n64 = ps.LAUNCHES["probe_int64"]
+    plain_ms, ref = wall_ms(lambda: ps.probe_int64_reference(a))
+    err = int((out - ref).abs().max())
+    if err:
+        raise AssertionError(f"10: probe_int64 != plain version ({err})")
+    ms = statistics.median(event_ms(lambda: ps.probe_int64(a)))
+    ones = torch.ones_like(a)
+    library_ms = statistics.median(
+        event_ms(lambda: torch.add(ones, a, alpha=2)))
+    nb = add("probe_int64", "scripts/probe_pallas.py:69", n64, err, ms,
+             plain_ms, roofline(2 * a.numel() * 8, 2 * a.numel()),
+             library_ms=library_ms)
+    log(f"phase 10: probe_int64 == plain ({out[0, :3].tolist()}); {ms:.4f} "
+        f"ms, torch.add(1, a, alpha=2) {library_ms:.4f} ms, plain version "
+        f"{plain_ms:.3f} ms, bound {nb[0]:.7f} ms by {nb[1]} [{gpu}]")
+
+    # probe_layouts k1-k3 (scripts/probe_pallas2.py:14)
+    req, alloc = pl.inputs("cuda")
+    pl.LAUNCHES = 0
+    outs = {k: pl.probe_layouts(k, req, alloc) for k in pl.KERNELS}
+    torch.cuda.synchronize()
+    n_lay = pl.LAUNCHES
+    err, ms, plain_ms, nbytes, ops, parts = 0, 0.0, 0.0, 0, 0, {}
+    for k, name in pl.KERNELS.items():
+        p_ms, ref = wall_ms(
+            lambda k=k: pl.probe_layouts_reference(k, req, alloc))
+        e = float((outs[k] - ref).abs().max())
+        err = max(err, e)
+        if e:
+            raise AssertionError(f"10: probe_layouts {name} != plain ({e})")
+        k_ms = statistics.median(
+            event_ms(lambda k=k: pl.probe_layouts(k, req, alloc)))
+        B, N = req.shape[0], alloc.shape[1]
+        k_ops = (B * pl.OUT_LANES if k == 1 else 2 * B * N) + (B if k == 3
+                                                               else 0)
+        nbytes += 4 * (req.numel() + alloc.numel() + req.numel())
+        ops += k_ops
+        ms += k_ms
+        plain_ms += p_ms
+        parts[f"k{k}"] = {"ms": k_ms, "decisions": outs[k][:8, 0].tolist()}
+        log(f"phase 10: probe_layouts {name}: OK == plain, decisions "
+            f"{outs[k][:8, 0].tolist()}, {k_ms:.4f} ms ({k_ms * 1e3 / B:.2f} "
+            f"us per step), plain version {p_ms:.1f} ms [{gpu}]")
+    nb = add("probe_layouts", "scripts/probe_pallas2.py:14", n_lay, err, ms,
+             plain_ms, roofline(nbytes, ops), parts=parts)
+    log(f"phase 10: probe_layouts k1+k2+k3 {ms:.4f} ms, bound {nb[0]:.6f} "
+        f"ms by {nb[1]} [{gpu}]")
+
+    # probe_fixed_cost (scripts/probe_fixed_cost.py:49)
+    pf.LAUNCHES = 0
+    m = pf.measure("cuda")
+    n_fixed = pf.LAUNCHES
+    if not m["equal"]:
+        raise AssertionError("10: probe_fixed_cost != plain version")
+    tensors, _ = pf.arguments("cuda")
+    plain_ms, _ = wall_ms(lambda: pf.fixed_cost_reference(tensors["meta"],
+                                                          pf.Bp))
+    # out written once and B_real read; the body's 8*Bp*(B_real + 1)
+    # adds as it is written
+    nb = add("probe_fixed_cost", "scripts/probe_fixed_cost.py:49", n_fixed,
+             0, m["steady_event_ms"], plain_ms,
+             roofline(8 * pf.Bp * 4 + 4, 8 * pf.Bp * (pf.Bp + 1)),
+             first_event_ms=m["first_event_ms"],
+             first_wall_ms=m["first_wall_ms"],
+             steady_wall_ms=m["steady_wall_ms"],
+             empty_event_ms=m["empty_event_ms"],
+             empty_wall_ms=m["empty_wall_ms"])
+    log(f"phase 10: probe_fixed_cost == plain; first launch in this process "
+        f"(its library just loaded) "
+        f"{m['first_wall_ms']:.3f} ms wall / {m['first_event_ms']:.3f} ms "
+        f"events, steady (min of {pf.STEADY}) {m['steady_wall_ms']:.3f} ms "
+        f"wall / {m['steady_event_ms']:.3f} ms events, B_real = 0 "
+        f"{m['empty_wall_ms']:.3f} ms wall / {m['empty_event_ms']:.3f} ms "
+        f"events; {n_fixed} launches; bound {nb[0]:.6f} ms by {nb[1]} "
+        f"[{gpu}]")
+    return entries
+
+
 def ipa_ops(ipa, t) -> tuple:
     """The IPA branch's operations for one template-t pod, from the
     session's gate matrices: only the nonzero gate entries of the terms
@@ -1146,19 +1595,59 @@ def bound(sess, meta, match, out, n, mode="full", mk=1, forced=None):
                 # kcnt lanes, for each IPA key the chosen node has
                 keys = int((ipa["prow_ipa"][:, commits[b]] >= 0).sum())
                 ops += keys * (2 * sess.Np + LANE)
+    return roofline(nbytes, ops)
+
+
+def roofline(nbytes, ops):
+    """(least ms, "bytes" or "operations", bytes, ops): the larger of the
+    bytes over the card's memory rate and the operations over its f32
+    rate."""
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = ops / H100_F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations"), nbytes, ops
 
 
-def entry(name, replaces, d, **extra):
-    """One kernel's entry of the kernels line."""
-    e = {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": f"{REPLACES}:{replaces}", "launches": d["launches"],
+def delta_bound(sess, node, payload):
+    """Least time for one delta flush: the payload read once, the statics
+    it reads (the scalar prefix, each template's s_src row, prow_f,
+    prow_s) read once, the four carries read and written once; a compare
+    and an add per lane for each payload row that moves a pair (nonzero,
+    and the node has a pair id there; for cnt_sn also a nonzero factor,
+    and a multiply), and the utilization adds."""
+    import numpy as np
+    from kubernetes_tpu_torch.ops import scan_kernel as sk
+
+    Np, TCp, T, C, CP, SR = sess.Np, sess.TCp, sess.T, sess.C, sess.CP, \
+        sess.SR
+    Rp = sess._requested0.shape[0]
+    carry_bytes = sum(sess._carry[k].numel() * 4 for k in
+                      ("requested", "nzpc", "cnt_fn", "cnt_sn"))
+    nbytes = (node.nbytes + payload.nbytes + 2 * carry_bytes
+              + 4 * (sk.n_scalars(T, C, sess.R, 0) + T * Np + 2 * TCp * Np))
+    mf = payload[:, Rp + 8:Rp + 8 + TCp]
+    ms = payload[:, Rp + 8 + TCp:]
+    pf = sess._prow_f[:, node].T >= 0                     # [E, TCp]
+    ps = sess._prow_s[:, node].T >= 0
+    factor = sess._perno_rows[:, 0][None] + (
+        1 - sess._perno_rows[:, 0][None]) * sess._src_rows[:, node].T
+    rows_f = int(((mf != 0) & pf).sum())
+    rows_s = int(((ms != 0) & ps & (factor != 0)).sum())
+    ops = 2 * Np * rows_f + 3 * Np * rows_s + int(
+        np.count_nonzero(payload[:, :Rp + 8]))
+    return roofline(nbytes, ops)
+
+
+def entry(name, replaces, d, source=SOURCE, **extra):
+    """One kernel's entry of the kernels line; `replaces` is a line of the
+    scan kernel's file or a "file:line"."""
+    if isinstance(replaces, int):
+        replaces = f"{REPLACES}:{replaces}"
+    e = {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": d["launches"],
          "max_abs_err": d["err"], "ms": d["ms"], "plain_ms": d["plain_ms"],
          "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-         "library_ms": None, "matched": True}
+         "library_ms": d.get("library_ms"), "matched": True}
     e.update(extra)
     return e
 
@@ -1183,10 +1672,15 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
 
+    from kubernetes_tpu_torch import probes
+    from kubernetes_tpu_torch.ops import build
+
     t0 = time.perf_counter()
-    built = sk.build(verbose=True)
-    log(f"phase 2: built scan_full in {built:.2f} s "
-        f"({time.perf_counter() - t0:.2f} s with checks)")
+    built = build.build([sk.SOURCE, probes.SOURCE], verbose=True)
+    log("phase 2: built " + ", ".join(
+        f"{src.name} in {sec:.2f} s" for src, sec in built.items())
+        + f" (one nvcc each, in parallel; {time.perf_counter() - t0:.2f} s "
+        "in all)")
 
     small = small_case()
     small_err = phase_small(small)
@@ -1199,6 +1693,9 @@ def main() -> int:
     tenants = phase_tenants(sk, gpu)                               # 7b
     heavy = [phase_conflict_heavy(sk, gpu, d) for d in (zone, aff[0])]
     ev = phase_eval_apply(sk, gpu, (small, terms), zone)           # 8
+    churn = [phase_churn_zone(sk, gpu, zone),                      # 9
+             phase_churn_affinity(sk, gpu, aff[0])]
+    probe_entries = phase_probes(gpu)                              # 10
 
     zone["err"] = max(zone["err"], small_err)
     # scan_full_ipa reports its slower cell; `cells` keeps both cells'
@@ -1223,7 +1720,21 @@ def main() -> int:
               call_ms=ev["eval"]["call_ms"]),
         entry("scan_apply", 1737, dict(ev["apply"], err=ev["err"]),
               call_ms=ev["apply"]["call_ms"]),
+        # the zone-spread flush; `cells` keeps both cells' numbers
+        entry("scan_delta", 168, dict(
+            churn[0], launches=sum(c["launches"] for c in churn),
+            err=max(c["err"] for c in churn)), cell=churn[0]["cell"],
+            one_event_ms=churn[0]["one_ms"], call_ms=churn[0]["call_ms"],
+            rebuild_s=churn[0]["build_s"],
+            cells=[{k: c[k] for k in ("cell", "events", "ms", "one_ms",
+                                      "call_ms", "plain_ms", "bound_ms",
+                                      "bound_by", "build_s")}
+                   for c in churn]),
+        *probe_entries,
     ]
+    idle = [e["name"] for e in kernels if not e["launches"]]
+    if idle:
+        raise AssertionError(f"kernels never launched on their path: {idle}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,12 +13,20 @@
 //              conflict test; the first conflict starts the suffix that
 //              stays uncommitted (out row 3) for the host to replay;
 //   MODE_EVAL  mode "eval" (:1751-1766): out rows 0-2, carries untouched;
-//   MODE_APPLY mode "apply" (:1736-1746): commit forced (lane, ok) pairs.
+//   MODE_APPLY mode "apply" (:1736-1746): commit forced (lane, ok) pairs;
+//   MODE_DELTA the counterpart of the reference's jnp program
+//              _carry_delta_scan (:168-195): signed cluster-event deltas
+//              (pods bound or evicted by other actors, allocatable-only
+//              node updates) on the carry, each the commit's column update
+//              with best := the event's node and the event's own payload.
+//              One instantiation, IPA = false, serves every session: the
+//              reference never touches ucnt / kcnt there.
 // The pod body is split as the reference splits it: eval_pod (filter,
 // score, argmax against the current carry) and commit_pod (the carry
-// updates for one placement). The plain PyTorch version of the same
-// function is scan_full_reference in ops/scan_kernel.py; the two agree bit
-// for bit.
+// updates for one placement, through update_columns, which the delta mode
+// shares). The plain PyTorch versions of the same functions are
+// scan_full_reference and carry_delta_reference in ops/scan_kernel.py;
+// each agrees with the kernel bit for bit.
 //
 // What bounds it on the card: the chain of dependent steps, not bytes or
 // arithmetic. Every pod needs whole-node-axis reductions (PTS filter
@@ -32,7 +40,8 @@
 // is column-local: a thread only ever writes its own lanes, so the
 // same-pair masks need nothing but prow[row, best], read after the block
 // agrees on best. The per-step working set (a few MB at 5000 nodes) stays
-// in L2. The multi-pod step keeps that ownership: each group pod's per-lane
+// in L2. The same ownership lets the delta mode run its events back to
+// back without a barrier (their updates are additions to owned lanes). The multi-pod step keeps that ownership: each group pod's per-lane
 // total and balanced/least share live in a scratch row that only the
 // lane's owner writes and reads, and the utilization recheck is one
 // block-wide OR (__syncthreads_or) per pod.
@@ -49,6 +58,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "scan_args.cuh"
 
 namespace {
 
@@ -67,72 +78,11 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr long long NO_KEY = -(1LL << 62);
 
 // the launcher's mode argument (ops/scan_kernel.py MODE_IDS)
-enum { MODE_FULL, MODE_MULTI, MODE_EVAL, MODE_APPLY };
+enum { MODE_FULL, MODE_MULTI, MODE_EVAL, MODE_APPLY, MODE_DELTA };
 
 // indices of the per-(template, constraint) scalar blocks
 enum { W_F_VALID, W_S_VALID, W_F_SKEW, W_S_SKEW, W_F_SELF, W_S_FIRST,
        W_F_KEY, W_S_KEY, W_F_PERNO, W_S_PERNO };
-
-// the launcher's pointer and integer arguments, in the wrapper's order
-// (ops/scan_kernel.py scan_full); the IPA pointers are null when UR == 0,
-// `forced` is null outside MODE_APPLY
-enum ArgPtr { P_META, P_MATCH, P_SCALARS, P_ALLOC, P_STAT, P_ZID,
-              P_REGROW_F, P_ZVALID_NODE_S, P_ZVALID_S, P_KONN_F, P_KONN_S,
-              P_SHASALL, P_VALID_N, P_PROW_F, P_PROW_S, P_LOGW, P_GMAT,
-              P_REQUESTED, P_NZPC, P_CNT_FN, P_CNT_SN, P_OUT, P_WORK,
-              P_FORCED,
-              P_IPA_STAT, P_ANTI_STATIC, P_ANTI_KONN, P_AFF_STATIC,
-              P_PROW_IPA, P_G1, P_WANTI, P_WAFF, P_W3TOT, P_W45, P_GPRES,
-              P_UCNT, P_KCNT };
-enum ArgDim { D_T, D_C, D_NP, D_R, D_SR, D_TCP, D_K, D_CP, D_BP, D_UR,
-              D_SMEM, D_MODE, D_MK, D_W0 };
-
-struct Args {
-  const int* meta;           // [1 + Bp]: B_real | tmpl
-  const int8_t* match;       // [Bp, 2*LANE]: filter lanes | score lanes
-  const int* scalars;        // scalar table (ScanSession._pack_scalars)
-  const int* alloc;          // [Rp, Np]
-  const int* stat;           // [T*SR, Np]
-  const int* zid;            // [K, Np] zone index per node, -1 = none
-  const int* regrow_f;       // [TCp, Np]
-  const int* zvalid_node_s;  // [TCp, Np]
-  const int* zvalid_s;       // [TCp, VZ]
-  const int* konn_f;         // [TCp, Np]
-  const int* konn_s;         // [TCp, Np]
-  const int* shasall;        // [>=T, Np]
-  const int* valid_n;        // [8, Np] (row 0 read)
-  const int* prow_f;         // [TCp, Np]
-  const int* prow_s;         // [TCp, Np]
-  const float* logw;         // [Np + 2]: log(i + 2) in f32
-  const float* gmat;         // [ceil8(T), LANE] IPA template interference
-  const int* forced;         // [2*Bp]: (lane | -1, ok) per pod (apply)
-  // InterPodAffinity term machinery (ur > 0; ScanSession._build_ipa)
-  const int* ipa_stat;       // [ceil8(2T), Np]: fail_existing | aff_all_keys
-  const int* anti_static;    // [T*8, Np] existing-pod anti counts per term
-  const int* anti_konn;      // [T*8, Np] anti term key on node
-  const int* aff_static;     // [T*8, Np] existing-pod affinity counts
-  const int* prow_ipa;       // [8, Np] pair id per IPA key, -1 = no key
-  const float* g1;           // [ceil8(T), UR] D1 gates
-  const float* wanti;        // [T*8, UR] D2 gates
-  const float* waff;         // [T*8, UR] D3 gates
-  const float* w3tot;        // [ceil8(T), UR] D3 totals
-  const float* w45;          // [ceil8(T), UR] D4+D5 GCD-scaled weights
-  const float* gpres;        // [ceil8(T), UR] D4+D5 presence gates
-  int* ucnt;                 // carry [UR, Np]
-  int* kcnt;                 // carry [UR, LANE] (lanes all equal)
-  int* requested;            // carry [Rp, Np]
-  int* nzpc;                 // carry [8, Np]: nz cpu, nz mem, pods, allowed
-  int* cnt_fn;               // carry [TCp, Np]
-  int* cnt_sn;               // carry [TCp, Np]
-  int* out;                  // [8, Bp]
-  int* work;                 // scratch [3 (+ 2*mk), Np]: lane flags, raw
-                             // PTS score, raw IPA score with the assumed-pod
-                             // terms; with MODE_MULTI then per group pod
-                             // its total (-1 where infeasible) and wbl
-  int T, C, Np, R, SR, TCp, K, CP, Bp, UR, mk;
-  int w[8];                  // balanced image ipa least node_affinity
-                             // prefer_avoid pts taint
-};
 
 // the kernel's static shared memory
 struct Shared {
@@ -545,44 +495,68 @@ __device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
   return e;
 }
 
-// Commit pod b (template t) at node lane `best`: utilization columns and
-// same-pair count lanes (the reference's _apply_updates, :1361). Every
-// thread writes only its own lanes.
+// The column update of one placement at node lane `node` (the reference's
+// _apply_updates, :1361, and the step of its jnp twin _carry_delta_scan,
+// :179-192): dres[0, nres) into requested[:, node], dnzpc into
+// nzpc[:, node], and per match row mf[row] into every cnt_fn lane of the
+// node's pair (prow_f == prow_f[row, node]; none where that is -1), and
+// ms[row] times the factor (1 for a per-node row, else the node's s_src,
+// stat row tt*SR+7) into every cnt_sn lane of its pair likewise. M is the
+// payload type: the batch's int8 match lanes for a commit, the event's
+// signed int32 row for a delta. dnzpc is read before any store (a commit's
+// folds to constants), so the owner thread's column adds do not wait on
+// payload loads behind its own stores. Every thread writes only its own
+// lanes.
+template <typename M>
+__device__ __forceinline__ void update_columns(const Args& a, const Ctx& x,
+                                               int node, int nres,
+                                               const int* dres,
+                                               const int (&dnzpc)[SUB],
+                                               const M* mf, const M* ms) {
+  const int tid = threadIdx.x;
+  const int T = a.T, C = a.C, Np = a.Np, SR = a.SR, CP = a.CP;
+  const int TC = T * C;
+  if (node % THREADS == tid) {
+    for (int r = 0; r < nres; ++r) a.requested[r * Np + node] += dres[r];
+#pragma unroll
+    for (int i = 0; i < SUB; ++i)
+      if (dnzpc[i] != 0) a.nzpc[i * Np + node] += dnzpc[i];
+  }
+  for (int row = 0; row < a.TCp; ++row) {
+    const int df = mf[row];
+    if (df) {
+      const int pv = a.prow_f[row * Np + node];
+      if (pv >= 0)
+        for (int n = tid; n < Np; n += THREADS)
+          if (a.prow_f[row * Np + n] == pv) a.cnt_fn[row * Np + n] += df;
+    }
+    const int ds = ms[row];
+    const int tt = row / CP, cc = row % CP;
+    if (ds && cc < C) {
+      const int factor = x.sc[x.off_tc + W_S_PERNO * TC + tt * C + cc]
+          ? 1 : a.stat[(tt * SR + 7) * Np + node];
+      const int pv = a.prow_s[row * Np + node];
+      if (factor && pv >= 0)
+        for (int n = tid; n < Np; n += THREADS)
+          if (a.prow_s[row * Np + n] == pv)
+            a.cnt_sn[row * Np + n] += ds * factor;
+    }
+  }
+}
+
+// Commit pod b (template t) at node lane `best`: the template's requests,
+// its non-zero cpu / memory requests and one pod into the utilization
+// columns, the pod's match lanes into the same-pair count lanes, and with
+// IPA the assumed-pod term counts.
 template <bool IPA>
 __device__ __forceinline__ void commit_pod(const Args& a, const Ctx& x,
                                            int b, int t, int best) {
   const int tid = threadIdx.x;
-  const int T = a.T, C = a.C, Np = a.Np, R = a.R, SR = a.SR, CP = a.CP;
-  const int* sc = x.sc;
-  const int* tsc = sc + t * x.row_len;
-  const int TC = T * C;
-  if (best % THREADS == tid) {
-    for (int r = 0; r < R; ++r) a.requested[r * Np + best] += tsc[r];
-    a.nzpc[best] += tsc[2 * R + 1];
-    a.nzpc[Np + best] += tsc[2 * R + 2];
-    a.nzpc[2 * Np + best] += 1;
-  }
+  const int Np = a.Np, R = a.R;
+  const int* tsc = x.sc + t * x.row_len;
+  const int dnzpc[SUB] = {tsc[2 * R + 1], tsc[2 * R + 2], 1, 0, 0, 0, 0, 0};
   const int8_t* mrow = a.match + (size_t)b * 2 * LANE;
-  for (int row = 0; row < a.TCp; ++row) {
-    const int mf = mrow[row];
-    if (mf) {
-      const int pv = a.prow_f[row * Np + best];
-      if (pv >= 0)
-        for (int n = tid; n < Np; n += THREADS)
-          if (a.prow_f[row * Np + n] == pv) a.cnt_fn[row * Np + n] += mf;
-    }
-    const int ms = mrow[LANE + row];
-    const int tt = row / CP, cc = row % CP;
-    if (ms && cc < C) {
-      const int factor = sc[x.off_tc + W_S_PERNO * TC + tt * C + cc]
-          ? 1 : a.stat[(tt * SR + 7) * Np + best];
-      const int pv = a.prow_s[row * Np + best];
-      if (factor && pv >= 0)
-        for (int n = tid; n < Np; n += THREADS)
-          if (a.prow_s[row * Np + n] == pv)
-            a.cnt_sn[row * Np + n] += ms * factor;
-    }
-  }
+  update_columns(a, x, best, R, tsc, dnzpc, mrow, mrow + LANE);
   if (IPA) {
     // the assumed pod joins its node's topology group for every IPA
     // key the node carries, in template t's 8-row block of ucnt; kcnt
@@ -667,6 +641,24 @@ scan_kernel(const __grid_constant__ Args a) {
   x.g1s = g1s; x.w3s = w3s; x.w45s = w45s; x.gps = gps;
   x.wantis = wantis; x.waffs = waffs;
   __syncthreads();
+
+  if (MODE == MODE_DELTA) {
+    // the events in order, each the commit's column update at its node
+    // with its own payload row; no barrier between events (each thread
+    // reads static pair ids and writes only its own lanes)
+    const int W = a.Rp + SUB + 2 * a.TCp;
+    for (int e = 0; e < a.E; ++e) {
+      const int node = a.dnode[e];
+      if (node < 0 || node >= Np) continue;  // refused by the wrapper
+      const int* row = a.drows + (size_t)e * W;
+      int dnzpc[SUB];
+#pragma unroll
+      for (int i = 0; i < SUB; ++i) dnzpc[i] = row[a.Rp + i];
+      update_columns(a, x, node, a.Rp, row, dnzpc, row + a.Rp + SUB,
+                     row + a.Rp + SUB + a.TCp);
+    }
+    return;
+  }
 
   const int B = min(a.meta[0], Bp);
 
@@ -774,63 +766,27 @@ const KernelFn KERNELS[2][4] = {
 }  // namespace
 
 // p: the ArgPtr pointers, d: the ArgDim integers then the 8 weights.
-// Launches the instantiation for (UR > 0, mode). Returns 0 or a CUDA error
-// (-1 for shapes or modes the kernel does not take).
+// Launches the instantiation for (UR > 0, mode); MODE_DELTA has one. Returns
+// 0 or a CUDA error (-1 for shapes or modes the kernel does not take).
 extern "C" int scan_full_launch(void* const* p, const int* d, void* stream) {
   const int T = d[D_T], C = d[D_C], R = d[D_R], TCp = d[D_TCP];
   const int K = d[D_K], CP = d[D_CP], UR = d[D_UR];
   const int mode = d[D_MODE], mk = d[D_MK];
   if (C > MAXC || K > MAXK || TCp > LANE || TCp != T * CP) return -1;
   if (UR != 0 && UR != T * SUB) return -1;
-  if (mode < MODE_FULL || mode > MODE_APPLY) return -1;
+  if (mode < MODE_FULL || mode > MODE_DELTA) return -1;
   if (mode == MODE_MULTI ? (mk < 2 || mk > MAXMK) : mk != 1) return -1;
   if (mode == MODE_APPLY && p[P_FORCED] == nullptr) return -1;
-  Args a;
-  a.meta = (const int*)p[P_META];
-  a.match = (const int8_t*)p[P_MATCH];
-  a.scalars = (const int*)p[P_SCALARS];
-  a.alloc = (const int*)p[P_ALLOC];
-  a.stat = (const int*)p[P_STAT];
-  a.zid = (const int*)p[P_ZID];
-  a.regrow_f = (const int*)p[P_REGROW_F];
-  a.zvalid_node_s = (const int*)p[P_ZVALID_NODE_S];
-  a.zvalid_s = (const int*)p[P_ZVALID_S];
-  a.konn_f = (const int*)p[P_KONN_F];
-  a.konn_s = (const int*)p[P_KONN_S];
-  a.shasall = (const int*)p[P_SHASALL];
-  a.valid_n = (const int*)p[P_VALID_N];
-  a.prow_f = (const int*)p[P_PROW_F];
-  a.prow_s = (const int*)p[P_PROW_S];
-  a.logw = (const float*)p[P_LOGW];
-  a.gmat = (const float*)p[P_GMAT];
-  a.forced = (const int*)p[P_FORCED];
-  a.ipa_stat = (const int*)p[P_IPA_STAT];
-  a.anti_static = (const int*)p[P_ANTI_STATIC];
-  a.anti_konn = (const int*)p[P_ANTI_KONN];
-  a.aff_static = (const int*)p[P_AFF_STATIC];
-  a.prow_ipa = (const int*)p[P_PROW_IPA];
-  a.g1 = (const float*)p[P_G1];
-  a.wanti = (const float*)p[P_WANTI];
-  a.waff = (const float*)p[P_WAFF];
-  a.w3tot = (const float*)p[P_W3TOT];
-  a.w45 = (const float*)p[P_W45];
-  a.gpres = (const float*)p[P_GPRES];
-  a.ucnt = (int*)p[P_UCNT];
-  a.kcnt = (int*)p[P_KCNT];
-  a.requested = (int*)p[P_REQUESTED];
-  a.nzpc = (int*)p[P_NZPC];
-  a.cnt_fn = (int*)p[P_CNT_FN];
-  a.cnt_sn = (int*)p[P_CNT_SN];
-  a.out = (int*)p[P_OUT];
-  a.work = (int*)p[P_WORK];
-  a.T = T; a.C = C; a.Np = d[D_NP]; a.R = R; a.SR = d[D_SR]; a.TCp = TCp;
-  a.K = K; a.CP = CP; a.Bp = d[D_BP]; a.UR = UR; a.mk = mk;
-  for (int i = 0; i < 8; ++i) a.w[i] = d[D_W0 + i];
+  if (mode == MODE_DELTA && (p[P_DNODE] == nullptr || p[P_DROWS] == nullptr
+                             || d[D_E] < 0 || d[D_RP] < R || UR != 0))
+    return -1;
+  const Args a = unpack_args(p, d);
   // dynamic shared memory: the scalar table (with the IPA extension),
   // then the six gate matrices as int32, sized by the caller
   // (scan_kernel.smem_bytes)
   const size_t smem = (size_t)d[D_SMEM];
-  const KernelFn kernel = KERNELS[UR ? 1 : 0][mode];
+  const KernelFn kernel = mode == MODE_DELTA
+      ? scan_kernel<false, MODE_DELTA> : KERNELS[UR ? 1 : 0][mode];
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -344,6 +344,34 @@ TERM_NP_KEYS = tuple(
 )
 
 
+def ipa_term_match_np(term_np: Dict, pod_rows: Dict) -> bool:
+    """Does this pod's self row match ANY session template's required /
+    preferred (anti-)affinity term (selector + namespaces + validity)?
+    Host twin of _term_gates.vs_entity, used by the session-delta
+    classifier: matching pods affect prologue statics, not just the
+    carry, so they force a rebuild."""
+    pp = np.asarray(pod_rows["self_ppair"]).astype(bool)[None]
+    pk = np.asarray(pod_rows["self_pkey"]).astype(bool)[None]
+    ns = int(np.asarray(pod_rows["self_ns"]))
+    t_n = term_np["ipaaa_op"].shape[0]
+    for prefix in ("ipaaa", "ipaa", "ipap"):
+        valid = term_np[f"{prefix}_valid"].astype(bool)
+        if not valid.any():
+            continue
+        op = term_np[f"{prefix}_op"]
+        rkey = term_np[f"{prefix}_rkey"]
+        pairs = term_np[f"{prefix}_pairs"]
+        ns_tbl = term_np[f"{prefix}_ns"]
+        for t in range(t_n):
+            if not valid[t].any():
+                continue
+            m = _eval_reqs_batch_np(op[t], rkey[t], pairs[t], pp, pk)[0]
+            ns_ok = ((ns_tbl[t] == ns) & (ns_tbl[t] != 0)).any(axis=-1)
+            if (m & ns_ok & valid[t]).any():
+                return True
+    return False
+
+
 def match_matrices_np(tp_np: Dict, pod_arrays_list: List[Dict]):
     """Host-side Mf/Ms [T, B, C]: does batch pod b's row match template
     t's PTS constraint selectors (incl. the namespace gate)? Pure host

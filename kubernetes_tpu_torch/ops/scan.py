@@ -10,7 +10,10 @@ launch of `scan_full` (ops/scan_kernel.py), which filters, scores, picks
 the node and commits each pod of the batch in turn — one pod per step,
 or `multipod_k` pods per step under the conflict-suffix contract
 (`schedule_exact` replays the suffix). `evaluate` / `apply_decisions` run
-the kernel's "eval" and "apply" modes.
+the kernel's "eval" and "apply" modes. `apply_deltas` absorbs cluster churn
+(pods bound or evicted by other actors, allocatable-only node updates) into
+the live carry: one launch of the kernel's delta mode, or a host patch of
+the seed arrays before the first launch.
 
 Layout notes (the same as the reference's, so the two compare directly):
 
@@ -64,6 +67,7 @@ from .scan_kernel import (
     IPA_STATIC_KEYS,
     SMEM_DYNAMIC_MAX,
     WEIGHT_ORDER,
+    carry_delta,
     log_weights,
     scan_full,
     smem_bytes,
@@ -251,9 +255,13 @@ class ScanSession:
         req = _host(tp["req"]).astype(np.int64)                 # [T, R]
         nz_requested = c["nz_requested"].astype(np.int64).T.copy()  # [2, N]
         nz_req = _host(tp["nz_req"]).astype(np.int64)           # [T, 2]
+        # the per-dimension factors are kept: a session delta must divide
+        # by the SAME gcd to stay exact (delta_compatible)
+        self._gcd = np.ones(R, np.int64)
         for r in range(R):
             extra = [nz_requested[r], nz_req[:, r]] if r < 2 else []
             g = _gcd_all(alloc[r], requested[r], req[:, r], *extra)
+            self._gcd[r] = g
             alloc[r] //= g
             requested[r] //= g
             req[:, r] //= g
@@ -422,6 +430,17 @@ class ScanSession:
 
         self._konn_f = tcn(S["f_key_on_node"])
         self._konn_s = tcn(S["s_key_on_node"])
+        # session-delta statics, as the reference builds them: row-expanded
+        # s_src (the score-count node eligibility of the row's template)
+        # and the per-row perno flag, the factor of a delta's cnt_sn lanes
+        src_rows = np.zeros((TCp, Np), np.int32)
+        perno_rows = np.zeros((TCp, 1), np.int32)
+        for t in range(T):
+            for cc in range(C):
+                src_rows[t * CP + cc, :N] = S["s_src"][t].astype(np.int32)
+                perno_rows[t * CP + cc, 0] = int(self._s_perno[t, cc])
+        self._src_rows = src_rows
+        self._perno_rows = perno_rows
         sha = np.zeros((_ceil(T, SUB), Np), np.int32)
         sha[:T, :N] = S["s_has_all"].astype(np.int32)
         self._shasall = sha
@@ -767,6 +786,120 @@ class ScanSession:
         forced = [(d if d >= 0 else -1, 1 if d >= 0 else 0)
                   for d in decisions]
         self._dispatch_mode(pod_arrays_list, "apply", forced=forced)
+
+    # -- incremental cluster-state deltas (pallas_scan.py:952-1074) --------
+
+    def delta_compatible(self, dres, dnz) -> bool:
+        """A utilization delta rides this session's int32 carry only when
+        the build-time per-dimension GCD rescale stays exact on it and
+        the rescaled magnitudes keep the int32 headroom the build
+        guaranteed."""
+        dres = np.asarray(dres, np.int64)
+        if dres.shape[0] != self._gcd.shape[0]:
+            return False
+        if (dres % self._gcd != 0).any():
+            return False
+        dnz = np.asarray(dnz, np.int64)
+        if (dnz % self._gcd[:2] != 0).any():
+            return False
+        hi = max(
+            int(np.abs(dres // self._gcd).max(initial=0)),
+            int(np.abs(dnz // self._gcd[:2]).max(initial=0)),
+        )
+        return hi * (MAX_NODE_SCORE + 1) < 2 ** 31
+
+    def _delta_rows(self, d) -> tuple:
+        """One backend delta dict -> (node, dres[Rp] scaled, dnzpc[8],
+        mf[TCp], ms[TCp]) in this session's carry layout."""
+        rp = self._requested0.shape[0]
+        dres = np.zeros(rp, np.int32)
+        dnzpc = np.zeros(SUB, np.int32)
+        mf_rows = np.zeros(self.TCp, np.int32)
+        ms_rows = np.zeros(self.TCp, np.int32)
+        if d["kind"] == "node-alloc":
+            dnzpc[3] = d["dallowed"]
+        else:
+            dres[: self.R] = (
+                np.asarray(d["dres"], np.int64) // self._gcd
+            ).astype(np.int32)
+            dnzpc[0] = int(d["dnz"][0]) // int(self._gcd[0])
+            dnzpc[1] = int(d["dnz"][1]) // int(self._gcd[1])
+            dnzpc[2] = d["dcount"]
+            for t in range(self.T):
+                mf_rows[t * self.CP: t * self.CP + self.C] = d["mf"][t]
+                ms_rows[t * self.CP: t * self.CP + self.C] = d["ms"][t]
+        return d["node"], dres, dnzpc, mf_rows, ms_rows
+
+    def _patch_alloc_static(self, d) -> None:
+        """node-alloc prologue patch: the static alloc column moves (the
+        prologue never reads alloc, so nothing else needs recompute), in
+        the host array and, once the statics are uploaded, in place in the
+        device static (the reference rebuilt its bundle). The CUMULATIVE
+        rescaled magnitude must keep the int32 headroom the build
+        guaranteed — delta_compatible bounds one delta, not the sum of
+        many capacity bumps — so the patched column is re-checked and an
+        overflow raises."""
+        scaled = (np.asarray(d["dalloc"], np.int64) // self._gcd).astype(
+            np.int32)
+        n = d["node"]
+        col = self._alloc[: self.R, n].astype(np.int64) + scaled
+        if int(np.abs(col).max(initial=0)) * (MAX_NODE_SCORE + 1) >= 2 ** 31:
+            raise ValueError(
+                "cumulative alloc patches exceed the int32 score headroom")
+        self._alloc[: self.R, n] += scaled
+        if self._statics is not None:
+            self._statics["alloc"][: self.R, n] += self._upload(scaled)
+
+    def apply_deltas(self, deltas: List[Dict]) -> None:
+        """Absorb batched cluster-event deltas (the backend's carry deltas
+        and node-alloc patches) into the carry and the alloc static
+        without a session rebuild. With no launch yet (no carry) the numpy
+        seed arrays are patched on the host; otherwise ONE launch of the
+        kernel's delta mode (`scan_kernel.carry_delta`) updates the
+        resident carry in place. Raises ValueError, before anything
+        moves, for a node index outside [0, N) (the reference's scatter
+        would drop it)."""
+        for d in deltas:
+            if not 0 <= int(d["node"]) < self.N:
+                raise ValueError(f"delta node {d['node']} outside [0, "
+                                 f"{self.N})")
+        for d in deltas:
+            if d["kind"] == "node-alloc":
+                self._patch_alloc_static(d)
+        rows = [self._delta_rows(d) for d in deltas]
+        if self._carry is None:
+            for n, dres, dnzpc, mf_rows, ms_rows in rows:
+                self._requested0[:, n] += dres
+                self._nzpc0[:, n] += dnzpc
+                same_f = (
+                    (self._prow_f == self._prow_f[:, n][:, None])
+                    & (self._prow_f >= 0)
+                )
+                self._cnt_fn0 += mf_rows[:, None] * same_f
+                same_s = (
+                    (self._prow_s == self._prow_s[:, n][:, None])
+                    & (self._prow_s >= 0)
+                )
+                factor = (
+                    self._perno_rows
+                    + (1 - self._perno_rows) * self._src_rows[:, n][:, None]
+                )
+                self._cnt_sn0 += ms_rows[:, None] * factor * same_s
+            return
+        if not rows:
+            return
+        node, payload = self._pack_deltas(rows)
+        carry_delta(self._upload(node), self._upload(payload),
+                    self._get_statics(), self._carry, self.shapes)
+
+    @staticmethod
+    def _pack_deltas(rows: List[tuple]) -> tuple:
+        """`_delta_rows` tuples -> the delta mode's payload: node int32
+        [E] and rows int32 [E, Rp + 8 + 2*TCp] of dres | dnzpc | mf | ms.
+        The kernel takes any event count: no pow2 padding."""
+        node = np.array([r[0] for r in rows], np.int32)
+        payload = np.stack([np.concatenate(r[1:]) for r in rows])
+        return node, payload
 
 
 def schedule_exact(session: ScanSession,

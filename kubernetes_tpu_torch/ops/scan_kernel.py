@@ -29,7 +29,14 @@ machinery, pallas_scan.py:1552-1592, :1680-1693, :1417-1435), each in
 - mode "eval" (`scan_eval`, `scan_eval_ipa`; :1751-1766): out rows 0-2
   per pod, every pod against the same carry, the carries untouched;
 - mode "apply" (`scan_apply`, `scan_apply_ipa`; :1736-1746): the commit
-  of forced (lane | -1, ok) pairs, without evaluating.
+  of forced (lane | -1, ok) pairs, without evaluating;
+- the delta mode (`scan_delta`, launched by `carry_delta`): the
+  counterpart of the reference's jnp program `_carry_delta_scan`
+  (pallas_scan.py:168-195), signed cluster-event deltas on the carry. It
+  is the commit with `best := node` and the event's own payload: the
+  kernel's commit and this mode share one column-update routine. One
+  instantiation serves sessions with and without affinity-term templates
+  (`ucnt` / `kcnt` are never touched, as in the reference).
 
 What bounds it on the card: not bytes and not arithmetic, but the chain
 of dependent steps. Each pod needs whole-node-axis reductions (the PTS
@@ -47,23 +54,23 @@ stays in the 50 MB L2. A multi-block cooperative design is later work.
 `scan_full_reference` is the plain PyTorch version: a loop over pods of
 tensor ops with the same int32 / f32 arithmetic (floor divisions,
 truncating casts, no fused multiply-add, IEEE division, the `log_weights`
-table), split as the reference is into `eval_pod` and `commit`. The
-wrapper `scan_full` sends CPU tensors to it and CUDA tensors to the
-kernel; on CUDA it raises if the build or the launch fails.
+table), split as the reference is into `eval_pod` and `commit`;
+`carry_delta_reference` is the delta mode's, a loop over events that
+mirrors `_carry_delta_scan` line for line. The wrappers `scan_full` and
+`carry_delta` send CPU tensors to them and CUDA tensors to the kernel; on
+CUDA they raise if the build or the launch fails.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import build as _build
 from .kernel import multipod_utilization_conflicts
 
 WEIGHT_ORDER = ("balanced", "image", "ipa", "least", "node_affinity",
@@ -88,28 +95,34 @@ IPA_SCALARS_PER_T = 3 + 2 * 8
 
 MODES = ("full", "eval", "apply")
 # the kernel's mode argument (csrc/scan_full.cu MODE_*): "full" with
-# mk > 1 is its multi-pod instantiation
-MODE_FULL, MODE_MULTI, MODE_EVAL, MODE_APPLY = range(4)
+# mk > 1 is its multi-pod instantiation; MODE_DELTA is `carry_delta`'s
+MODE_FULL, MODE_MULTI, MODE_EVAL, MODE_APPLY, MODE_DELTA = range(5)
 MAX_MK = 64
 # the launched variant per kernel mode, without and with affinity-term
 # templates
 VARIANTS = {MODE_FULL: "scan_full", MODE_MULTI: "scan_multi",
             MODE_EVAL: "scan_eval", MODE_APPLY: "scan_apply"}
 
-# launches of the CUDA kernel (one per batch), in all and per variant;
-# the plain version does not count
+# launches of the CUDA kernel (one per batch or delta flush), in all and
+# per variant; the plain versions do not count
 LAUNCHES = 0
 VARIANT_LAUNCHES = {f"{v}{suffix}": 0 for v in VARIANTS.values()
                     for suffix in ("", "_ipa")}
+VARIANT_LAUNCHES["scan_delta"] = 0
+
+# the launcher's pointer arguments, in the order of the kernel's ArgPtr
+# enum (csrc/scan_args.cuh); a name absent from a launch is passed as null
+ARG_PTRS = ("meta", "match", "scalars", "alloc", "stat", "zid", "regrow_f",
+            "zvalid_node_s", "zvalid_s", "konn_f", "konn_s", "shasall",
+            "valid_n", "prow_f", "prow_s", "logw", "gmat", "requested",
+            "nzpc", "cnt_fn", "cnt_sn", "out", "work", "forced",
+            *IPA_STATIC_KEYS, "ucnt", "kcnt", "dnode", "drows")
 
 # dynamic shared memory the kernel may ask for: the card's 227 KB per
 # block less room for the kernel's static shared arrays
 SMEM_DYNAMIC_MAX = 227 * 1024 - 8 * 1024
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "scan_full.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 
 _LIB = None
 
@@ -166,35 +179,6 @@ def log_weights(n: int) -> np.ndarray:
     return _fma(f32(_LOG_Q2), e, r)
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
-    return str(path) if path.exists() else "nvcc"
-
-
-def build(verbose: bool = False) -> float:
-    """Compile csrc/scan_full.cu into build/torch_kernels/ (once per
-    process; the output is reused while it is newer than the source).
-    Returns the seconds spent compiling (0.0 when reused)."""
-    out = BUILD_DIR / "libscan_full.so"
-    if out.exists() and out.stat().st_mtime >= SOURCE.stat().st_mtime:
-        return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    if verbose and (res.stdout or res.stderr):
-        print(res.stdout + res.stderr)
-    os.replace(tmp, out)
-    return time.perf_counter() - t0
-
-
 def n_scalars(T: int, C: int, R: int, UR: int) -> int:
     """Length of ScanSession's scalar table (with the IPA extension when
     UR > 0)."""
@@ -212,8 +196,7 @@ def smem_bytes(T: int, C: int, R: int, UR: int) -> int:
 def _lib():
     global _LIB
     if _LIB is None:
-        build()
-        lib = ctypes.CDLL(str(BUILD_DIR / "libscan_full.so"))
+        lib = _build.load(SOURCE)
         lib.scan_full_launch.argtypes = [
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
             ctypes.c_void_p]
@@ -236,6 +219,18 @@ def _ceil8(n: int) -> int:
     return (n + 7) // 8 * 8
 
 
+def _launch(tensors: Dict[str, torch.Tensor], dims, device) -> None:
+    """One call of the C launcher: `tensors` by ARG_PTRS name (absent =
+    null), `dims` in the kernel's ArgDim order. Raises on a refused
+    launch."""
+    ptrs = [tensors[k].data_ptr() if k in tensors else 0 for k in ARG_PTRS]
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.scan_full_launch((ctypes.c_void_p * len(ptrs))(*ptrs),
+                                   (ctypes.c_int * len(dims))(*dims), stream)
+    if err != 0:
+        raise RuntimeError(f"scan_full kernel launch failed: CUDA error {err}")
 
 
 def _kernel_mode(mode: str, mk) -> int:
@@ -346,32 +341,17 @@ def scan_full(meta: torch.Tensor, match: torch.Tensor,
     # group pod's total and balanced/least rows
     rows = 3 + (2 * mk if kmode == MODE_MULTI else 0)
     work = torch.empty((rows, Np), dtype=torch.int32, device=meta.device)
-    s = statics
-    # pointer order: the kernel's ArgPtr enum (csrc/scan_full.cu)
-    tensors = [meta, match, s["scalars"], s["alloc"], s["stat"], s["zid"],
-               s["regrow_f"], s["zvalid_node_s"], s["zvalid_s"],
-               s["konn_f"], s["konn_s"], s["shasall"], s["valid_n"],
-               s["prow_f"], s["prow_s"], s["logw"], s["gmat"],
-               carry["requested"], carry["nzpc"], carry["cnt_fn"],
-               carry["cnt_sn"], out, work]
-    ipa = [s[k] for k in IPA_STATIC_KEYS] + [carry["ucnt"], carry["kcnt"]] \
-        if UR else []
     # `forced` and, without IPA carries, the IPA pointers are null
-    ptrs = ([t.data_ptr() for t in tensors]
-            + [forced.data_ptr() if forced is not None else 0]
-            + [t.data_ptr() for t in ipa]
-            + [0] * (len(IPA_STATIC_KEYS) + 2 - len(ipa)))
-    # int order: the kernel's ArgDim enum; ScanSession refuses a session
+    tensors = dict(statics, **carry, meta=meta, match=match, out=out,
+                   work=work)
+    if forced is not None:
+        tensors["forced"] = forced
+    # dims in the kernel's ArgDim order; ScanSession refuses a session
     # whose shared memory exceeds SMEM_DYNAMIC_MAX (`smem-budget`)
+    Rp = carry["requested"].shape[0]
     dims = [T, C, Np, R, SR, TCp, K, CP, Bp, UR, smem_bytes(T, C, R, UR),
-            kmode, int(mk), *[int(w) for w in weights]]
-    lib = _lib()
-    with torch.cuda.device(meta.device):
-        stream = torch.cuda.current_stream(meta.device).cuda_stream
-        err = lib.scan_full_launch((ctypes.c_void_p * len(ptrs))(*ptrs),
-                                   (ctypes.c_int * len(dims))(*dims), stream)
-    if err != 0:
-        raise RuntimeError(f"scan_full kernel launch failed: CUDA error {err}")
+            kmode, int(mk), 0, Rp, *[int(w) for w in weights]]
+    _launch(tensors, dims, meta.device)
     LAUNCHES += 1
     VARIANT_LAUNCHES[VARIANTS[kmode] + ("_ipa" if UR else "")] += 1
     return out
@@ -747,3 +727,118 @@ def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
         if mode == "full" and m >= 0:
             commit(b, t, best)
     return out
+
+
+def delta_width(Rp: int, TCp: int) -> int:
+    """Length of one event's payload row: dres[Rp] | dnzpc[8] | mf[TCp] |
+    ms[TCp]."""
+    return Rp + 8 + 2 * TCp
+
+
+def _validate_delta(node, rows, statics, carry, shapes) -> int:
+    """Check every input the delta mode reads; returns Rp."""
+    T, C, Np, R, SR, TCp, K, CP = shapes
+    dev = node.device
+    i32 = torch.int32
+    Rp = carry["requested"].shape[0]
+    E = node.shape[0] if node.dim() == 1 else -1
+    _check("node", node, i32, (E,), dev)
+    _check("rows", rows, i32, (E, delta_width(Rp, TCp)), dev)
+    _check("scalars", statics["scalars"], i32,
+           (statics["scalars"].shape[0],), dev)
+    _check("stat", statics["stat"], i32, (T * SR, Np), dev)
+    _check("prow_f", statics["prow_f"], i32, (TCp, Np), dev)
+    _check("prow_s", statics["prow_s"], i32, (TCp, Np), dev)
+    _check("requested", carry["requested"], i32, (Rp, Np), dev)
+    _check("nzpc", carry["nzpc"], i32, (8, Np), dev)
+    _check("cnt_fn", carry["cnt_fn"], i32, (TCp, Np), dev)
+    _check("cnt_sn", carry["cnt_sn"], i32, (TCp, Np), dev)
+    if Rp < R or SR < 8 or TCp != T * CP or C > CP or TCp > LANE \
+            or statics["scalars"].shape[0] < n_scalars(T, C, R, 0):
+        raise ValueError(f"carry_delta: inconsistent shapes {shapes}")
+    return Rp
+
+
+def carry_delta(node: torch.Tensor, rows: torch.Tensor,
+                statics: Dict[str, torch.Tensor],
+                carry: Dict[str, torch.Tensor],
+                shapes: Tuple[int, ...]) -> None:
+    """Apply E signed cluster-event deltas to the carry, in place, in ONE
+    launch: node int32 [E], each in [0, Np); rows int32 [E, Rp + 8 +
+    2*TCp], per event dres[Rp] (GCD-scaled) | dnzpc[8] | mf[TCp] |
+    ms[TCp]. Event e adds dres to requested[:, node], dnzpc to nzpc[:,
+    node], mf[row] to every cnt_fn lane whose prow_f pair id equals the
+    node's (none where the node's is -1), and ms[row] times the row's
+    perno / s_src factor likewise to cnt_sn. `ucnt` / `kcnt`, where the
+    carry has them, are not touched. The statics read are `scalars`
+    (its prefix without the IPA extension), `stat` (row t*SR+7 = s_src),
+    `prow_f` and `prow_s`."""
+    global LAUNCHES
+    Rp = _validate_delta(node, rows, statics, carry, shapes)
+    if node.device.type == "cpu":
+        carry_delta_reference(node, rows, statics, carry, shapes)
+        return
+    if node.device.type != "cuda":
+        raise ValueError(f"carry_delta: unsupported device {node.device}")
+    T, C, Np, R, SR, TCp, K, CP = shapes
+    E = node.shape[0]
+    tensors = {k: statics[k] for k in ("scalars", "stat", "prow_f",
+                                       "prow_s")}
+    tensors.update({k: carry[k] for k in ("requested", "nzpc", "cnt_fn",
+                                          "cnt_sn")})
+    tensors.update(dnode=node, drows=rows)
+    # the weights are not read: zeros
+    dims = [T, C, Np, R, SR, TCp, K, CP, 0, 0, smem_bytes(T, C, R, 0),
+            MODE_DELTA, 1, E, Rp, *[0] * len(WEIGHT_ORDER)]
+    _launch(tensors, dims, node.device)
+    LAUNCHES += 1
+    VARIANT_LAUNCHES["scan_delta"] += 1
+
+
+def delta_factor_rows(statics: Dict[str, torch.Tensor],
+                      shapes: Tuple[int, ...]):
+    """(src_rows [TCp, Np], perno_rows [TCp, 1]) int32, the reference's
+    session-delta statics (pallas_scan.py:536-547), read from where the
+    kernel reads them: the score perno flags of the scalar table and the
+    s_src rows of `stat`. Rows c >= C of a template are zero."""
+    T, C, Np, R, SR, TCp, K, CP = shapes
+    sc = statics["scalars"]
+    off = T * (2 * R + 4) + W_S_PERNO * T * C
+    perno = sc[off:off + T * C].reshape(T, C)
+    stat = statics["stat"]
+    src_rows = torch.zeros((TCp, Np), dtype=torch.int32, device=sc.device)
+    perno_rows = torch.zeros((TCp, 1), dtype=torch.int32, device=sc.device)
+    for t in range(T):
+        src_rows[t * CP:t * CP + C] = stat[t * SR + 7]
+        perno_rows[t * CP:t * CP + C, 0] = perno[t]
+    return src_rows, perno_rows
+
+
+def carry_delta_reference(node: torch.Tensor, rows: torch.Tensor,
+                          statics: Dict[str, torch.Tensor],
+                          carry: Dict[str, torch.Tensor],
+                          shapes: Tuple[int, ...]) -> None:
+    """Plain PyTorch version of the delta mode: the reference's
+    `_carry_delta_scan` step, line for line, over the events in order,
+    on whatever device the inputs live on, updating `carry` in place.
+    Raises ValueError for a node outside [0, Np)."""
+    T, C, Np, R, SR, TCp, K, CP = shapes
+    Rp = carry["requested"].shape[0]
+    prow_f, prow_s = statics["prow_f"], statics["prow_s"]
+    src_rows, perno_rows = delta_factor_rows(statics, shapes)
+    for e, n in enumerate(node.tolist()):
+        if not 0 <= n < Np:
+            raise ValueError(f"carry_delta: node {n} outside [0, {Np})")
+        x = rows[e]
+        dres, dnzpc = x[:Rp], x[Rp:Rp + 8]
+        mf, ms = x[Rp + 8:Rp + 8 + TCp], x[Rp + 8 + TCp:]
+        carry["requested"][:, n] += dres
+        carry["nzpc"][:, n] += dnzpc
+        pf_b = prow_f[:, n:n + 1]                              # [TCp, 1]
+        same_f = (prow_f == pf_b) & (prow_f >= 0)
+        carry["cnt_fn"] += mf[:, None] * same_f
+        ps_b = prow_s[:, n:n + 1]
+        same_s = (prow_s == ps_b) & (prow_s >= 0)
+        src_b = src_rows[:, n:n + 1]
+        factor = perno_rows + (1 - perno_rows) * src_b         # [TCp, 1]
+        carry["cnt_sn"] += ms[:, None] * factor * same_s
