@@ -17,7 +17,17 @@ Phases (each raises on failure; the script then exits non-zero):
    3 x 4096 pending zone-spread pods — one warm-up batch, two measured
    batches; every pod must be placed, the kernel must have been launched
    once per batch, and the first measured batch must equal the plain
-   version run from a copy of the same carry;
+   version run from a copy of the same carry; its three launches must all
+   have gone through the cluster kernel at the default size (`CLUSTER`);
+   4b. the cluster sweep: on phase 4's first measured batch, from the
+   carry before it, the one-block kernel and the cluster kernel at every
+   size of 2, 4, 8, 16 blocks that the card can place, each equal to the
+   plain version (out rows and carries) and timed (CUDA events, median of
+   3); then two directed cases at Np = 768 (680 identical nodes), at every
+   size: plain pods that tie on every lane, so the min-lane tie-break
+   walks across every slice boundary, and pods that only the last node
+   can take (in the last slice that holds a node; at 16 blocks the slice
+   after it holds padding lanes only);
 5. affinity-term templates (the kernel's ur > 0 variant) against the
    plain version on a ~600-node cluster whose bound pods carry terms
    too: hostname anti-affinity with more pods than nodes can take, zone
@@ -180,6 +190,7 @@ def reserved_encoding(nodes, init_pods, pending, anti_terms=0):
 def reset_counts(sk):
     sk.LAUNCHES = 0
     sk.VARIANT_LAUNCHES.update(dict.fromkeys(sk.VARIANT_LAUNCHES, 0))
+    sk.CLUSTER_LAUNCHES.update(dict.fromkeys(sk.CLUSTER_LAUNCHES, 0))
 
 
 def only(sk, **counts):
@@ -278,9 +289,10 @@ def kernel_vs_plain(sess, arrays, carry, mode="full", mk=1, decisions=None):
 
 
 def time_kernel(sess, arrays, carry, mode="full", mk=1, decisions=None,
-                runs=3):
+                runs=3, cluster=None):
     """Median CUDA-event ms of `runs` launches, each from a copy of
-    `carry`; returns (median, the runs)."""
+    `carry` (`cluster` as scan_full takes it); returns (median, the
+    runs)."""
     import torch
     from kubernetes_tpu_torch.ops import scan_kernel as sk
 
@@ -295,7 +307,8 @@ def time_kernel(sess, arrays, carry, mode="full", mk=1, decisions=None,
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
         sk.scan_full(meta, match, sess._get_statics(), c, sess.shapes,
-                     weights_of(sk, sess), mode=mode, mk=mk, forced=forced)
+                     weights_of(sk, sess), mode=mode, mk=mk, forced=forced,
+                     cluster=cluster)
         e1.record()
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
@@ -553,12 +566,17 @@ def phase_zone_spread(sk, gpu):
     if launches != 3 or sk.VARIANT_LAUNCHES != only(sk, scan_full=3):
         raise AssertionError(f"scan_full launched {sk.VARIANT_LAUNCHES} "
                              "times for 3 batches")
+    want = dict.fromkeys(sk.CLUSTER_LAUNCHES, 0)
+    want[sk.CLUSTER] = 3
+    if sk.CLUSTER_LAUNCHES != want:
+        raise AssertionError(f"the main path's launches by cluster size "
+                             f"{sk.CLUSTER_LAUNCHES}, not 3 at {sk.CLUSTER}")
     unplaced = sum(d < 0 for d in decisions)
     if unplaced:
         raise AssertionError(f"{unplaced} of {len(decisions)} pods unplaced")
     log(f"main path: {len(decisions)} pods placed, {launches} launches "
-        f"for 3 batches; {pods_per_s:.1f} pods/s over the 2 measured "
-        f"batches [{gpu}]")
+        f"for 3 batches, all on the {sk.CLUSTER}-block cluster kernel; "
+        f"{pods_per_s:.1f} pods/s over the 2 measured batches [{gpu}]")
     log("main path window (2 batches): " + ", ".join(
         f"{k} {v * 1e3:.1f} ms" for k, v in stage.items())
         + f", total {window_s * 1e3:.1f} ms")
@@ -582,6 +600,119 @@ def phase_zone_spread(sk, gpu):
             "batch": batch1, "carry_before": carry_before, "after": after1,
             "out": out, "enc": enc, "pe": pe, "templates": templates,
             "pending": pending, "carry_end": carry_end, "build_s": build_s}
+
+
+def directed_case():
+    """Phase 4b's directed cases at Np = 768 (the phase-3 cluster's node
+    axis: 680 nodes in 681 lanes): identical nodes and no bound pods; 768
+    plain pods, which tie on every empty lane, and 128 pods that a node
+    selector pins to the last node. Returns (encoding, the tie pods'
+    arrays, the pinned pods' arrays, templates, the last node's lane)."""
+    from kubernetes_tpu_torch.api import types as v1
+    from kubernetes_tpu_torch.testing.synth import make_pod, synth_cluster
+
+    nodes, _ = synth_cluster(680)
+    last = nodes[-1].metadata.name
+    ties = [make_pod(f"tie-{i}", cpu="100m", labels={"app": "tie"})
+            for i in range(768)]
+    pinned = []
+    for i in range(128):
+        p = make_pod(f"pinned-{i}", cpu="100m", labels={"app": "pinned"})
+        p.spec.node_selector = {v1.LABEL_HOSTNAME: last}
+        pinned.append(p)
+    enc, pe = reserved_encoding(nodes, [], ties + pinned)
+    arrays, templates = encode_templates(pe, ties + pinned)
+    return (enc, arrays[:len(ties)], arrays[len(ties):], templates,
+            enc.node_names.index(last))
+
+
+def phase_cluster(sk, gpu, zone):
+    """Phase 4b: the one-block kernel and every cluster size the card
+    places, on phase 4's first measured batch from the carry before it,
+    each == the plain version (phase 4's plain run of that batch) and
+    timed; then the directed cases at every size. Returns the sweep."""
+    import torch
+
+    sess, batch = zone["sess"], zone["batch"]
+    n = len(batch)
+    meta, match = batch_inputs(sess, batch)
+    statics, weights = sess._get_statics(), weights_of(sk, sess)
+    points = []
+    for cb in (1, *sk.CLUSTER_SIZES):
+        carry = clone(zone["carry_before"])
+        try:
+            out = sk.scan_full(meta, match, statics, carry, sess.shapes,
+                               weights, cluster=cb)
+        except sk.ClusterUnplaceable as e:
+            log(f"phase 4b: {e}; left out of the sweep")
+            continue
+        torch.cuda.synchronize()
+        if not (torch.equal(out[:4, :n], zone["out"][:4, :n])
+                and carries_equal(carry, zone["after"])):
+            raise AssertionError(
+                f"scan_full at cluster={cb} != plain version (max abs err "
+                f"{max_abs_err(out, zone['out'], n, carry, zone['after'])})")
+        ms, runs = time_kernel(sess, batch, zone["carry_before"], cluster=cb)
+        lanes = max(hi - lo for lo, hi in sk.cluster_slices(sess.Np, cb))
+        points.append({"cb": cb, "ms": ms, "runs": runs, "lanes": lanes})
+        log(f"phase 4b: cluster={cb}: == plain; {lanes} lanes per block "
+            f"({-(-lanes // sk.THREADS)} per thread), {ms:.3f} ms per "
+            f"{n}-pod batch (runs {[round(x, 3) for x in runs]}), "
+            f"{ms * 1e3 / n:.3f} us per pod [{gpu}]")
+    sizes = [p["cb"] for p in points]
+    if 1 not in sizes or sk.CLUSTER not in sizes:
+        raise AssertionError(f"phase 4b: sweep placed only {sizes}")
+    fastest = min(points, key=lambda p: p["ms"])["cb"]
+    log(f"phase 4b: fastest cluster={fastest}, default CLUSTER="
+        f"{sk.CLUSTER} [{gpu}]")
+    cluster_directed(sk, sizes)
+    return {"block_ms": points[0]["ms"],
+            "sweep": [{"cb": p["cb"], "ms": p["ms"],
+                       "lanes_per_block": p["lanes"]} for p in points[1:]]}
+
+
+def cluster_directed(sk, sizes):
+    """Phase 4b's directed cases (`directed_case`): at every cluster size
+    in `sizes` (1 = the one-block kernel) == the plain version, the tie
+    pods walking the lanes in order, the pinned pods placed on the last
+    node only, until it is full."""
+    import torch
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+
+    enc, ties, pinned, templates, last = directed_case()
+    dsess = ScanSession(enc.device_state("cuda"), templates, multipod_k=1,
+                        device="cuda")
+    carry0 = dsess._initial_carry()
+    w = weights_of(sk, dsess)
+    for label, arrays in (("tie", ties), ("pinned", pinned)):
+        meta, match = batch_inputs(dsess, arrays)
+        k = len(arrays)
+        ref_carry = clone(carry0)
+        ref = sk.scan_full_reference(meta, match, dsess._get_statics(),
+                                     ref_carry, dsess.shapes, w)
+        for cb in sizes:
+            carry = clone(carry0)
+            out = sk.scan_full(meta, match, dsess._get_statics(), carry,
+                               dsess.shapes, w, cluster=cb)
+            torch.cuda.synchronize()
+            if not (torch.equal(out[:4, :k], ref[:4, :k])
+                    and carries_equal(carry, ref_carry)):
+                raise AssertionError(
+                    f"directed case {label} at cluster={cb}: kernel != "
+                    f"plain (max abs err "
+                    f"{max_abs_err(out, ref, k, carry, ref_carry)})")
+        best = ref[0, :k].tolist()
+        placed = [b for b in best if b >= 0]
+        if label == "tie":
+            # every node's lane once, in lane order, before any lane twice
+            if best[:last + 1] != list(range(last + 1)):
+                raise AssertionError(f"tie case: decisions {best[:16]}... "
+                                     "do not walk the lanes in order")
+        elif not placed or len(placed) == k or set(placed) != {last}:
+            raise AssertionError(f"pinned case: {len(placed)} of {k} placed "
+                                 f"on {sorted(set(placed))}, lane {last}")
+        log(f"phase 4b: directed case {label} (N={dsess.N}, Np={dsess.Np}, "
+            f"{k} pods, {len(placed)} placed): every size {sizes} == plain")
 
 
 def phase_affinity(sk, gpu, kind):
@@ -1685,6 +1816,7 @@ def main() -> int:
     small = small_case()
     small_err = phase_small(small)
     zone = phase_zone_spread(sk, gpu)                              # phase 4
+    sweep = phase_cluster(sk, gpu, zone)                           # 4b
     terms = terms_case()
     terms_err = phase_terms_small(gpu, terms)                      # phase 5
     aff = [phase_affinity(sk, gpu, kind) for kind in ("pref-aff", "aff")]
@@ -1711,7 +1843,8 @@ def main() -> int:
     multi = dict(tenants, launches=sum(c["launches"] for c in multi_cells),
                  err=max(c["err"] for c in multi_cells))
     kernels = [
-        entry("scan_full", 1247, zone),
+        entry("scan_full", 1247, zone, cluster=sk.CLUSTER,
+              block_ms=sweep["block_ms"], sweep=sweep["sweep"]),
         entry("scan_full_ipa", 1552, ipa, cell=slow["cell"],
               cells=cells(aff)),
         entry("scan_multi", 1798, multi, cell=tenants["cell"],

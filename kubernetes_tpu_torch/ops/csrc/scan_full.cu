@@ -46,6 +46,37 @@
 // lane's owner writes and reads, and the utilization recheck is one
 // block-wide OR (__syncthreads_or) per pod.
 //
+// The lanes belong to a team, a template parameter of the pod body. `Block`
+// is the design above, and every instantiation but one uses it. `Cluster`
+// (scan_kernel<false, MODE_FULL, Cluster>, launched by
+// scan_full_cluster_launch) spreads the lanes of mode "full", ur = 0, one pod
+// per step over a thread-block cluster of cb = 2..16 blocks on as many SMs:
+// block rank r owns the contiguous slice [lo_r, hi_r), S = ceil(Np / cb),
+// lo_r = min(r * S, Np), hi_r = min(lo_r + S, Np), and thread tid of it the
+// lanes lo_r + tid + k * 1024. What changes is only where the lane loops
+// start and end and how the four per-pod reductions combine: each block
+// reduces as before, thread 0 publishes the block's value in its own shared
+// memory (`mine`), one cluster barrier, then warp 0 folds the cb published
+// values through distributed shared memory (lane r reads rank r) into the
+// block's `all`, and a block barrier hands that to every thread. (Every
+// thread reading every rank's value costs a block 32 * cb remote requests
+// per value, and measured slower at cb = 16 than at cb = 2.) Every reduction
+// is an integer min / max / sum, a zone-flag OR or the packed argmax key, so
+// the result does not depend on the partition; a slice without a feasible
+// lane contributes the identity, and the mappings of an empty result run
+// after the combine. Ordering: a block's `mine` value of a reduction is read
+// by peers only between that reduction's cluster barrier and the next
+// cluster barrier, and rewritten only in the next pod, after three more, so
+// one barrier per reduction suffices; `all` and the merged zone flags are
+// block-local and read after the block barrier; the local zone flags, which
+// peers read after the phase-2 barrier, are cleared only in the next pod.
+// The kernel ends with one more cluster barrier, so that no block exits
+// while a peer reads its shared memory. What does not change: the carries
+// stay in global memory (L2), every carry access stays at the accessing
+// thread's own lanes (the commit's owner of `best` is the thread of the
+// slice holding it, and eval and commit visit a lane from the same thread),
+// and the arithmetic below.
+//
 // Arithmetic that must match the plain version exactly: f32 products and
 // sums go through __fmul_rn / __fadd_rn (no fused multiply-add; the file
 // is also built with -fmad=false), f32 division is __fdiv_rn (IEEE), the
@@ -56,12 +87,15 @@
 // reference computes them as f32 dots that its session guards keep exact
 // (scaled weight sums < 2^8, assumed counts < 2^16), so the two agree.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "scan_args.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int THREADS = 1024;
 constexpr int WARPS = THREADS / 32;
@@ -76,6 +110,7 @@ constexpr int NEG_BIG = -(1 << 30);
 constexpr int MAX_NODE_SCORE = 100;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr long long NO_KEY = -(1LL << 62);
+constexpr int MAXCB = 16;     // blocks per cluster (non-portable above 8)
 
 // the launcher's mode argument (ops/scan_kernel.py MODE_IDS)
 enum { MODE_FULL, MODE_MULTI, MODE_EVAL, MODE_APPLY, MODE_DELTA };
@@ -103,7 +138,7 @@ struct Ctx {
   const int *g1s, *w3s, *w45s, *gps, *wantis, *waffs;
 };
 
-// one pod's evaluation, the same in every thread of the block
+// one pod's evaluation, the same in every thread of the team
 struct Eval {
   int t, best, m, n_feas;
 };
@@ -137,6 +172,175 @@ __device__ __forceinline__ long long warp_max64(long long x) {
   }
   return x;
 }
+
+// The team that owns the node lanes: where thread tid's lane loop starts
+// and ends (`first(tid)`, then every THREADS lanes below `end(Np)`), which
+// thread owns a lane and which thread writes `out`; a cluster also says how
+// a block's reduced values combine across it (combine1..4, after the
+// block's own reduction at each of eval_pod's four reduction points, and
+// finish). The callers read threadIdx.x once and pass it in, and reach the
+// combines only under `if constexpr (Team::CLUSTER)`: the one-block code
+// compiles to what it compiled to before teams existed.
+
+// One block owns every lane: lane n belongs to thread n % THREADS.
+struct Block {
+  static constexpr bool CLUSTER = false;
+  __device__ static Block make(int) { return Block{}; }
+  __device__ int first(int tid) const { return tid; }
+  __device__ int end(int Np) const { return Np; }
+  __device__ bool owns(int node, int tid) const {
+    return node % THREADS == tid;
+  }
+  __device__ bool leader() const { return threadIdx.x == 0; }
+};
+
+// A block's reduced values: `mine` is read by the peers through
+// distributed shared memory, `all` holds the cluster's fold of them (and
+// the zone flags OR-ed over the cluster), read by the block's own threads.
+struct ClusterVals {
+  int red1[MAXC];
+  int red2[6];
+  int red3[2];
+  long long red4;
+};
+struct ClusterSlots {
+  ClusterVals mine, all;
+  int zflag[MAXK * VZ];
+};
+
+// A thread-block cluster of cb blocks owns the lanes, block rank r the
+// slice [lo, hi) (see the note at the head of the file). At each combine
+// thread 0 publishes the block's value, one cluster barrier, warp 0 folds
+// the cb published values (lane r reads rank r, one remote load per peer
+// and value), and a block barrier hands the fold to the block's threads.
+struct Cluster {
+  static constexpr bool CLUSTER = true;
+  int lo, hi, rank, cb;
+  ClusterSlots* slots;
+  __device__ static Cluster make(int Np) {
+    __shared__ ClusterSlots slots;
+    const cg::cluster_group c = cg::this_cluster();
+    Cluster t;
+    t.cb = (int)c.num_blocks();
+    t.rank = (int)c.block_rank();
+    const int S = (Np + t.cb - 1) / t.cb;
+    t.lo = min(t.rank * S, Np);
+    t.hi = min(t.lo + S, Np);
+    t.slots = &slots;
+    return t;
+  }
+  __device__ int first(int tid) const { return lo + tid; }
+  __device__ int end(int) const { return hi; }
+  __device__ bool owns(int node, int tid) const {
+    return node >= lo && node < hi && (node - lo) % THREADS == tid;
+  }
+  __device__ bool leader() const { return threadIdx.x == 0 && rank == 0; }
+  // for warp 0's lane r < cb: rank r's published values, else null
+  __device__ const ClusterVals* peer() const {
+    const int r = threadIdx.x;
+    return r < cb ? &cg::this_cluster().map_shared_rank(slots, r)->mine
+                  : nullptr;
+  }
+  // phase 1: the PTS filter minima
+  __device__ void combine1(int (&minc)[MAXC], int C) const {
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int c = 0; c < MAXC; ++c)
+        if (c < C) slots->mine.red1[c] = minc[c];
+    }
+    cg::this_cluster().sync();
+    if (threadIdx.x < 32) {
+      const ClusterVals* p = peer();
+#pragma unroll
+      for (int c = 0; c < MAXC; ++c) {
+        if (c >= C) continue;
+        const int v = warp_min(p ? p->red1[c] : POS_BIG);
+        if (threadIdx.x == 0) slots->all.red1[c] = v;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c)
+      if (c < C) minc[c] = slots->all.red1[c];
+  }
+  // phase 2: the feasible-set values, and the zone flags OR-ed over the
+  // ranks into the local merged array (peers may still read the local
+  // flags, so they are not OR-ed in place); returns the merged flags
+  __device__ const int* combine2(int& n_feas, int& n_scored, int& min_i,
+                                 int& max_i, int& mx_taint, int& mx_naff,
+                                 int* zflag, int K) const {
+    if (threadIdx.x == 0) {
+      int* q = slots->mine.red2;
+      q[0] = n_feas; q[1] = n_scored; q[2] = min_i; q[3] = max_i;
+      q[4] = mx_taint; q[5] = mx_naff;
+    }
+    cg::this_cluster().sync();
+    if (threadIdx.x < 32) {
+      int v[6] = {0, 0, POS_BIG, NEG_BIG, 0, 0};
+      if (const ClusterVals* p = peer()) {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) v[i] = p->red2[i];
+      }
+      v[0] = warp_sum(v[0]);
+      v[1] = warp_sum(v[1]);
+      v[2] = warp_min(v[2]);
+      v[3] = warp_max(v[3]);
+      v[4] = warp_max(v[4]);
+      v[5] = warp_max(v[5]);
+      if (threadIdx.x == 0) {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) slots->all.red2[i] = v[i];
+      }
+    }
+    const cg::cluster_group c = cg::this_cluster();
+    for (int i = threadIdx.x; i < K * VZ; i += THREADS) {
+      int f = 0;
+#pragma unroll
+      for (int r = 0; r < MAXCB; ++r)
+        if (r < cb) f |= c.map_shared_rank(zflag, r)[i];
+      slots->zflag[i] = f;
+    }
+    __syncthreads();
+    const int* q = slots->all.red2;
+    n_feas = q[0]; n_scored = q[1]; min_i = q[2]; max_i = q[3];
+    mx_taint = q[4]; mx_naff = q[5];
+    return slots->zflag;
+  }
+  // phase 3: the PTS raw score range
+  __device__ void combine3(int& min_r, int& max_r) const {
+    if (threadIdx.x == 0) {
+      slots->mine.red3[0] = min_r;
+      slots->mine.red3[1] = max_r;
+    }
+    cg::this_cluster().sync();
+    if (threadIdx.x < 32) {
+      const ClusterVals* p = peer();
+      const int v0 = warp_min(p ? p->red3[0] : POS_BIG);
+      const int v1 = warp_max(p ? p->red3[1] : 0);
+      if (threadIdx.x == 0) {
+        slots->all.red3[0] = v0;
+        slots->all.red3[1] = v1;
+      }
+    }
+    __syncthreads();
+    min_r = slots->all.red3[0];
+    max_r = slots->all.red3[1];
+  }
+  // phase 4: the packed argmax key
+  __device__ void combine4(long long& bestkey) const {
+    if (threadIdx.x == 0) slots->mine.red4 = bestkey;
+    cg::this_cluster().sync();
+    if (threadIdx.x < 32) {
+      const ClusterVals* p = peer();
+      const long long v = warp_max64(p ? p->red4 : NO_KEY);
+      if (threadIdx.x == 0) slots->all.red4 = v;
+    }
+    __syncthreads();
+    bestkey = slots->all.red4;
+  }
+  // no block exits while a peer may still read its slots
+  __device__ void finish() const { cg::this_cluster().sync(); }
+};
 
 // NodeResourcesFit of a template-t pod on lane n against the CURRENT carry
 // (exact int32 after the GCD rescale); tsc = template t's scalar row.
@@ -182,10 +386,10 @@ __device__ __forceinline__ int resource_score(const Args& a, int nzr0,
 // balanced/least share of it to gwbl. With `scores` false it stops after
 // the feasible count (best 0, m -1): a pod of the conflict suffix needs
 // nothing else.
-template <bool IPA, int MODE>
+template <bool IPA, int MODE, typename Team>
 __device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
-                                         Shared& s, int b, bool scores,
-                                         int* gtot, int* gwbl) {
+                                         Shared& s, const Team& team, int b,
+                                         bool scores, int* gtot, int* gwbl) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int T = a.T, C = a.C, Np = a.Np, R = a.R, SR = a.SR, K = a.K;
   const int CP = a.CP, UR = a.UR;
@@ -206,7 +410,7 @@ __device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
   int minc[MAXC];
 #pragma unroll
   for (int c = 0; c < MAXC; ++c) minc[c] = POS_BIG;
-  for (int n = tid; n < Np; n += THREADS) {
+  for (int n = team.first(tid); n < team.end(Np); n += THREADS) {
 #pragma unroll
     for (int ci = 0; ci < MAXC; ++ci) {
       if (ci >= C || !tc[W_F_VALID * TC + ci]) continue;
@@ -230,7 +434,13 @@ __device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
     if (c >= C) continue;
     int v = s.red1[c];
     for (int w = 1; w < WARPS; ++w) v = min(v, s.red1[w * MAXC + c]);
-    minc[c] = v == POS_BIG ? 0 : v;
+    minc[c] = Team::CLUSTER ? v : (v == POS_BIG ? 0 : v);
+  }
+  if constexpr (Team::CLUSTER) {  // over the cluster, then no-pair -> 0
+    team.combine1(minc, C);
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c)
+      if (c < C && minc[c] == POS_BIG) minc[c] = 0;
   }
 
   // ---- per-pod IPA scalars from the kcnt carry (written by thread 0
@@ -260,7 +470,7 @@ __device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
   // ---- phase 2: feasibility, zone presence, feasible-set ranges ----
   int n_feas = 0, n_scored = 0, min_i = POS_BIG, max_i = NEG_BIG;
   int mx_taint = 0, mx_naff = 0;
-  for (int n = tid; n < Np; n += THREADS) {
+  for (int n = team.first(tid); n < team.end(Np); n += THREADS) {
     bool feas = a.valid_n[n] != 0 && a.stat[(t * SR + 0) * Np + n] != 0;
     if (feas) feas = fits(a, tsc, n);  // NodeResourcesFit
     if (feas) {  // PodTopologySpread filter
@@ -363,6 +573,10 @@ __device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
     min_i = min(min_i, p[2]); max_i = max(max_i, p[3]);
     mx_taint = max(mx_taint, p[4]); mx_naff = max(mx_naff, p[5]);
   }
+  const int* zf = s.zflag;
+  if constexpr (Team::CLUSTER)
+    zf = team.combine2(n_feas, n_scored, min_i, max_i, mx_taint, mx_naff,
+                       s.zflag, K);
   Eval e;
   e.t = t;
   e.n_feas = n_feas;
@@ -381,7 +595,7 @@ __device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
       int topo = 0;
       if (key >= 0)
         for (int z = 0; z < VZ; ++z)
-          topo += (s.zflag[key * VZ + z] != 0)
+          topo += (zf[key * VZ + z] != 0)
                   && (a.zvalid_s[(base + tid) * VZ + z] != 0);
       wbase = tc[W_S_FIRST * TC + tid] ? topo : 0;
     }
@@ -393,7 +607,7 @@ __device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
   int have_s = 0;
   for (int c = 0; c < C; ++c) have_s |= tc[W_S_VALID * TC + c] != 0;
   int min_r = POS_BIG, max_r = 0;
-  for (int n = tid; n < Np; n += THREADS) {
+  for (int n = team.first(tid); n < team.end(Np); n += THREADS) {
     if (!(flags[n] & 2)) continue;
     float raw = 0.0f;
     for (int c = 0; c < C; ++c) {
@@ -410,7 +624,7 @@ __device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
         bool regn = false;
         if (key >= 0 && a.zvalid_node_s[row * Np + n] != 0) {
           const int z = a.zid[key * Np + n];
-          regn = z >= 0 && s.zflag[key * VZ + z] != 0;
+          regn = z >= 0 && zf[key * VZ + z] != 0;
         }
         cnt = regn ? sh : 0;
       }
@@ -433,6 +647,7 @@ __device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
     min_r = min(min_r, s.red3[w * 2]);
     max_r = max(max_r, s.red3[w * 2 + 1]);
   }
+  if constexpr (Team::CLUSTER) team.combine3(min_r, max_r);
   if (min_r == POS_BIG) min_r = 0;
 
   // ---- phase 4: weighted total and first-max argmax ----
@@ -440,7 +655,7 @@ __device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
   const bool ipa_on = tsc[2 * R + 3] != 0 || pres_dyn;
   const float diff = (float)(max_i - min_i);
   long long bestkey = NO_KEY;
-  for (int n = tid; n < Np; n += THREADS) {
+  for (int n = team.first(tid); n < team.end(Np); n += THREADS) {
     const int f = flags[n];
     if (!(f & 1)) {
       if (MODE == MODE_MULTI) gtot[n] = -1;
@@ -488,6 +703,7 @@ __device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
   bestkey = s.red4[0];
   for (int w = 1; w < WARPS; ++w)
     bestkey = s.red4[w] > bestkey ? s.red4[w] : bestkey;
+  if constexpr (Team::CLUSTER) team.combine4(bestkey);
   if (bestkey != NO_KEY) {
     e.m = (int)(bestkey >> 32);
     e.best = 0x7fffffff - (int)(bestkey & 0xffffffffLL);
@@ -507,8 +723,9 @@ __device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
 // folds to constants), so the owner thread's column adds do not wait on
 // payload loads behind its own stores. Every thread writes only its own
 // lanes.
-template <typename M>
+template <typename Team, typename M>
 __device__ __forceinline__ void update_columns(const Args& a, const Ctx& x,
+                                               const Team& team,
                                                int node, int nres,
                                                const int* dres,
                                                const int (&dnzpc)[SUB],
@@ -516,7 +733,7 @@ __device__ __forceinline__ void update_columns(const Args& a, const Ctx& x,
   const int tid = threadIdx.x;
   const int T = a.T, C = a.C, Np = a.Np, SR = a.SR, CP = a.CP;
   const int TC = T * C;
-  if (node % THREADS == tid) {
+  if (team.owns(node, tid)) {
     for (int r = 0; r < nres; ++r) a.requested[r * Np + node] += dres[r];
 #pragma unroll
     for (int i = 0; i < SUB; ++i)
@@ -527,7 +744,7 @@ __device__ __forceinline__ void update_columns(const Args& a, const Ctx& x,
     if (df) {
       const int pv = a.prow_f[row * Np + node];
       if (pv >= 0)
-        for (int n = tid; n < Np; n += THREADS)
+        for (int n = team.first(tid); n < team.end(Np); n += THREADS)
           if (a.prow_f[row * Np + n] == pv) a.cnt_fn[row * Np + n] += df;
     }
     const int ds = ms[row];
@@ -537,7 +754,7 @@ __device__ __forceinline__ void update_columns(const Args& a, const Ctx& x,
           ? 1 : a.stat[(tt * SR + 7) * Np + node];
       const int pv = a.prow_s[row * Np + node];
       if (factor && pv >= 0)
-        for (int n = tid; n < Np; n += THREADS)
+        for (int n = team.first(tid); n < team.end(Np); n += THREADS)
           if (a.prow_s[row * Np + n] == pv)
             a.cnt_sn[row * Np + n] += ds * factor;
     }
@@ -548,15 +765,19 @@ __device__ __forceinline__ void update_columns(const Args& a, const Ctx& x,
 // its non-zero cpu / memory requests and one pod into the utilization
 // columns, the pod's match lanes into the same-pair count lanes, and with
 // IPA the assumed-pod term counts.
-template <bool IPA>
+template <bool IPA, typename Team>
 __device__ __forceinline__ void commit_pod(const Args& a, const Ctx& x,
-                                           int b, int t, int best) {
+                                           const Team& team, int b, int t,
+                                           int best) {
+  // the IPA commit's kcnt lanes are written by block-local threads and read
+  // by every thread in the next pod: a cluster would need their ordering
+  static_assert(!(IPA && Team::CLUSTER), "ur > 0 runs on one block");
   const int tid = threadIdx.x;
   const int Np = a.Np, R = a.R;
   const int* tsc = x.sc + t * x.row_len;
   const int dnzpc[SUB] = {tsc[2 * R + 1], tsc[2 * R + 2], 1, 0, 0, 0, 0, 0};
   const int8_t* mrow = a.match + (size_t)b * 2 * LANE;
-  update_columns(a, x, best, R, tsc, dnzpc, mrow, mrow + LANE);
+  update_columns(a, x, team, best, R, tsc, dnzpc, mrow, mrow + LANE);
   if (IPA) {
     // the assumed pod joins its node's topology group for every IPA
     // key the node carries, in template t's 8-row block of ucnt; kcnt
@@ -595,10 +816,13 @@ __device__ __forceinline__ bool count_conflict(const Args& a, const Ctx& x,
 }
 
 // __grid_constant__: the device functions take `a` by reference without
-// a copy of it to local memory
-template <bool IPA, int MODE>
+// a copy of it to local memory. Team = Cluster only for mode "full", ur = 0,
+// one pod per step (scan_full_cluster_launch).
+template <bool IPA, int MODE, typename Team = Block>
 __global__ void __launch_bounds__(THREADS, 1)
 scan_kernel(const __grid_constant__ Args a) {
+  static_assert(!Team::CLUSTER || (!IPA && MODE == MODE_FULL),
+                "the cluster team runs mode full, ur = 0, mk = 1");
   // the scalar table, then (IPA) the gate matrices as int32
   extern __shared__ int sc[];
   __shared__ Shared s;
@@ -640,6 +864,7 @@ scan_kernel(const __grid_constant__ Args a) {
   }
   x.g1s = g1s; x.w3s = w3s; x.w45s = w45s; x.gps = gps;
   x.wantis = wantis; x.waffs = waffs;
+  const Team team = Team::make(Np);
   __syncthreads();
 
   if (MODE == MODE_DELTA) {
@@ -654,7 +879,7 @@ scan_kernel(const __grid_constant__ Args a) {
       int dnzpc[SUB];
 #pragma unroll
       for (int i = 0; i < SUB; ++i) dnzpc[i] = row[a.Rp + i];
-      update_columns(a, x, node, a.Rp, row, dnzpc, row + a.Rp + SUB,
+      update_columns(a, x, team, node, a.Rp, row, dnzpc, row + a.Rp + SUB,
                      row + a.Rp + SUB + a.TCp);
     }
     return;
@@ -669,7 +894,7 @@ scan_kernel(const __grid_constant__ Args a) {
     for (int b = 0; b < B; ++b) {
       const int best = a.forced[2 * b], ok = a.forced[2 * b + 1];
       if (ok != 0 && best >= 0 && best < Np)
-        commit_pod<IPA>(a, x, b, a.meta[1 + b], best);
+        commit_pod<IPA>(a, x, team, b, a.meta[1 + b], best);
     }
   } else if (MODE == MODE_MULTI) {
     const int mk = a.mk;
@@ -682,7 +907,7 @@ scan_kernel(const __grid_constant__ Args a) {
       // evaluate the group's pods against the group-start carry; inside
       // the suffix only their feasible counts (out row 2) are needed
       for (int i = 0; i < gn; ++i) {
-        const Eval e = eval_pod<IPA, MODE>(a, x, s, g0 + i, !seen,
+        const Eval e = eval_pod<IPA, MODE>(a, x, s, team, g0 + i, !seen,
                                            scratch + 2 * i * Np,
                                            scratch + (2 * i + 1) * Np);
         if (tid == 0) {
@@ -729,7 +954,7 @@ scan_kernel(const __grid_constant__ Args a) {
           seen = conf ? 1 : 0;
         }
         const bool okc = m >= 0 && !seen;
-        if (okc) commit_pod<IPA>(a, x, b, t, best);
+        if (okc) commit_pod<IPA>(a, x, team, b, t, best);
         if (tid == 0) {
           a.out[b] = okc ? best : -1;
           a.out[Bp + b] = okc ? m : -1;
@@ -741,16 +966,18 @@ scan_kernel(const __grid_constant__ Args a) {
   } else {
     // MODE_FULL and MODE_EVAL: one pod per step
     for (int b = 0; b < B; ++b) {
-      const Eval e = eval_pod<IPA, MODE>(a, x, s, b, true, nullptr,
+      const Eval e = eval_pod<IPA, MODE>(a, x, s, team, b, true, nullptr,
                                          nullptr);
       const bool ok = e.m >= 0;
-      if (tid == 0) {
+      if (team.leader()) {
         a.out[2 * Bp + b] = e.n_feas;
         if (ok) { a.out[b] = e.best; a.out[Bp + b] = e.m; }
       }
-      if (MODE == MODE_FULL && ok) commit_pod<IPA>(a, x, b, e.t, e.best);
+      if (MODE == MODE_FULL && ok)
+        commit_pod<IPA>(a, x, team, b, e.t, e.best);
     }
   }
+  if constexpr (Team::CLUSTER) team.finish();
 }
 
 typedef void (*KernelFn)(const Args);
@@ -793,5 +1020,52 @@ extern "C" int scan_full_launch(void* const* p, const int* d, void* stream) {
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The cluster instantiation (mode "full", ur = 0, mk = 1) over `cluster`
+// blocks, one cluster: p and d as for scan_full_launch. Returns 0 or a CUDA
+// error; -1 for a shape, mode or cluster size it does not take, -2 when the
+// card cannot place one cluster of that size (cudaOccupancyMaxActiveClusters).
+extern "C" int scan_full_cluster_launch(void* const* p, const int* d,
+                                        int cluster, void* stream) {
+  const int T = d[D_T], C = d[D_C], TCp = d[D_TCP];
+  const int K = d[D_K], CP = d[D_CP], UR = d[D_UR];
+  if (cluster != 2 && cluster != 4 && cluster != 8 && cluster != MAXCB)
+    return -1;
+  if (C > MAXC || K > MAXK || TCp > LANE || TCp != T * CP) return -1;
+  if (UR != 0 || d[D_MODE] != MODE_FULL || d[D_MK] != 1) return -1;
+  const Args a = unpack_args(p, d);
+  const size_t smem = (size_t)d[D_SMEM];
+  void (*kernel)(const Args) = scan_kernel<false, MODE_FULL, Cluster>;
+  cudaError_t e;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (cluster > 8) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (clusters < 1) return -2;
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -49,7 +49,17 @@ matrices) in shared memory, and updates the carries in global memory
 column-locally — every thread only ever writes its own lanes, so the
 same-pair masks need nothing but `prow[row, best]`, read after the block
 agrees on `best`. At 5000 nodes the per-step working set is a few MB and
-stays in the 50 MB L2. A multi-block cooperative design is later work.
+stays in the 50 MB L2.
+
+Mode "full" with ur = 0 and one pod per step, the main path, runs by
+default on a thread-block cluster instead (`CLUSTER` blocks, on as many
+SMs): block rank r owns the contiguous lane slice `cluster_slices(Np,
+cb)[r]`, each of the four per-pod reductions is the block's own followed by
+one cluster barrier and a fold over the blocks' values in distributed
+shared memory, and the carries stay in global memory, each lane touched
+only by its owner. The reductions are integer min / max / sum, OR and the
+packed argmax key, so any cluster size decides bit for bit as one block.
+`scan_full(..., cluster=1)` forces the one-block kernel.
 
 `scan_full_reference` is the plain PyTorch version: a loop over pods of
 tensor ops with the same int32 / f32 arithmetic (floor divisions,
@@ -110,6 +120,17 @@ VARIANT_LAUNCHES = {f"{v}{suffix}": 0 for v in VARIANTS.values()
                     for suffix in ("", "_ipa")}
 VARIANT_LAUNCHES["scan_delta"] = 0
 
+# the thread-block cluster sizes the cluster kernel takes (16 is above the
+# portable 8), and the default for mode "full", ur = 0, mk = 1: the fastest
+# point of chip_smoke.py's sweep on the H100 (PERF.md)
+CLUSTER_SIZES = (2, 4, 8, 16)
+CLUSTER = 16
+# launches of the cluster kernel per cluster size; each also counts under
+# VARIANT_LAUNCHES["scan_full"], the port of the same TPU kernel mode
+CLUSTER_LAUNCHES = dict.fromkeys(CLUSTER_SIZES, 0)
+# threads per block, in both designs (csrc/scan_full.cu THREADS)
+THREADS = 1024
+
 # the launcher's pointer arguments, in the order of the kernel's ArgPtr
 # enum (csrc/scan_args.cuh); a name absent from a launch is passed as null
 ARG_PTRS = ("meta", "match", "scalars", "alloc", "stat", "zid", "regrow_f",
@@ -125,6 +146,24 @@ SMEM_DYNAMIC_MAX = 227 * 1024 - 8 * 1024
 SOURCE = Path(__file__).resolve().parent / "csrc" / "scan_full.cu"
 
 _LIB = None
+
+
+class ClusterUnplaceable(RuntimeError):
+    """The card cannot place one thread-block cluster of the asked size
+    (`cudaOccupancyMaxActiveClusters` is 0)."""
+
+
+def cluster_slices(Np: int, cb: int):
+    """The cluster kernel's lane partition: [(lo_r, hi_r)] for block ranks
+    r < cb, S = ceil(Np / cb), lo_r = min(r * S, Np), hi_r = min(lo_r + S,
+    Np). Contiguous, each lane in exactly one slice, the empty ones (if
+    any) at the tail; thread (n - lo_r) % THREADS of rank r owns lane n."""
+    S = -(-Np // cb)
+    slices = []
+    for r in range(cb):
+        lo = min(r * S, Np)
+        slices.append((lo, min(lo + S, Np)))
+    return slices
 
 # XLA's CPU f32 log (the Cephes / Eigen `plog` polynomial): the SQRT(1/2)
 # fold threshold, the 9 polynomial coefficients p0..p8, and ln 2 split as
@@ -201,6 +240,10 @@ def _lib():
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
             ctypes.c_void_p]
         lib.scan_full_launch.restype = ctypes.c_int
+        lib.scan_full_cluster_launch.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_void_p]
+        lib.scan_full_cluster_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -219,16 +262,25 @@ def _ceil8(n: int) -> int:
     return (n + 7) // 8 * 8
 
 
-def _launch(tensors: Dict[str, torch.Tensor], dims, device) -> None:
+def _launch(tensors: Dict[str, torch.Tensor], dims, device,
+            cluster: int = 1) -> None:
     """One call of the C launcher: `tensors` by ARG_PTRS name (absent =
-    null), `dims` in the kernel's ArgDim order. Raises on a refused
-    launch."""
+    null), `dims` in the kernel's ArgDim order; `cluster` > 1 launches the
+    cluster kernel over that many blocks. Raises on a refused launch
+    (ClusterUnplaceable where the card cannot place the cluster)."""
     ptrs = [tensors[k].data_ptr() if k in tensors else 0 for k in ARG_PTRS]
     lib = _lib()
+    p = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    d = (ctypes.c_int * len(dims))(*dims)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.scan_full_launch((ctypes.c_void_p * len(ptrs))(*ptrs),
-                                   (ctypes.c_int * len(dims))(*dims), stream)
+        if cluster > 1:
+            err = lib.scan_full_cluster_launch(p, d, cluster, stream)
+        else:
+            err = lib.scan_full_launch(p, d, stream)
+    if err == -2:
+        raise ClusterUnplaceable(f"scan_full: the card cannot place a "
+                                 f"cluster of {cluster} blocks")
     if err != 0:
         raise RuntimeError(f"scan_full kernel launch failed: CUDA error {err}")
 
@@ -247,6 +299,24 @@ def _kernel_mode(mode: str, mk) -> int:
     if mode == "full":
         return MODE_MULTI if mk > 1 else MODE_FULL
     return MODE_EVAL if mode == "eval" else MODE_APPLY
+
+
+def _cluster_size(cluster, UR: int, kmode: int) -> int:
+    """The blocks to launch: `cluster` None is CLUSTER for mode "full",
+    ur = 0, mk = 1 and 1 (the one-block kernel) otherwise; 1 forces the
+    one-block kernel; a size of CLUSTER_SIZES only that variant takes."""
+    takes = UR == 0 and kmode == MODE_FULL
+    if cluster is None:
+        return CLUSTER if takes else 1
+    if isinstance(cluster, bool) \
+            or not isinstance(cluster, (int, np.integer)) \
+            or cluster not in (1, *CLUSTER_SIZES):
+        raise ValueError(f"scan_full: cluster={cluster!r} is not 1 or one "
+                         f"of {CLUSTER_SIZES}")
+    if cluster > 1 and not takes:
+        raise ValueError(f"scan_full: cluster={cluster} needs mode 'full', "
+                         "mk=1 and no affinity-term carries (ur = 0)")
+    return int(cluster)
 
 
 def _validate(meta, match, statics, carry, shapes, mode, mk,
@@ -313,7 +383,8 @@ def scan_full(meta: torch.Tensor, match: torch.Tensor,
               statics: Dict[str, torch.Tensor],
               carry: Dict[str, torch.Tensor], shapes: Tuple[int, ...],
               weights: Tuple[int, ...], mode: str = "full", mk: int = 1,
-              forced: Optional[torch.Tensor] = None) -> torch.Tensor:
+              forced: Optional[torch.Tensor] = None,
+              cluster: Optional[int] = None) -> torch.Tensor:
     """Run one batch: meta = [B_real | tmpl[Bp]] int32, match int8
     [Bp, 256]; statics and carries as ScanSession lays them out (the IPA
     statics and the `ucnt`/`kcnt` carries select the ur > 0 variant);
@@ -325,10 +396,16 @@ def scan_full(meta: torch.Tensor, match: torch.Tensor,
     pairs. "full" and "apply" update the carries in place. Returns out
     int32 [8, Bp]: row 0 best lane or −1, row 1 score or −1, row 2
     n_feasible, and with mk > 1 row 3 the conflict-suffix flag (1 = not
-    committed, to be replayed); −1 elsewhere and for pods b >= B_real."""
+    committed, to be replayed); −1 elsewhere and for pods b >= B_real.
+
+    `cluster` picks the design on the card (`_cluster_size`): None the
+    default, 1 the one-block kernel, 2 / 4 / 8 / 16 the cluster kernel of
+    that size (mode "full", mk = 1, ur = 0 only); each decides the same.
+    CPU tensors go to the plain version whatever it says."""
     global LAUNCHES
     UR, kmode = _validate(meta, match, statics, carry, shapes, mode, mk,
                           forced)
+    cb = _cluster_size(cluster, UR, kmode)
     if meta.device.type == "cpu":
         return scan_full_reference(meta, match, statics, carry, shapes,
                                    weights, mode=mode, mk=mk, forced=forced)
@@ -351,9 +428,11 @@ def scan_full(meta: torch.Tensor, match: torch.Tensor,
     Rp = carry["requested"].shape[0]
     dims = [T, C, Np, R, SR, TCp, K, CP, Bp, UR, smem_bytes(T, C, R, UR),
             kmode, int(mk), 0, Rp, *[int(w) for w in weights]]
-    _launch(tensors, dims, meta.device)
+    _launch(tensors, dims, meta.device, cb)
     LAUNCHES += 1
     VARIANT_LAUNCHES[VARIANTS[kmode] + ("_ipa" if UR else "")] += 1
+    if cb > 1:
+        CLUSTER_LAUNCHES[cb] += 1
     return out
 
 
