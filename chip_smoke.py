@@ -33,14 +33,25 @@ Phases (each raises on failure; the script then exits non-zero):
    too: hostname anti-affinity with more pods than nodes can take, zone
    affinity through the first-pod escape, weight-100 preferred zone
    anti-affinity, and plain pods carrying the anti-affine label
-   (cross-template D1); out rows and all six carries must be equal;
+   (cross-template D1); out rows and all six carries must be equal, on
+   one block and at every cluster size phase 4b placed;
 6. the pod-affinity path at full size, as scheduler_perf's
    SchedulingPreferredPodAffinity-5000n and SchedulingPodAffinity-5000n
    set it up (scripts/bench_configs.py:267-281): 5000 nodes, 2048 bound
    app=aff pods, 5000 pending pods with the preferred (or required) zone
    affinity toward app=aff, batches of 904 (warm-up), 2048 and 2048;
    every pod must be placed, the ur > 0 variant launched once per batch,
-   and the first measured batch must equal the plain version;
+   all three launches through the cluster kernel at `CLUSTER`, and the
+   first measured batch must equal the plain version;
+   6b. the ur > 0 sweep: phase 4b on each affinity cell's first measured
+   batch (one block, then 2, 4, 8, 16 blocks; each == plain, rows and all
+   six carries, and timed); then the directed `kcnt` cases at Np = 768,
+   at every size: pods with a required (and, in the twin, preferred) zone
+   affinity toward their own label, zones interleaved over the lanes, so
+   that a block reading a stale `kcnt` would admit another zone's lanes
+   (required: out row 2 and the decisions move) or drop the affinity
+   score (preferred); every pod after the first lands in the first's
+   zone;
 7. multi-pod steps (mk = 4 pods per step, the conflict-suffix contract):
    a. on the phase-3 and phase-5 clusters, one mk=4 launch against the
       plain version (out rows 0-3 and carries), then `schedule_exact`
@@ -93,6 +104,7 @@ It needs a CUDA card and imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -315,6 +327,41 @@ def time_kernel(sess, arrays, carry, mode="full", mk=1, decisions=None,
     return statistics.median(times), times
 
 
+def sizes_vs_plain(sk, sess, arrays, carry, sizes, label, ref=None):
+    """Mode "full" at every cluster size in `sizes` (1 = the one-block
+    kernel), each from a copy of `carry` and == the plain version: out
+    rows 0-3 and every carry. `ref` is the plain version's (out, carry)
+    from `carry`, run here when None. A size the card cannot place is
+    logged and left out. Returns (ref out, ref carry, the sizes run)."""
+    import torch
+
+    meta, match = batch_inputs(sess, arrays)
+    statics, w = sess._get_statics(), weights_of(sk, sess)
+    if ref is None:
+        ref_carry = clone(carry)
+        ref = (sk.scan_full_reference(meta, match, statics, ref_carry,
+                                      sess.shapes, w), ref_carry)
+    ref_out, ref_carry = ref
+    k = len(arrays)
+    ran = []
+    for cb in sizes:
+        c = clone(carry)
+        try:
+            out = sk.scan_full(meta, match, statics, c, sess.shapes, w,
+                               cluster=cb)
+        except sk.ClusterUnplaceable as e:
+            log(f"{label}: {e}; left out")
+            continue
+        torch.cuda.synchronize()
+        if not (torch.equal(out[:4, :k], ref_out[:4, :k])
+                and carries_equal(c, ref_carry)):
+            raise AssertionError(
+                f"{label} at cluster={cb}: kernel != plain version (max abs "
+                f"err {max_abs_err(out, ref_out, k, c, ref_carry)})")
+        ran.append(cb)
+    return ref_out, ref_carry, ran
+
+
 def small_case():
     """~600 nodes, 4 templates, 512 pods in batches of 256 (phase 3)."""
     from kubernetes_tpu_torch.api import types as v1
@@ -459,9 +506,9 @@ def terms_case():
             "templates": templates, "batch": 512, "nodes": len(nodes)}
 
 
-def phase_terms_small(gpu, case):
+def phase_terms_small(sk, gpu, case, sizes):
     """Phase 5: the ur > 0 kernel == plain on the ~600-node term
-    cluster."""
+    cluster, at the default size and at every other size in `sizes`."""
     from kubernetes_tpu_torch.ops.scan import ScanSession
 
     arrays = case["arrays"]
@@ -476,7 +523,11 @@ def phase_terms_small(gpu, case):
     decisions = []
     for lo in (0, 512):
         batch = arrays[lo:lo + 512]
+        before = clone(carry)
         e, out, ms, _ = kernel_vs_plain(sess, batch, carry)
+        sizes_vs_plain(sk, sess, batch, before,
+                       [cb for cb in sizes if cb != sk.CLUSTER],
+                       f"phase 5 batch {lo // 512}", ref=(out, carry))
         err = max(err, e)
         kernel_ms.append(ms)
         decisions += out[0, :len(batch)].tolist()
@@ -488,10 +539,11 @@ def phase_terms_small(gpu, case):
                              f"anti-affine pods and every other template "
                              f"placed, got {placed} of 256 each")
     log(f"phase 5: scan_full_ipa == plain on {case['nodes']} nodes, "
-        f"T={sess.T}, UR={sess.UR}, {len(arrays)} pods in 2 batches, "
-        f"placed per template {placed} of 256")
+        f"T={sess.T}, UR={sess.UR}, {len(arrays)} pods in 2 batches, at "
+        f"every cluster size {sorted(set(sizes) | {sk.CLUSTER})}, placed "
+        f"per template {placed} of 256")
     log(f"phase 5: scan_full_ipa {[round(x, 3) for x in kernel_ms]} ms per "
-        f"512-pod batch at Np={sess.Np} [{gpu}]")
+        f"512-pod batch at Np={sess.Np} (cluster={sk.CLUSTER}) [{gpu}]")
     return err
 
 
@@ -554,6 +606,7 @@ def phase_zone_spread(sk, gpu):
     torch.cuda.synchronize()
     carry_before = clone(sess._carry)
     stage.update(dict.fromkeys(stage, 0.0))
+    gc.collect()  # no collection of earlier phases' garbage in the window
     t0 = time.perf_counter()
     batch1, ys1, d1 = run_batch(BATCH)
     _, _, d2 = run_batch(2 * BATCH)
@@ -626,47 +679,33 @@ def directed_case():
             enc.node_names.index(last))
 
 
-def phase_cluster(sk, gpu, zone):
-    """Phase 4b: the one-block kernel and every cluster size the card
-    places, on phase 4's first measured batch from the carry before it,
-    each == the plain version (phase 4's plain run of that batch) and
-    timed; then the directed cases at every size. Returns the sweep."""
-    import torch
-
-    sess, batch = zone["sess"], zone["batch"]
+def phase_cluster(sk, gpu, d, phase):
+    """Phases 4b and 6b: the one-block kernel and every cluster size the
+    card places, on a cell's first measured batch from the carry before
+    it, each == the plain version (the cell's plain run of that batch:
+    `d["out"]`, `d["after"]`) and timed. Returns the sweep."""
+    sess, batch = d["sess"], d["batch"]
     n = len(batch)
-    meta, match = batch_inputs(sess, batch)
-    statics, weights = sess._get_statics(), weights_of(sk, sess)
+    _, _, sizes = sizes_vs_plain(sk, sess, batch, d["carry_before"],
+                                 (1, *sk.CLUSTER_SIZES),
+                                 f"phase {phase} {d['cell']}",
+                                 ref=(d["out"], d["after"]))
+    if 1 not in sizes or sk.CLUSTER not in sizes:
+        raise AssertionError(f"phase {phase}: sweep placed only {sizes}")
     points = []
-    for cb in (1, *sk.CLUSTER_SIZES):
-        carry = clone(zone["carry_before"])
-        try:
-            out = sk.scan_full(meta, match, statics, carry, sess.shapes,
-                               weights, cluster=cb)
-        except sk.ClusterUnplaceable as e:
-            log(f"phase 4b: {e}; left out of the sweep")
-            continue
-        torch.cuda.synchronize()
-        if not (torch.equal(out[:4, :n], zone["out"][:4, :n])
-                and carries_equal(carry, zone["after"])):
-            raise AssertionError(
-                f"scan_full at cluster={cb} != plain version (max abs err "
-                f"{max_abs_err(out, zone['out'], n, carry, zone['after'])})")
-        ms, runs = time_kernel(sess, batch, zone["carry_before"], cluster=cb)
+    for cb in sizes:
+        ms, runs = time_kernel(sess, batch, d["carry_before"], cluster=cb)
         lanes = max(hi - lo for lo, hi in sk.cluster_slices(sess.Np, cb))
         points.append({"cb": cb, "ms": ms, "runs": runs, "lanes": lanes})
-        log(f"phase 4b: cluster={cb}: == plain; {lanes} lanes per block "
-            f"({-(-lanes // sk.THREADS)} per thread), {ms:.3f} ms per "
-            f"{n}-pod batch (runs {[round(x, 3) for x in runs]}), "
-            f"{ms * 1e3 / n:.3f} us per pod [{gpu}]")
-    sizes = [p["cb"] for p in points]
-    if 1 not in sizes or sk.CLUSTER not in sizes:
-        raise AssertionError(f"phase 4b: sweep placed only {sizes}")
+        log(f"phase {phase} {d['cell']}: cluster={cb}: == plain; {lanes} "
+            f"lanes per block ({-(-lanes // sk.THREADS)} per thread), "
+            f"{ms:.3f} ms per {n}-pod batch (runs "
+            f"{[round(x, 3) for x in runs]}), {ms * 1e3 / n:.3f} us per pod "
+            f"[{gpu}]")
     fastest = min(points, key=lambda p: p["ms"])["cb"]
-    log(f"phase 4b: fastest cluster={fastest}, default CLUSTER="
-        f"{sk.CLUSTER} [{gpu}]")
-    cluster_directed(sk, sizes)
-    return {"block_ms": points[0]["ms"],
+    log(f"phase {phase} {d['cell']}: fastest cluster={fastest}, default "
+        f"CLUSTER={sk.CLUSTER} [{gpu}]")
+    return {"block_ms": points[0]["ms"], "sizes": sizes,
             "sweep": [{"cb": p["cb"], "ms": p["ms"],
                        "lanes_per_block": p["lanes"]} for p in points[1:]]}
 
@@ -676,31 +715,16 @@ def cluster_directed(sk, sizes):
     in `sizes` (1 = the one-block kernel) == the plain version, the tie
     pods walking the lanes in order, the pinned pods placed on the last
     node only, until it is full."""
-    import torch
     from kubernetes_tpu_torch.ops.scan import ScanSession
 
     enc, ties, pinned, templates, last = directed_case()
     dsess = ScanSession(enc.device_state("cuda"), templates, multipod_k=1,
                         device="cuda")
     carry0 = dsess._initial_carry()
-    w = weights_of(sk, dsess)
     for label, arrays in (("tie", ties), ("pinned", pinned)):
-        meta, match = batch_inputs(dsess, arrays)
         k = len(arrays)
-        ref_carry = clone(carry0)
-        ref = sk.scan_full_reference(meta, match, dsess._get_statics(),
-                                     ref_carry, dsess.shapes, w)
-        for cb in sizes:
-            carry = clone(carry0)
-            out = sk.scan_full(meta, match, dsess._get_statics(), carry,
-                               dsess.shapes, w, cluster=cb)
-            torch.cuda.synchronize()
-            if not (torch.equal(out[:4, :k], ref[:4, :k])
-                    and carries_equal(carry, ref_carry)):
-                raise AssertionError(
-                    f"directed case {label} at cluster={cb}: kernel != "
-                    f"plain (max abs err "
-                    f"{max_abs_err(out, ref, k, carry, ref_carry)})")
+        ref, _, _ = sizes_vs_plain(sk, dsess, arrays, carry0, sizes,
+                                   f"directed case {label}")
         best = ref[0, :k].tolist()
         placed = [b for b in best if b >= 0]
         if label == "tie":
@@ -717,10 +741,11 @@ def cluster_directed(sk, sizes):
 
 def phase_affinity(sk, gpu, kind):
     """scheduler_perf's Scheduling{Preferred,}PodAffinity-5000n through
-    the session: every pod placed, the ur > 0 variant once per batch, the
-    first measured batch == plain. Returns this phase's numbers, the
-    session (and its mk=4 twin on the same cluster), the first measured
-    batch and the carry before it."""
+    the session: every pod placed, the ur > 0 variant once per batch, all
+    on the cluster kernel at `CLUSTER`, the first measured batch == plain.
+    Returns this phase's numbers, the session (and its mk=4 twin on the
+    same cluster), the first measured batch, the carry before it and the
+    plain version's out and carry after it."""
     import torch
     from kubernetes_tpu_torch.api import types as v1
     from kubernetes_tpu_torch.ops.scan import ScanSession
@@ -767,6 +792,7 @@ def phase_affinity(sk, gpu, kind):
             torch.cuda.synchronize()
             carry_before = clone(sess._carry)
             stage.update(dict.fromkeys(stage, 0.0))
+            gc.collect()
             t_window = time.perf_counter()
         pods = pending[lo:lo + size]
         lo += size
@@ -796,6 +822,12 @@ def phase_affinity(sk, gpu, kind):
     if launches != only(sk, scan_full_ipa=len(AFF_BATCHES)):
         raise AssertionError(f"{name}: launches {launches} for "
                              f"{len(AFF_BATCHES)} batches")
+    want = dict.fromkeys(sk.CLUSTER_LAUNCHES, 0)
+    want[sk.CLUSTER] = len(AFF_BATCHES)
+    if sk.CLUSTER_LAUNCHES != want:
+        raise AssertionError(f"{name}: launches by cluster size "
+                             f"{sk.CLUSTER_LAUNCHES}, not "
+                             f"{len(AFF_BATCHES)} at {sk.CLUSTER}")
     unplaced = sum(x < 0 for x in decisions)
     if unplaced:
         raise AssertionError(f"{name}: {unplaced} of {len(decisions)} pods "
@@ -804,7 +836,8 @@ def phase_affinity(sk, gpu, kind):
     pods_per_s = n_meas / window_s
     log(f"phase 6 {name}: {len(decisions)} pods placed, "
         f"{launches['scan_full_ipa']} launches of scan_full_ipa for "
-        f"{len(AFF_BATCHES)} batches; {pods_per_s:.1f} pods/s over the "
+        f"{len(AFF_BATCHES)} batches, all on the {sk.CLUSTER}-block cluster "
+        f"kernel; {pods_per_s:.1f} pods/s over the "
         f"{len(AFF_BATCHES) - 1} measured batches [{gpu}]")
     log(f"phase 6 {name} window: " + ", ".join(
         f"{k} {v * 1e3:.1f} ms" for k, v in stage.items())
@@ -812,8 +845,8 @@ def phase_affinity(sk, gpu, kind):
 
     batch1, ys1 = batches[1]
     n1 = len(batch1)
-    err, out, _, plain_ms = kernel_vs_plain(sess, batch1,
-                                            clone(carry_before))
+    after1 = clone(carry_before)
+    err, out, _, plain_ms = kernel_vs_plain(sess, batch1, after1)
     if not torch.equal(out[:3, :n1], ys1["rows"][:3, :n1]):
         raise AssertionError(f"{name}: replayed batch differs from the "
                              "session's")
@@ -821,16 +854,77 @@ def phase_affinity(sk, gpu, kind):
     meta, match = batch_inputs(sess, batch1)
     bound_ms, bound_by, nbytes, ops = bound(sess, meta, match, out, n1)
     log(f"phase 6 {name}: scan_full_ipa {kernel_ms:.3f} ms per {n1}-pod "
-        f"batch at {sess.N} nodes (runs {[round(x, 3) for x in times]}), "
+        f"batch at {sess.N} nodes on {sk.CLUSTER} blocks (runs "
+        f"{[round(x, 3) for x in times]}), "
         f"{kernel_ms * 1e3 / n1:.2f} us per pod, plain version "
         f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms by {bound_by} "
         f"({nbytes} bytes, {ops} ops) [{gpu}]")
     return {"cell": name, "launches": launches["scan_full_ipa"], "err": err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "sess": sess, "multi": multi,
-            "batch": batch1, "carry_before": carry_before, "enc": enc,
-            "pe": pe, "templates": templates, "affinity": aff,
-            "labels": labels, "build_s": build_s}
+            "batch": batch1, "carry_before": carry_before, "after": after1,
+            "out": out, "enc": enc, "pe": pe, "templates": templates,
+            "affinity": aff, "labels": labels, "build_s": build_s}
+
+
+KCNT_ZONES = 4
+
+
+def kcnt_case(kind, n_nodes=680, n_pods=512, seed=5):
+    """Phase 6b's directed `kcnt` case at Np = 768: nodes whose zones
+    interleave over the lanes (zone = node mod 4, so every cluster slice
+    holds every zone), n_nodes bound app=other pods of 500m on nodes drawn
+    from `seed`, and n_pods pending app=kz pods with a required (`kind`
+    "required") or weight-100 preferred zone pod affinity toward app=kz,
+    which no bound pod carries. Returns (encoding, pod arrays, templates,
+    the zone of each lane)."""
+    import numpy as np
+    from kubernetes_tpu_torch.api import types as v1
+    from kubernetes_tpu_torch.testing.synth import make_pod, synth_cluster
+
+    nodes, _ = synth_cluster(n_nodes, n_zones=KCNT_ZONES)
+    rng = np.random.default_rng(seed)
+    init_pods = [make_pod(f"other-{i}", cpu="500m", memory="1Gi",
+                          labels={"app": "other"},
+                          node_name=nodes[int(j)].metadata.name)
+                 for i, j in enumerate(rng.integers(0, n_nodes, n_nodes))]
+    labels = {"app": "kz"}
+    aff = affinity(v1, "aff" if kind == "required" else "pref-aff", labels,
+                   v1.LABEL_ZONE)
+    pending = [make_pod(f"kz-{i}", cpu="100m", memory="128Mi",
+                        labels=labels, affinity=aff) for i in range(n_pods)]
+    enc, pe = reserved_encoding(nodes, init_pods, pending)
+    arrays, templates = encode_templates(pe, pending)
+    zone = {n.metadata.name: n.metadata.labels[v1.LABEL_ZONE] for n in nodes}
+    return enc, arrays, templates, [zone.get(x) for x in enc.node_names]
+
+
+def kcnt_directed(sk, gpu, sizes):
+    """Phase 6b's directed `kcnt` cases (`kcnt_case`, required and
+    preferred): at every cluster size in `sizes` == the plain version
+    (out rows and all six carries), and every pod after the first placed
+    in the first pod's zone."""
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+
+    for kind in ("required", "preferred"):
+        enc, arrays, templates, lane_zone = kcnt_case(kind)
+        dsess = ScanSession(enc.device_state("cuda"), templates,
+                            multipod_k=1, device="cuda")
+        if not dsess.UR:
+            raise AssertionError(f"kcnt case {kind}: no IPA carries")
+        k = len(arrays)
+        ref, ref_carry, _ = sizes_vs_plain(sk, dsess, arrays,
+                                           dsess._initial_carry(), sizes,
+                                           f"kcnt case {kind}")
+        best = ref[0, :k].tolist()
+        zones = [lane_zone[b] if b >= 0 else None for b in best]
+        if zones[0] is None or zones[1:] != [zones[0]] * (k - 1):
+            raise AssertionError(f"kcnt case {kind}: pods left the first "
+                                 f"pod's zone: {zones[:16]}...")
+        log(f"phase 6b: directed kcnt case {kind} (N={dsess.N}, "
+            f"Np={dsess.Np}, UR={dsess.UR}, {k} pods, all in "
+            f"{zones[0]}; kcnt max {int(ref_carry['kcnt'].max())}): every "
+            f"size {sizes} == plain [{gpu}]")
 
 
 def phase_multipod_small(sk, gpu, case):
@@ -929,6 +1023,7 @@ def phase_tenants(sk, gpu):
                 torch.cuda.synchronize()
                 carry_before = clone(sess._carry)
                 stage.update(dict.fromkeys(stage, 0.0))
+                gc.collect()
                 t_window = time.perf_counter()
             pods = pending[i * BATCH:(i + 1) * BATCH]
             t = [time.perf_counter()]
@@ -1785,7 +1880,8 @@ def entry(name, replaces, d, source=SOURCE, **extra):
 
 def cells(rows):
     return [{k: r[k] for k in ("cell", "launches", "ms", "plain_ms",
-                               "bound_ms", "bound_by") if k in r}
+                               "bound_ms", "bound_by", "block_ms", "sweep")
+             if k in r}
             for r in rows]
 
 
@@ -1816,10 +1912,15 @@ def main() -> int:
     small = small_case()
     small_err = phase_small(small)
     zone = phase_zone_spread(sk, gpu)                              # phase 4
-    sweep = phase_cluster(sk, gpu, zone)                           # 4b
+    sweep = phase_cluster(sk, gpu, zone, "4b")                     # 4b
+    sizes = sweep["sizes"]
+    cluster_directed(sk, sizes)
     terms = terms_case()
-    terms_err = phase_terms_small(gpu, terms)                      # phase 5
+    terms_err = phase_terms_small(sk, gpu, terms, sizes)           # phase 5
     aff = [phase_affinity(sk, gpu, kind) for kind in ("pref-aff", "aff")]
+    for a in aff:                                                  # 6b
+        a.update(phase_cluster(sk, gpu, a, "6b"))
+    kcnt_directed(sk, gpu, sizes)
     multi_small = [phase_multipod_small(sk, gpu, c)                # 7a
                    for c in (small, terms)]
     tenants = phase_tenants(sk, gpu)                               # 7b
@@ -1831,7 +1932,7 @@ def main() -> int:
 
     zone["err"] = max(zone["err"], small_err)
     # scan_full_ipa reports its slower cell; `cells` keeps both cells'
-    # numbers
+    # numbers, sweeps included
     slow = max(aff, key=lambda a: a["ms"])
     ipa = dict(slow, launches=sum(a["launches"] for a in aff),
                err=max(terms_err, *(a["err"] for a in aff)))
@@ -1845,8 +1946,9 @@ def main() -> int:
     kernels = [
         entry("scan_full", 1247, zone, cluster=sk.CLUSTER,
               block_ms=sweep["block_ms"], sweep=sweep["sweep"]),
-        entry("scan_full_ipa", 1552, ipa, cell=slow["cell"],
-              cells=cells(aff)),
+        entry("scan_full_ipa", 1552, ipa, cluster=sk.CLUSTER,
+              block_ms=slow["block_ms"], sweep=slow["sweep"],
+              cell=slow["cell"], cells=cells(aff)),
         entry("scan_multi", 1798, multi, cell=tenants["cell"],
               cells=cells(multi_cells)),
         entry("scan_eval", 1751, dict(ev["eval"], err=ev["err"]),

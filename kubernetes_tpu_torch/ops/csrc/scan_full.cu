@@ -47,10 +47,11 @@
 // block-wide OR (__syncthreads_or) per pod.
 //
 // The lanes belong to a team, a template parameter of the pod body. `Block`
-// is the design above, and every instantiation but one uses it. `Cluster`
-// (scan_kernel<false, MODE_FULL, Cluster>, launched by
-// scan_full_cluster_launch) spreads the lanes of mode "full", ur = 0, one pod
-// per step over a thread-block cluster of cb = 2..16 blocks on as many SMs:
+// is the design above, and every instantiation but two uses it. `Cluster`
+// (scan_kernel<IPA, MODE_FULL, Cluster>, launched by
+// scan_full_cluster_launch) spreads the lanes of mode "full", one pod per
+// step, with or without the IPA carries (ur = 0 or ur > 0), over a
+// thread-block cluster of cb = 2..16 blocks on as many SMs:
 // block rank r owns the contiguous slice [lo_r, hi_r), S = ceil(Np / cb),
 // lo_r = min(r * S, Np), hi_r = min(lo_r + S, Np), and thread tid of it the
 // lanes lo_r + tid + k * 1024. What changes is only where the lane loops
@@ -77,6 +78,26 @@
 // slice holding it, and eval and commit visit a lane from the same thread),
 // and the arithmetic below.
 //
+// With ur > 0 two more carries ride along. `ucnt` [UR, Np] is lane-local
+// like the four above: the commit's sweep and eval's reads (D1-D5) visit
+// only the thread's own lanes. `kcnt` [UR, LANE] is not: every thread of
+// every block reads kcnt[r, 0] for the per-pod IPA scalars, so one block
+// alone, rank 0, adds to it (`kcnt_writer`; a commit in every block would
+// add cb times), and the others read what it wrote in global memory. The
+// order that makes this exact:
+//   - rank 0 adds to kcnt for pod b after pod b's combine4;
+//   - every block reads kcnt for pod b + 1 only after pod b + 1's
+//     combine1, a cluster barrier (barrier.cluster.arrive.release /
+//     wait.acquire), which rank 0's writing threads reach after their
+//     adds: the adds are visible to every reader;
+//   - every block has read kcnt for pod b + 1 before it arrives at pod
+//     b + 1's combine2 barrier, and rank 0's next adds come after pod
+//     b + 1's combine4, two barriers later: no read races a write;
+//   - so no read of kcnt may move above combine1 (it sits right below
+//     it), and kcnt stays a plain int* read by ordinary global loads: the
+//     read-only path (__ldg, ld.global.nc) is not coherent with writes
+//     made during the same launch.
+
 // Arithmetic that must match the plain version exactly: f32 products and
 // sums go through __fmul_rn / __fadd_rn (no fused multiply-add; the file
 // is also built with -fmad=false), f32 division is __fdiv_rn (IEEE), the
@@ -192,6 +213,8 @@ struct Block {
     return node % THREADS == tid;
   }
   __device__ bool leader() const { return threadIdx.x == 0; }
+  // the threads that add the commit's kcnt lanes (lane l by thread l)
+  __device__ bool kcnt_writer(int tid) const { return tid < LANE; }
 };
 
 // A block's reduced values: `mine` is read by the peers through
@@ -235,6 +258,10 @@ struct Cluster {
     return node >= lo && node < hi && (node - lo) % THREADS == tid;
   }
   __device__ bool leader() const { return threadIdx.x == 0 && rank == 0; }
+  // rank 0's alone (the order is in the note at the head of the file)
+  __device__ bool kcnt_writer(int tid) const {
+    return rank == 0 && tid < LANE;
+  }
   // for warp 0's lane r < cb: rank r's published values, else null
   __device__ const ClusterVals* peer() const {
     const int r = threadIdx.x;
@@ -443,8 +470,9 @@ __device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
       if (c < C && minc[c] == POS_BIG) minc[c] = 0;
   }
 
-  // ---- per-pod IPA scalars from the kcnt carry (written by thread 0
-  // in the previous pod's commit; visible after the barrier above) ----
+  // ---- per-pod IPA scalars from the kcnt carry (added by the
+  // `kcnt_writer` threads in the previous pod's commit; visible after the
+  // barrier above, the cluster's combine1 on a cluster) ----
   bool pres_dyn = false, counts_empty = false, has_aff = false,
        smatch = false;
   int w45_scale = 0;
@@ -769,9 +797,6 @@ template <bool IPA, typename Team>
 __device__ __forceinline__ void commit_pod(const Args& a, const Ctx& x,
                                            const Team& team, int b, int t,
                                            int best) {
-  // the IPA commit's kcnt lanes are written by block-local threads and read
-  // by every thread in the next pod: a cluster would need their ordering
-  static_assert(!(IPA && Team::CLUSTER), "ur > 0 runs on one block");
   const int tid = threadIdx.x;
   const int Np = a.Np, R = a.R;
   const int* tsc = x.sc + t * x.row_len;
@@ -780,15 +805,15 @@ __device__ __forceinline__ void commit_pod(const Args& a, const Ctx& x,
   update_columns(a, x, team, best, R, tsc, dnzpc, mrow, mrow + LANE);
   if (IPA) {
     // the assumed pod joins its node's topology group for every IPA
-    // key the node carries, in template t's 8-row block of ucnt; kcnt
-    // lane l belongs to thread l
+    // key the node carries, in template t's 8-row block of ucnt (each
+    // thread at its own lanes) and of kcnt (by the team's kcnt writers)
     for (int ki = 0; ki < SUB; ++ki) {
       const int pv = a.prow_ipa[ki * Np + best];
       if (pv < 0) continue;
       int* urow = a.ucnt + (size_t)(t * SUB + ki) * Np;
-      for (int n = tid; n < Np; n += THREADS)
+      for (int n = team.first(tid); n < team.end(Np); n += THREADS)
         if (a.prow_ipa[ki * Np + n] == pv) urow[n] += 1;
-      if (tid < LANE) a.kcnt[(t * SUB + ki) * LANE + tid] += 1;
+      if (team.kcnt_writer(tid)) a.kcnt[(t * SUB + ki) * LANE + tid] += 1;
     }
   }
 }
@@ -816,13 +841,13 @@ __device__ __forceinline__ bool count_conflict(const Args& a, const Ctx& x,
 }
 
 // __grid_constant__: the device functions take `a` by reference without
-// a copy of it to local memory. Team = Cluster only for mode "full", ur = 0,
-// one pod per step (scan_full_cluster_launch).
+// a copy of it to local memory. Team = Cluster only for mode "full", one pod
+// per step (scan_full_cluster_launch).
 template <bool IPA, int MODE, typename Team = Block>
 __global__ void __launch_bounds__(THREADS, 1)
 scan_kernel(const __grid_constant__ Args a) {
-  static_assert(!Team::CLUSTER || (!IPA && MODE == MODE_FULL),
-                "the cluster team runs mode full, ur = 0, mk = 1");
+  static_assert(!Team::CLUSTER || MODE == MODE_FULL,
+                "the cluster team runs mode full, mk = 1");
   // the scalar table, then (IPA) the gate matrices as int32
   extern __shared__ int sc[];
   __shared__ Shared s;
@@ -1023,10 +1048,11 @@ extern "C" int scan_full_launch(void* const* p, const int* d, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// The cluster instantiation (mode "full", ur = 0, mk = 1) over `cluster`
-// blocks, one cluster: p and d as for scan_full_launch. Returns 0 or a CUDA
-// error; -1 for a shape, mode or cluster size it does not take, -2 when the
-// card cannot place one cluster of that size (cudaOccupancyMaxActiveClusters).
+// The cluster instantiation for (UR > 0) in mode "full", mk = 1, over
+// `cluster` blocks, one cluster: p and d as for scan_full_launch. Returns 0
+// or a CUDA error; -1 for a shape, mode or cluster size it does not take, -2
+// when the card cannot place one cluster of that size
+// (cudaOccupancyMaxActiveClusters).
 extern "C" int scan_full_cluster_launch(void* const* p, const int* d,
                                         int cluster, void* stream) {
   const int T = d[D_T], C = d[D_C], TCp = d[D_TCP];
@@ -1034,10 +1060,14 @@ extern "C" int scan_full_cluster_launch(void* const* p, const int* d,
   if (cluster != 2 && cluster != 4 && cluster != 8 && cluster != MAXCB)
     return -1;
   if (C > MAXC || K > MAXK || TCp > LANE || TCp != T * CP) return -1;
-  if (UR != 0 || d[D_MODE] != MODE_FULL || d[D_MK] != 1) return -1;
+  if (UR != 0 && UR != T * SUB) return -1;
+  if (d[D_MODE] != MODE_FULL || d[D_MK] != 1) return -1;
   const Args a = unpack_args(p, d);
+  // dynamic shared memory as for scan_full_launch, on top of the static
+  // Shared and ClusterSlots
   const size_t smem = (size_t)d[D_SMEM];
-  void (*kernel)(const Args) = scan_kernel<false, MODE_FULL, Cluster>;
+  const KernelFn kernel = UR ? scan_kernel<true, MODE_FULL, Cluster>
+                             : scan_kernel<false, MODE_FULL, Cluster>;
   cudaError_t e;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(

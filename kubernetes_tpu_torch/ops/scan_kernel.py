@@ -51,14 +51,18 @@ same-pair masks need nothing but `prow[row, best]`, read after the block
 agrees on `best`. At 5000 nodes the per-step working set is a few MB and
 stays in the 50 MB L2.
 
-Mode "full" with ur = 0 and one pod per step, the main path, runs by
-default on a thread-block cluster instead (`CLUSTER` blocks, on as many
-SMs): block rank r owns the contiguous lane slice `cluster_slices(Np,
-cb)[r]`, each of the four per-pod reductions is the block's own followed by
-one cluster barrier and a fold over the blocks' values in distributed
-shared memory, and the carries stay in global memory, each lane touched
-only by its owner. The reductions are integer min / max / sum, OR and the
-packed argmax key, so any cluster size decides bit for bit as one block.
+Mode "full" with one pod per step, the main path, runs by default on a
+thread-block cluster instead (`CLUSTER` blocks, on as many SMs), with
+(ur > 0) or without (ur = 0) the IPA carries: block rank r owns the
+contiguous lane slice `cluster_slices(Np, cb)[r]`, each of the four
+per-pod reductions is the block's own followed by one cluster barrier and
+a fold over the blocks' values in distributed shared memory, and the
+carries stay in global memory, each lane touched only by its owner. The
+one carry that is not lane-local, `kcnt` (read by every block for the
+per-pod IPA scalars), is added to by rank 0 alone and read after the next
+pod's first cluster barrier (the order is stated in csrc/scan_full.cu).
+The reductions are integer min / max / sum, OR and the packed argmax key,
+so any cluster size decides bit for bit as one block.
 `scan_full(..., cluster=1)` forces the one-block kernel.
 
 `scan_full_reference` is the plain PyTorch version: a loop over pods of
@@ -121,12 +125,13 @@ VARIANT_LAUNCHES = {f"{v}{suffix}": 0 for v in VARIANTS.values()
 VARIANT_LAUNCHES["scan_delta"] = 0
 
 # the thread-block cluster sizes the cluster kernel takes (16 is above the
-# portable 8), and the default for mode "full", ur = 0, mk = 1: the fastest
-# point of chip_smoke.py's sweep on the H100 (PERF.md)
+# portable 8), and the default for mode "full", mk = 1: the fastest point of
+# chip_smoke.py's ur = 0 sweep on the H100 (PERF.md)
 CLUSTER_SIZES = (2, 4, 8, 16)
 CLUSTER = 16
 # launches of the cluster kernel per cluster size; each also counts under
-# VARIANT_LAUNCHES["scan_full"], the port of the same TPU kernel mode
+# VARIANT_LAUNCHES["scan_full"] (or "scan_full_ipa"), the port of the same
+# TPU kernel mode
 CLUSTER_LAUNCHES = dict.fromkeys(CLUSTER_SIZES, 0)
 # threads per block, in both designs (csrc/scan_full.cu THREADS)
 THREADS = 1024
@@ -303,9 +308,9 @@ def _kernel_mode(mode: str, mk) -> int:
 
 def _cluster_size(cluster, UR: int, kmode: int) -> int:
     """The blocks to launch: `cluster` None is CLUSTER for mode "full",
-    ur = 0, mk = 1 and 1 (the one-block kernel) otherwise; 1 forces the
+    mk = 1 (any UR) and 1 (the one-block kernel) otherwise; 1 forces the
     one-block kernel; a size of CLUSTER_SIZES only that variant takes."""
-    takes = UR == 0 and kmode == MODE_FULL
+    takes = kmode == MODE_FULL
     if cluster is None:
         return CLUSTER if takes else 1
     if isinstance(cluster, bool) \
@@ -314,8 +319,8 @@ def _cluster_size(cluster, UR: int, kmode: int) -> int:
         raise ValueError(f"scan_full: cluster={cluster!r} is not 1 or one "
                          f"of {CLUSTER_SIZES}")
     if cluster > 1 and not takes:
-        raise ValueError(f"scan_full: cluster={cluster} needs mode 'full', "
-                         "mk=1 and no affinity-term carries (ur = 0)")
+        raise ValueError(f"scan_full: cluster={cluster} needs mode 'full' "
+                         "and mk=1")
     return int(cluster)
 
 
@@ -400,7 +405,7 @@ def scan_full(meta: torch.Tensor, match: torch.Tensor,
 
     `cluster` picks the design on the card (`_cluster_size`): None the
     default, 1 the one-block kernel, 2 / 4 / 8 / 16 the cluster kernel of
-    that size (mode "full", mk = 1, ur = 0 only); each decides the same.
+    that size (mode "full", mk = 1 only); each decides the same.
     CPU tensors go to the plain version whatever it says."""
     global LAUNCHES
     UR, kmode = _validate(meta, match, statics, carry, shapes, mode, mk,

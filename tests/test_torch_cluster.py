@@ -1,10 +1,11 @@
 """The cluster design of the port's scan kernel, on the CPU: the lane
 partition `cluster_slices` (the Python mirror of the kernel's), the
 `cluster` option of `scan_full` (CPU tensors go to the plain version
-whatever it says, and count no launch; sizes and variants the cluster
-kernel does not take raise), and `ScanSession` leaving the choice to the
-wrapper's default. The kernel itself runs only on the card, under
-chip_smoke.py (phase 4b holds every cluster size to the plain version)."""
+whatever it says, with and without the affinity-term carries, and count no
+launch; sizes and variants the cluster kernel does not take raise), and
+`ScanSession` leaving the choice to the wrapper's default. The kernel
+itself runs only on the card, under chip_smoke.py (phases 4b, 5 and 6b
+hold every cluster size to the plain version)."""
 
 import numpy as np
 import pytest
@@ -108,6 +109,11 @@ def spread_case():
     return _case()
 
 
+@pytest.fixture(scope="module")
+def terms_case():
+    return _case(terms=True)
+
+
 @pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
 def test_cpu_tensors_take_the_plain_version(spread_case, cluster):
     sess, arrays = spread_case
@@ -139,9 +145,11 @@ def test_cluster_size_not_taken(spread_case, cluster):
                      cluster=cluster)
 
 
+@pytest.mark.parametrize("terms", [False, True], ids=["ur0", "ipa"])
 @pytest.mark.parametrize("variant", ["eval", "mk4"])
-def test_cluster_needs_full_mode_one_pod_per_step(spread_case, variant):
-    sess, arrays = spread_case
+def test_cluster_needs_full_mode_one_pod_per_step(spread_case, terms_case,
+                                                  variant, terms):
+    sess, arrays = terms_case if terms else spread_case
     mode = "eval" if variant == "eval" else "full"
     mk = 4 if variant == "mk4" else 1
     meta, match = _inputs(sess, arrays, mode)
@@ -155,21 +163,40 @@ def test_cluster_needs_full_mode_one_pod_per_step(spread_case, variant):
                      cluster=4, **kw)
 
 
-def test_cluster_needs_ur_zero():
-    sess, arrays = _case(terms=True)
+@pytest.mark.parametrize("cluster", sk.CLUSTER_SIZES)
+def test_cluster_needs_ur_zero(terms_case, cluster):
+    """No longer so: with the affinity-term carries (ur > 0) every cluster
+    size is taken, and CPU tensors go to the plain version: rows and all
+    six carries equal cluster=1's, and no launch is counted."""
+    sess, arrays = terms_case
     meta, match = _inputs(sess, arrays)
-    with pytest.raises(ValueError, match="cluster=4"):
-        sk.scan_full(meta, match, sess._get_statics(),
-                     sess._initial_carry(), sess.shapes, _weights(sess),
-                     cluster=4)
+    carry0 = sess._initial_carry()
+    statics, w = sess._get_statics(), _weights(sess)
+    ref_carry = _clone(carry0)
+    ref = sk.scan_full(meta, match, statics, ref_carry, sess.shapes, w,
+                       cluster=1)
+    launches = (sk.LAUNCHES, dict(sk.VARIANT_LAUNCHES),
+                dict(sk.CLUSTER_LAUNCHES))
+    carry = _clone(carry0)
+    out = sk.scan_full(meta, match, statics, carry, sess.shapes, w,
+                       cluster=cluster)
+    assert torch.equal(out, ref)
+    assert set(carry) == set(ref_carry) == set(sess.carry_keys)
+    assert {"ucnt", "kcnt"} <= set(carry)
+    assert all(torch.equal(carry[k], ref_carry[k]) for k in carry)
+    # the batch committed assumed-pod term counts
+    assert int(carry["kcnt"].sum()) > 0
+    assert launches == (sk.LAUNCHES, dict(sk.VARIANT_LAUNCHES),
+                        dict(sk.CLUSTER_LAUNCHES))
 
 
 def test_default_cluster_size():
     assert sk.CLUSTER in sk.CLUSTER_SIZES
-    assert sk._cluster_size(None, 0, sk.MODE_FULL) == sk.CLUSTER
-    for ur, kmode in ((16, sk.MODE_FULL), (0, sk.MODE_MULTI),
-                      (0, sk.MODE_EVAL), (0, sk.MODE_APPLY)):
-        assert sk._cluster_size(None, ur, kmode) == 1
+    for ur in (0, 16):
+        assert sk._cluster_size(None, ur, sk.MODE_FULL) == sk.CLUSTER
+    for ur in (0, 16):
+        for kmode in (sk.MODE_MULTI, sk.MODE_EVAL, sk.MODE_APPLY):
+            assert sk._cluster_size(None, ur, kmode) == 1
 
 
 def test_session_passes_no_cluster(monkeypatch):
