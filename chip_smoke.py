@@ -90,8 +90,13 @@ Phases (each raises on failure; the script then exits non-zero):
    the churn that takes the flush through the host seed path. The same on
    the phase-6 preferred-affinity session (ur > 0) with 256 foreign pods
    that match no term (`ucnt` / `kcnt` untouched), where an `app=aff`
-   pod classifies as structural. 1-event and 4096-event flushes are timed
-   beside the fresh session's build;
+   pod classifies as structural. In each cell the grid kernel is also
+   held to the plain version (max abs err 0, every carry) on the flush
+   in a seeded random order, on every event of it moved to one node, on
+   64 random int32 payloads whose adds wrap, and on its first event
+   alone. 1-event and full flushes are timed (the kernel by CUDA events;
+   the `apply_deltas` call split into host prep and kernel) beside the
+   fresh session's build;
 10. the probes (kubernetes_tpu_torch/probes/, the counterparts of
    scripts/probe_pallas.py, probe_pallas2.py and probe_fixed_cost.py):
    each kernel == its plain version, probe_scan's first decisions 0..7,
@@ -1394,6 +1399,108 @@ def time_delta(sess, node, rows, carry, runs=3):
     return statistics.median(times), times
 
 
+class timed_prep:
+    """Within the block, the session's delta prep steps (`_delta_rows`,
+    `_pack_deltas`, `_upload`, wrapped on the instance) add their host ms
+    to the dict the block gets: rows_ms, pack_ms, upload_ms and their sum
+    prep_ms."""
+
+    def __init__(self, sess):
+        self.sess = sess
+        self.spent = {"rows_ms": 0.0, "pack_ms": 0.0, "upload_ms": 0.0}
+
+    def __enter__(self):
+        for name, key in (("_delta_rows", "rows_ms"),
+                          ("_pack_deltas", "pack_ms"),
+                          ("_upload", "upload_ms")):
+            setattr(self.sess, name, self._timed(key, getattr(self.sess,
+                                                              name)))
+        return self.spent
+
+    def _timed(self, key, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                self.spent[key] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    def __exit__(self, *exc):
+        for name in ("_delta_rows", "_pack_deltas", "_upload"):
+            delattr(self.sess, name)
+        self.spent["prep_ms"] = sum(self.spent.values())
+        return False
+
+
+def graph_ms(fn, runs=20):
+    """Device ms of one fn() launch: `runs` calls captured in one CUDA
+    graph (after a warm-up call on the capture's side stream), the graph
+    replayed once between two CUDA events, over `runs`."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(runs):
+            fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / runs
+
+
+def delta_cases(sk, sess, carry, node, payload, in_order, label):
+    """Phase 9's order-free cases on one cell, each a flush by the bare
+    kernel and by carry_delta_reference on copies of `carry` (not
+    counted), equal on every carry: the cell's flush in a seeded random
+    order (also == `in_order`, the plain version's in-order result),
+    every event of the flush on one node, 64 events of random int32
+    payloads on 4 of the flush's nodes (their adds wrap int32 on some
+    lane), and the flush's first event alone. -> {case: max abs err}."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(8)
+    perm = rng.permutation(len(node))
+    wrap_node = rng.choice(np.unique(node), 4)[rng.integers(0, 4, 64)]
+    wrap_rows = rng.integers(-2 ** 31, 2 ** 31, (64, payload.shape[1]),
+                             dtype=np.int64).astype(np.int32)
+    Rp = carry["requested"].shape[0]
+    want = carry["requested"].cpu().numpy().astype(np.int64)
+    np.add.at(want.T, wrap_node, wrap_rows[:, :Rp].astype(np.int64))
+    if not ((want < -2 ** 31) | (want >= 2 ** 31)).any():
+        raise AssertionError(f"9 {label}: the wrap case does not wrap")
+    cases = {"permuted": (node[perm], payload[perm]),
+             "one node": (np.full_like(node, node[0]), payload),
+             "int32 wrap": (wrap_node.astype(np.int32), wrap_rows),
+             "1 event": (node[:1], payload[:1])}
+    statics = sess._get_statics()
+    errs = {}
+    for name, (n, rows) in cases.items():
+        n_t = torch.from_numpy(np.ascontiguousarray(n)).cuda()
+        rows_t = torch.from_numpy(np.ascontiguousarray(rows)).cuda()
+        by_kernel, by_plain = clone(carry), clone(carry)
+        sk.carry_delta(n_t, rows_t, statics, by_kernel, sess.shapes)
+        sk.carry_delta_reference(n_t, rows_t, statics, by_plain, sess.shapes)
+        errs[name] = carry_err(by_kernel, by_plain)
+        if not carries_equal(by_kernel, by_plain) or (
+                name == "permuted" and not carries_equal(by_kernel,
+                                                         in_order)):
+            raise AssertionError(f"9 {label}: scan_delta != plain version "
+                                 f"on the {name} case (max abs err "
+                                 f"{errs[name]})")
+    return errs
+
+
 def phase_churn(sk, gpu, d, events, next_pods, label):
     """Phase 9 on one cell: the live session `d["sess"]` (its carry as
     the cell's batches left it) absorbs `events` in one flush. Returns
@@ -1435,15 +1542,18 @@ def phase_churn(sk, gpu, d, events, next_pods, label):
     if not carries_equal(by_kernel, by_plain):
         raise AssertionError(f"9 {label}: scan_delta != plain version (max "
                              f"abs err {err})")
+    case_errs = delta_cases(sk, sess, carry_before, node, payload, by_plain,
+                            label)
     # (a) the session's own flush: one counted launch
     ipa_before = {k: sess._carry[k].clone() for k in ("ucnt", "kcnt")
                   if k in sess._carry}
     reset_counts(sk)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sess.apply_deltas(deltas)
-    torch.cuda.synchronize()
-    call_ms = (time.perf_counter() - t0) * 1e3
+    with timed_prep(sess) as prep:
+        t0 = time.perf_counter()
+        sess.apply_deltas(deltas)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(sk.VARIANT_LAUNCHES)
     if launches != only(sk, scan_delta=1):
         raise AssertionError(f"9 {label}: apply_deltas launched {launches}")
@@ -1465,9 +1575,19 @@ def phase_churn(sk, gpu, d, events, next_pods, label):
         raise AssertionError(f"9 {label}: a 1-event flush launched "
                              f"{sk.VARIANT_LAUNCHES}")
     kernel_ms, runs = time_delta(sess, node_t, rows_t, carry_before)
-    one_node, one_rows = ScanSession._pack_deltas([sess._delta_rows(zero)])
-    one_ms, _ = time_delta(sess, torch.from_numpy(one_node).cuda(),
-                           torch.from_numpy(one_rows).cuda(), carry_before)
+    one = [torch.from_numpy(a).cuda() for a in ScanSession._pack_deltas(
+        [sess._delta_rows(zero)])]
+    one_ms, _ = time_delta(sess, *one, carry_before)
+    # every event on one node: one owner lane per row takes them all
+    same_node = [torch.full_like(node_t, int(node[0])), rows_t]
+    same_ms, _ = time_delta(sess, *same_node, carry_before)
+    # the kernel alone: launches back to back in a CUDA graph
+    scratch = clone(carry_before)
+    device = {name: graph_ms(lambda n=n, r=r: sk.carry_delta(
+        n, r, statics, scratch, sess.shapes))
+        for name, (n, r) in (("device_ms", (node_t, rows_t)),
+                             ("one_device_ms", one),
+                             ("same_node_device_ms", same_node))}
     # (c) a fresh session from the mutated encoding: what a rebuild costs,
     # and the carries it starts from
     torch.cuda.synchronize()
@@ -1516,17 +1636,27 @@ def phase_churn(sk, gpu, d, events, next_pods, label):
         f"fresh session and the seed-path session do. scan_delta "
         f"{kernel_ms:.3f} ms per {len(deltas)}-event flush (runs "
         f"{[round(x, 3) for x in runs]}), {one_ms:.3f} ms per 1-event "
-        f"flush; apply_deltas call {call_ms:.3f} ms ({len(deltas)} events) "
-        f"and {one_call_ms:.3f} ms (1 event); plain version {plain_ms:.1f} "
-        f"ms; "
+        f"flush, {same_ms:.3f} ms with every event on one node; the kernel "
+        f"alone (CUDA graph, back to back) {device['device_ms']:.4f} / "
+        f"{device['one_device_ms']:.4f} / "
+        f"{device['same_node_device_ms']:.4f} ms; apply_deltas call "
+        f"{call_ms:.3f} ms ({len(deltas)} events: host prep "
+        f"{prep['prep_ms']:.3f} ms = rows {prep['rows_ms']:.3f} + pack "
+        f"{prep['pack_ms']:.3f} + uploads {prep['upload_ms']:.3f}, kernel "
+        f"{device['device_ms']:.4f}, the rest "
+        f"{call_ms - prep['prep_ms'] - device['device_ms']:.3f}) "
+        f"and {one_call_ms:.3f} ms (1 event); order-free cases == plain "
+        f"(max abs err {case_errs}); plain version {plain_ms:.1f} ms; "
         f"bound {nbound[0]:.4f} ms by {nbound[1]} ({nbound[2]} bytes, "
         f"{nbound[3]} ops); a rebuild: fresh session build {build_s:.3f} s "
         f"[{gpu}]")
-    return {"cell": label, "launches": 2, "err": err, "ms": kernel_ms,
+    return {"cell": label, "launches": 2,
+            "err": max(err, *case_errs.values()), "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": nbound[0],
-            "bound_by": nbound[1], "one_ms": one_ms, "call_ms": call_ms,
-            "one_call_ms": one_call_ms, "build_s": build_s,
-            "events": len(deltas), "refused": refused}
+            "bound_by": nbound[1], "one_ms": one_ms, "same_node_ms": same_ms,
+            **device, "call_ms": call_ms, **prep, "one_call_ms": one_call_ms,
+            "build_s": build_s, "events": len(deltas), "refused": refused,
+            "case_errs": case_errs}
 
 
 def phase_churn_zone(sk, gpu, zone):
@@ -1960,10 +2090,14 @@ def main() -> int:
             churn[0], launches=sum(c["launches"] for c in churn),
             err=max(c["err"] for c in churn)), cell=churn[0]["cell"],
             one_event_ms=churn[0]["one_ms"], call_ms=churn[0]["call_ms"],
+            prep_ms=churn[0]["prep_ms"], device_ms=churn[0]["device_ms"],
             rebuild_s=churn[0]["build_s"],
-            cells=[{k: c[k] for k in ("cell", "events", "ms", "one_ms",
-                                      "call_ms", "plain_ms", "bound_ms",
-                                      "bound_by", "build_s")}
+            cells=[{k: c[k] for k in ("cell", "events", "ms", "device_ms",
+                                      "one_ms", "one_device_ms",
+                                      "same_node_ms", "same_node_device_ms",
+                                      "call_ms", "prep_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "build_s",
+                                      "case_errs")}
                    for c in churn]),
         *probe_entries,
     ]

@@ -14,19 +14,17 @@
 //              stays uncommitted (out row 3) for the host to replay;
 //   MODE_EVAL  mode "eval" (:1751-1766): out rows 0-2, carries untouched;
 //   MODE_APPLY mode "apply" (:1736-1746): commit forced (lane, ok) pairs;
-//   MODE_DELTA the counterpart of the reference's jnp program
-//              _carry_delta_scan (:168-195): signed cluster-event deltas
-//              (pods bound or evicted by other actors, allocatable-only
-//              node updates) on the carry, each the commit's column update
-//              with best := the event's node and the event's own payload.
-//              One instantiation, IPA = false, serves every session: the
-//              reference never touches ucnt / kcnt there.
-// The pod body is split as the reference splits it: eval_pod (filter,
-// score, argmax against the current carry) and commit_pod (the carry
-// updates for one placement, through update_columns, which the delta mode
-// shares). The plain PyTorch versions of the same functions are
-// scan_full_reference and carry_delta_reference in ops/scan_kernel.py;
-// each agrees with the kernel bit for bit.
+// and the counterpart of the reference's jnp program _carry_delta_scan
+// (:168-195), signed cluster-event deltas (pods bound or evicted by other
+// actors, allocatable-only node updates) on the carry, is a kernel of its
+// own, carry_delta_kernel (the launcher's MODE_DELTA; see the note above
+// it). The reference never touches ucnt / kcnt there, so it serves every
+// session. The pod body is split as the reference splits it: eval_pod
+// (filter, score, argmax against the current carry) and commit_pod (the
+// carry updates for one placement, through update_columns). The plain
+// PyTorch versions of the same functions are scan_full_reference and
+// carry_delta_reference in ops/scan_kernel.py; each agrees with its kernel
+// bit for bit.
 //
 // What bounds it on the card: the chain of dependent steps, not bytes or
 // arithmetic. Every pod needs whole-node-axis reductions (PTS filter
@@ -40,8 +38,7 @@
 // is column-local: a thread only ever writes its own lanes, so the
 // same-pair masks need nothing but prow[row, best], read after the block
 // agrees on best. The per-step working set (a few MB at 5000 nodes) stays
-// in L2. The same ownership lets the delta mode run its events back to
-// back without a barrier (their updates are additions to owned lanes). The multi-pod step keeps that ownership: each group pod's per-lane
+// in L2. The multi-pod step keeps that ownership: each group pod's per-lane
 // total and balanced/least share live in a scratch row that only the
 // lane's owner writes and reads, and the utilization recheck is one
 // block-wide OR (__syncthreads_or) per pod.
@@ -740,24 +737,23 @@ __device__ __forceinline__ Eval eval_pod(const Args& a, const Ctx& x,
 }
 
 // The column update of one placement at node lane `node` (the reference's
-// _apply_updates, :1361, and the step of its jnp twin _carry_delta_scan,
-// :179-192): dres[0, nres) into requested[:, node], dnzpc into
+// _apply_updates, :1361): dres[0, nres) into requested[:, node], dnzpc into
 // nzpc[:, node], and per match row mf[row] into every cnt_fn lane of the
 // node's pair (prow_f == prow_f[row, node]; none where that is -1), and
 // ms[row] times the factor (1 for a per-node row, else the node's s_src,
-// stat row tt*SR+7) into every cnt_sn lane of its pair likewise. M is the
-// payload type: the batch's int8 match lanes for a commit, the event's
-// signed int32 row for a delta. dnzpc is read before any store (a commit's
-// folds to constants), so the owner thread's column adds do not wait on
-// payload loads behind its own stores. Every thread writes only its own
-// lanes.
-template <typename Team, typename M>
+// stat row tt*SR+7) into every cnt_sn lane of its pair likewise; mf and ms
+// are the batch's int8 match lanes. dnzpc is read before any store (a
+// commit's folds to constants), so the owner thread's column adds do not
+// wait on payload loads behind its own stores. Every thread writes only its
+// own lanes.
+template <typename Team>
 __device__ __forceinline__ void update_columns(const Args& a, const Ctx& x,
                                                const Team& team,
                                                int node, int nres,
                                                const int* dres,
                                                const int (&dnzpc)[SUB],
-                                               const M* mf, const M* ms) {
+                                               const int8_t* mf,
+                                               const int8_t* ms) {
   const int tid = threadIdx.x;
   const int T = a.T, C = a.C, Np = a.Np, SR = a.SR, CP = a.CP;
   const int TC = T * C;
@@ -892,24 +888,6 @@ scan_kernel(const __grid_constant__ Args a) {
   const Team team = Team::make(Np);
   __syncthreads();
 
-  if (MODE == MODE_DELTA) {
-    // the events in order, each the commit's column update at its node
-    // with its own payload row; no barrier between events (each thread
-    // reads static pair ids and writes only its own lanes)
-    const int W = a.Rp + SUB + 2 * a.TCp;
-    for (int e = 0; e < a.E; ++e) {
-      const int node = a.dnode[e];
-      if (node < 0 || node >= Np) continue;  // refused by the wrapper
-      const int* row = a.drows + (size_t)e * W;
-      int dnzpc[SUB];
-#pragma unroll
-      for (int i = 0; i < SUB; ++i) dnzpc[i] = row[a.Rp + i];
-      update_columns(a, x, team, node, a.Rp, row, dnzpc, row + a.Rp + SUB,
-                     row + a.Rp + SUB + a.TCp);
-    }
-    return;
-  }
-
   const int B = min(a.meta[0], Bp);
 
   if (MODE == MODE_APPLY) {
@@ -1005,6 +983,153 @@ scan_kernel(const __grid_constant__ Args a) {
   if constexpr (Team::CLUSTER) team.finish();
 }
 
+// carry_delta_kernel: E signed cluster-event deltas on the carry (the
+// reference's _carry_delta_scan, pallas_scan.py:168-195, a lax.scan over the
+// events). Event e adds its payload row (dres | dnzpc | mf | ms, int32) at
+// its node: dres[r] to requested[r, node], dnzpc[i] to nzpc[i, node], mf[row]
+// to every cnt_fn[row] lane whose prow_f pair id equals the node's (none
+// where that is -1), and ms[row] times the factor (1 for a per-node score
+// row, else the node's s_src, stat row tt*SR+7; rows cc >= C get nothing)
+// to the cnt_sn lanes of its pair likewise.
+//
+// Every update is an int32 addition, which commutes (wraparound included),
+// so the flush is, for each carry lane, a sum over the events, and the
+// events need no order. Design, owner computes: carry row y (the payload's
+// column y: requested rows, then nzpc, cnt_fn, cnt_sn) and the lane tile
+// [lo, lo + DTILE) are block (x, y), thread tid owns lanes lo + tid + l * DT
+// (l < DL), and each lane has a key: its own index for requested / nzpc, its
+// pair id prow[row, lane] for cnt_fn / cnt_sn. The block walks the events
+// in chunks of DCHUNK: each thread reads the chunk's events one DT apart,
+// computes the event's key (its node, or prow[row, node]) and value (the
+// payload column, times the factor for cnt_sn), and stages the pairs that
+// can move a lane (value != 0, key >= 0, and for node keys inside the tile)
+// in shared memory, a warp at a time at one shared counter; then every
+// thread adds the staged values whose key equals its lanes' keys, in
+// registers. At the end each thread adds its sums to its own lanes with one
+// read-modify-write each: every lane has one writer, no atomics on the
+// carry, no order between blocks, and the staging order (which varies from
+// run to run) cannot change a modular sum.
+//
+// What bounds it: not the bytes the flush must move (a few MB) but the
+// work each block repeats. Every (tile, row) block reads all E events' node,
+// payload column (a strided gather, one L2 sector per event) and pair id,
+// whether or not its row moves at all, and then compares each staged event
+// with each of its lanes (a shared-memory broadcast); the block whose tile
+// and row take the most events sets the end (PERF.md has the times). 256
+// threads of 2 lanes, a tile of 512 lanes: a busy node's events are
+// compared with half as many lanes per block as at 4 lanes a thread, for
+// twice the blocks' repeated event reads. Sums are unsigned, so that
+// wraparound is defined.
+constexpr int DT = 256;                 // threads per delta block
+constexpr int DL = 2;                   // lanes per thread, DT apart
+constexpr int DTILE = DT * DL;          // lanes per delta block
+constexpr int DCHUNK = 2048;            // events staged per round
+
+__global__ void __launch_bounds__(DT)
+carry_delta_kernel(const __grid_constant__ Args a) {
+  __shared__ int2 staged[DCHUNK];
+  __shared__ int n_staged;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int Np = a.Np, Rp = a.Rp, TCp = a.TCp;
+  const int W = Rp + SUB + 2 * TCp;
+  const int col = blockIdx.y;
+  const int lo = blockIdx.x * DTILE, hi = min(lo + DTILE, Np);
+
+  // this block's carry row, its pair ids (null: keyed by node) and, for
+  // cnt_sn, its factor: 1 (per-node row) or the s_src row
+  int* carry;
+  const int* prow = nullptr;
+  const int* src = nullptr;
+  if (col < Rp) {
+    carry = a.requested + (size_t)col * Np;
+  } else if (col < Rp + SUB) {
+    carry = a.nzpc + (size_t)(col - Rp) * Np;
+  } else if (col < Rp + SUB + TCp) {
+    const int row = col - Rp - SUB;
+    carry = a.cnt_fn + (size_t)row * Np;
+    prow = a.prow_f + (size_t)row * Np;
+  } else {
+    const int row = col - Rp - SUB - TCp;
+    const int tt = row / a.CP, cc = row % a.CP;
+    if (cc >= a.C) return;  // block-uniform, before any barrier
+    carry = a.cnt_sn + (size_t)row * Np;
+    prow = a.prow_s + (size_t)row * Np;
+    const int TC = a.T * a.C;
+    const int perno = a.scalars[a.T * (2 * a.R + 4) + W_S_PERNO * TC
+                                + tt * a.C + cc];
+    if (!perno) src = a.stat + (size_t)(tt * a.SR + 7) * Np;
+  }
+
+  // the own lanes' keys (-1 matches no staged key) and sums
+  int key[DL];
+  unsigned acc[DL];
+#pragma unroll
+  for (int l = 0; l < DL; ++l) {
+    const int m = lo + tid + l * DT;
+    key[l] = m < hi ? (prow ? prow[m] : m) : -1;
+    acc[l] = 0u;
+  }
+
+  for (int e0 = 0; e0 < a.E; e0 += DCHUNK) {
+    const int ne = min(DCHUNK, a.E - e0);
+    // the chunk's events of this thread, one DT apart: every load issued
+    // before the first is staged
+    int k[DCHUNK / DT];
+    unsigned v[DCHUNK / DT];
+#pragma unroll
+    for (int i = 0; i < DCHUNK / DT; ++i) {
+      const int e = i * DT + tid;
+      k[i] = -1;
+      v[i] = 0u;
+      if (e < ne) {
+        const int node = a.dnode[e0 + e];
+        if (node >= 0 && node < Np) {  // apply_deltas refuses the rest
+          v[i] = (unsigned)a.drows[(size_t)(e0 + e) * W + col];
+          if (prow) {
+            k[i] = prow[node];
+            if (src) v[i] *= (unsigned)src[node];
+          } else if (node >= lo && node < hi) {
+            k[i] = node;
+          }
+        }
+      }
+    }
+    if (tid == 0) n_staged = 0;
+    __syncthreads();
+    // stage the pairs that can move a lane, a warp at a time (the trip
+    // count is block-uniform, as the ballot needs)
+#pragma unroll
+    for (int i = 0; i < DCHUNK / DT; ++i) {
+      if (i * DT >= ne) break;
+      const bool keep = k[i] >= 0 && v[i] != 0u;
+      const unsigned mask = __ballot_sync(FULL, keep);
+      int base = 0;
+      if (lane == 0 && mask) base = atomicAdd(&n_staged, __popc(mask));
+      base = __shfl_sync(FULL, base, 0);
+      if (keep)
+        staged[base + __popc(mask & ((1u << lane) - 1u))] =
+            make_int2(k[i], (int)v[i]);
+    }
+    __syncthreads();
+    const int n = n_staged;
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) {
+      const int2 kv = staged[j];
+#pragma unroll
+      for (int l = 0; l < DL; ++l)
+        if (kv.x == key[l]) acc[l] += (unsigned)kv.y;
+    }
+    __syncthreads();  // before the next chunk resets the counter
+  }
+
+#pragma unroll
+  for (int l = 0; l < DL; ++l) {
+    const int m = lo + tid + l * DT;
+    if (m < hi && acc[l] != 0u)
+      carry[m] = (int)((unsigned)carry[m] + acc[l]);
+  }
+}
+
 typedef void (*KernelFn)(const Args);
 
 // [IPA][MODE]
@@ -1018,8 +1143,10 @@ const KernelFn KERNELS[2][4] = {
 }  // namespace
 
 // p: the ArgPtr pointers, d: the ArgDim integers then the 8 weights.
-// Launches the instantiation for (UR > 0, mode); MODE_DELTA has one. Returns
-// 0 or a CUDA error (-1 for shapes or modes the kernel does not take).
+// Launches the instantiation for (UR > 0, mode), or with MODE_DELTA
+// carry_delta_kernel on a grid of ceil(Np / DTILE) lane tiles times the
+// payload's Rp + 8 + 2 * TCp carry rows. Returns 0 or a CUDA error (-1 for
+// shapes or modes the kernels do not take).
 extern "C" int scan_full_launch(void* const* p, const int* d, void* stream) {
   const int T = d[D_T], C = d[D_C], R = d[D_R], TCp = d[D_TCP];
   const int K = d[D_K], CP = d[D_CP], UR = d[D_UR];
@@ -1033,12 +1160,18 @@ extern "C" int scan_full_launch(void* const* p, const int* d, void* stream) {
                              || d[D_E] < 0 || d[D_RP] < R || UR != 0))
     return -1;
   const Args a = unpack_args(p, d);
+  if (mode == MODE_DELTA) {
+    const int tiles = (a.Np + DTILE - 1) / DTILE;
+    const dim3 grid((unsigned)(tiles > 0 ? tiles : 1),
+                    (unsigned)(a.Rp + SUB + 2 * TCp));
+    carry_delta_kernel<<<grid, DT, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  }
   // dynamic shared memory: the scalar table (with the IPA extension),
   // then the six gate matrices as int32, sized by the caller
   // (scan_kernel.smem_bytes)
   const size_t smem = (size_t)d[D_SMEM];
-  const KernelFn kernel = mode == MODE_DELTA
-      ? scan_kernel<false, MODE_DELTA> : KERNELS[UR ? 1 : 0][mode];
+  const KernelFn kernel = KERNELS[UR ? 1 : 0][mode];
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

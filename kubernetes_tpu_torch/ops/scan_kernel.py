@@ -32,11 +32,14 @@ machinery, pallas_scan.py:1552-1592, :1680-1693, :1417-1435), each in
   of forced (lane | -1, ok) pairs, without evaluating;
 - the delta mode (`scan_delta`, launched by `carry_delta`): the
   counterpart of the reference's jnp program `_carry_delta_scan`
-  (pallas_scan.py:168-195), signed cluster-event deltas on the carry. It
-  is the commit with `best := node` and the event's own payload: the
-  kernel's commit and this mode share one column-update routine. One
-  instantiation serves sessions with and without affinity-term templates
-  (`ucnt` / `kcnt` are never touched, as in the reference).
+  (pallas_scan.py:168-195), signed cluster-event deltas on the carry,
+  each the commit's column update at the event's node with its own
+  payload. Its additions commute, so it is a kernel of its own
+  (`carry_delta_kernel`), an order-free grid over every SM: block (lane
+  tile, carry row), each thread the sole writer of its lanes, summing the
+  events whose key (the node, or its pair id) equals its lanes'. It
+  serves sessions with and without affinity-term templates (`ucnt` /
+  `kcnt` are never touched, as in the reference).
 
 What bounds it on the card: not bytes and not arithmetic, but the chain
 of dependent steps. Each pod needs whole-node-axis reductions (the PTS
@@ -70,7 +73,9 @@ tensor ops with the same int32 / f32 arithmetic (floor divisions,
 truncating casts, no fused multiply-add, IEEE division, the `log_weights`
 table), split as the reference is into `eval_pod` and `commit`;
 `carry_delta_reference` is the delta mode's, a loop over events that
-mirrors `_carry_delta_scan` line for line. The wrappers `scan_full` and
+mirrors `_carry_delta_scan` line for line, and `carry_delta_grouped` the
+grid kernel's order-free formulation in plain PyTorch (the tests hold the
+two equal). The wrappers `scan_full` and
 `carry_delta` send CPU tensors to them and CUDA tensors to the kernel; on
 CUDA they raise if the build or the launch fails.
 """
@@ -848,12 +853,12 @@ def carry_delta(node: torch.Tensor, rows: torch.Tensor,
                 carry: Dict[str, torch.Tensor],
                 shapes: Tuple[int, ...]) -> None:
     """Apply E signed cluster-event deltas to the carry, in place, in ONE
-    launch: node int32 [E], each in [0, Np); rows int32 [E, Rp + 8 +
-    2*TCp], per event dres[Rp] (GCD-scaled) | dnzpc[8] | mf[TCp] |
-    ms[TCp]. Event e adds dres to requested[:, node], dnzpc to nzpc[:,
-    node], mf[row] to every cnt_fn lane whose prow_f pair id equals the
-    node's (none where the node's is -1), and ms[row] times the row's
-    perno / s_src factor likewise to cnt_sn. `ucnt` / `kcnt`, where the
+    launch of the grid kernel: node int32 [E], each in [0, Np); rows
+    int32 [E, Rp + 8 + 2*TCp], per event dres[Rp] (GCD-scaled) |
+    dnzpc[8] | mf[TCp] | ms[TCp]. Event e adds dres to requested[:,
+    node], dnzpc to nzpc[:, node], mf[row] to every cnt_fn lane whose
+    prow_f pair id equals the node's (none where the node's is -1), and
+    ms[row] times the row's perno / s_src factor likewise to cnt_sn. `ucnt` / `kcnt`, where the
     carry has them, are not touched. The statics read are `scalars`
     (its prefix without the IPA extension), `stat` (row t*SR+7 = s_src),
     `prow_f` and `prow_s`."""
@@ -926,3 +931,48 @@ def carry_delta_reference(node: torch.Tensor, rows: torch.Tensor,
         src_b = src_rows[:, n:n + 1]
         factor = perno_rows + (1 - perno_rows) * src_b         # [TCp, 1]
         carry["cnt_sn"] += ms[:, None] * factor * same_s
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 modulo 2**32, as int32 addition wraps."""
+    return (((x & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def carry_delta_grouped(node: torch.Tensor, rows: torch.Tensor,
+                        statics: Dict[str, torch.Tensor],
+                        carry: Dict[str, torch.Tensor],
+                        shapes: Tuple[int, ...]) -> None:
+    """Plain PyTorch version of the grid kernel's formulation: for every
+    carry row, the sum over ALL events of the event's value where its key
+    equals the lane's key, added once to each lane, modulo 2**32. Keys
+    are the node for `requested` / `nzpc` and the pair ids prow_f /
+    prow_s for `cnt_fn` / `cnt_sn` (an event whose node has pair id -1
+    adds nothing there); `cnt_sn` values carry the perno / s_src factor.
+    The events are taken 64 at a time, with no order among them.
+    Equals `carry_delta_reference`, which applies them one by one; updates
+    `carry` in place. Raises ValueError for a node outside [0, Np)."""
+    T, C, Np, R, SR, TCp, K, CP = shapes
+    Rp = carry["requested"].shape[0]
+    bad = [n for n in node.tolist() if not 0 <= n < Np]
+    if bad:
+        raise ValueError(f"carry_delta: node {bad[0]} outside [0, {Np})")
+    n = node.long()
+    x = rows.long()
+    src_rows, perno_rows = delta_factor_rows(statics, shapes)
+    factor = (perno_rows + (1 - perno_rows) * src_rows[:, n]).long()
+    lane = torch.arange(Np, device=node.device)
+    prow_f, prow_s = statics["prow_f"].long(), statics["prow_s"].long()
+    # per carry: (event keys [rows, E], lane keys [rows, Np], values)
+    groups = {
+        "requested": (n.expand(Rp, -1), lane.expand(Rp, -1), x[:, :Rp].T),
+        "nzpc": (n.expand(8, -1), lane.expand(8, -1), x[:, Rp:Rp + 8].T),
+        "cnt_fn": (prow_f[:, n], prow_f, x[:, Rp + 8:Rp + 8 + TCp].T),
+        "cnt_sn": (prow_s[:, n], prow_s, x[:, Rp + 8 + TCp:].T * factor),
+    }
+    for name, (ekey, lkey, val) in groups.items():
+        val = torch.where(ekey >= 0, val & 0xFFFFFFFF, 0)
+        acc = torch.zeros(lkey.shape, dtype=torch.int64, device=node.device)
+        for e0 in range(0, n.shape[0], 64):
+            hit = ekey[:, e0:e0 + 64, None] == lkey[:, None, :]
+            acc += (val[:, e0:e0 + 64, None] * hit).sum(dim=1)
+        carry[name].copy_(_wrap32(carry[name].long() + acc))

@@ -32,14 +32,22 @@ _SIGNATURES = {
 }
 
 
+_LIB = None
+
+
 def lib() -> ctypes.CDLL:
-    """The probes' library, built from csrc/probes.cu if it is stale."""
-    so = build.load(SOURCE)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(so, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return so
+    """The probes' library, built from csrc/probes.cu if it is stale,
+    loaded and given its entry points' signatures once per process: a
+    probe's launch is then the ctypes call alone."""
+    global _LIB
+    if _LIB is None:
+        so = build.load(SOURCE)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(so, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _LIB = so
+    return _LIB
 
 
 def check(name: str, err: int) -> None:
@@ -47,8 +55,12 @@ def check(name: str, err: int) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def stream(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream on t's device, read
+    through the binding torch's own generated kernels launch with
+    (`torch._C._cuda_getCurrentRawStream`), without building a
+    `torch.cuda.Stream` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def time_launch(fn: Callable[[], object]) -> Tuple[float, float]:

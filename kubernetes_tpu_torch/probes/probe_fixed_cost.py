@@ -77,7 +77,7 @@ def fixed_cost(tensors: Dict[str, torch.Tensor], dims: List[int]) -> None:
     ptrs = [tensors[k].data_ptr() if k in tensors else 0 for k in ARG_PTRS]
     check("fixed_cost", lib().fixed_cost_launch(
         (ctypes.c_void_p * len(ptrs))(*ptrs),
-        (ctypes.c_int * len(dims))(*dims), stream(out.device)))
+        (ctypes.c_int * len(dims))(*dims), stream(out)))
     LAUNCHES += 1
 
 

@@ -56,7 +56,7 @@ def probe_layouts(k: int, req: torch.Tensor,
     out = torch.empty_like(req)
     check(f"probe_layouts k{k}", lib().probe_layouts_launch(
         k, req.data_ptr(), alloc.data_ptr(), out.data_ptr(), req.shape[0],
-        alloc.shape[1], stream(req.device)))
+        alloc.shape[1], stream(req)))
     LAUNCHES += 1
     return out
 

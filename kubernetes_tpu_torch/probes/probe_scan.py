@@ -52,7 +52,7 @@ def probe_scan(req: torch.Tensor, alloc: torch.Tensor) -> torch.Tensor:
                       device=req.device)
     check("probe_scan", lib().probe_scan_launch(
         req.data_ptr(), alloc.data_ptr(), out.data_ptr(), steps, n,
-        stream(req.device)))
+        stream(req)))
     LAUNCHES["probe_scan"] += 1
     return out
 
@@ -83,7 +83,7 @@ def probe_int64(a: torch.Tensor) -> torch.Tensor:
         return probe_int64_reference(a)
     o = torch.empty_like(a)
     check("probe_int64", lib().probe_int64_launch(
-        a.data_ptr(), o.data_ptr(), a.numel(), stream(a.device)))
+        a.data_ptr(), o.data_ptr(), a.numel(), stream(a)))
     LAUNCHES["probe_int64"] += 1
     return o
 

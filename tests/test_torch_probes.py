@@ -10,10 +10,14 @@ statements below take their place. The wrappers send CPU tensors to the
 plain versions and count no launch; the kernels are held to the plain
 versions on the card by chip_smoke.py (phase 10)."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
+from kubernetes_tpu_torch import probes
+from kubernetes_tpu_torch.ops import build
 from kubernetes_tpu_torch.ops.scan_kernel import ARG_PTRS
 from kubernetes_tpu_torch.probes import probe_fixed_cost as pf
 from kubernetes_tpu_torch.probes import probe_layouts as pl
@@ -140,3 +144,42 @@ def test_fixed_cost_plain_version():
         meta[0] = breal
         assert np.array_equal(pf.fixed_cost_reference(meta, pf.Bp).numpy(),
                               np.full((8, pf.Bp), breal - 1, np.int32))
+
+
+def test_probes_lib_configured_once(monkeypatch):
+    """`probes.lib()` loads the library and sets its entry points'
+    signatures once per process; later calls return the same object and
+    neither load nor configure it again (no CUDA needed: the loader is
+    replaced by a counter)."""
+
+    class Entry:
+        def __init__(self):
+            self.sets = 0
+
+        def __setattr__(self, name, value):
+            if name in ("argtypes", "restype"):
+                object.__setattr__(self, "sets", self.sets + 1)
+            object.__setattr__(self, name, value)
+
+    class FakeLib:
+        def __init__(self):
+            for name in probes._SIGNATURES:
+                setattr(self, name, Entry())
+
+    loads = []
+
+    def load(source):
+        loads.append(source)
+        return FakeLib()
+
+    monkeypatch.setattr(build, "load", load)
+    monkeypatch.setattr(probes, "_LIB", None)
+    first = probes.lib()
+    assert loads == [probes.SOURCE]
+    for name, argtypes in probes._SIGNATURES.items():
+        fn = getattr(first, name)
+        assert fn.argtypes == list(argtypes) and fn.restype is ctypes.c_int
+        assert fn.sets == 2
+    assert probes.lib() is first and probes.lib() is first
+    assert len(loads) == 1
+    assert all(getattr(first, n).sets == 2 for n in probes._SIGNATURES)
