@@ -101,9 +101,33 @@ Phases (each raises on failure; the script then exits non-zero):
    scripts/probe_pallas.py, probe_pallas2.py and probe_fixed_cost.py):
    each kernel == its plain version, probe_scan's first decisions 0..7,
    the fixed launch cost (first and steady launches, wall and CUDA-event
-   time).
+   time);
+11. the hoisted session (`HoistedSession`, plain torch: a Python loop of
+   per-pod steps, no kernel of its own):
+   a. from the encoding phase 4's session started from, the first 1024
+      pods of phase 4's first measured batch: `HoistedSession(cuda)`
+      decides as `ScanSession(cuda)`; its build s, ms per pod (host window
+      and CUDA events), pods/s, ScanSession's ms per pod on the same pods,
+      and, under `torch.profiler` over 64 pods, kernels per pod and the
+      card's busy share;
+   b. the same on the preferred-affinity cell's first batch (904 pods,
+      `dyn_ipa`);
+   c. bench.py's zone-spread shape at 5000 nodes with a quarter of the
+      pods carrying hostPort 8080: `ScanSession` refuses it
+      (`host-ports`); `HoistedSession` on cuda and on cpu from the same
+      encoding give identical decisions and carries (`cp_any` / `cp_wild`
+      / `cp_trip` included), and no two placed pods share a node's port;
+   d. explain_k=3 on 256 pods of 11a: `explain_payload` on cuda equals the
+      one on cpu, and each placed pod's first candidate is its decision;
+   e. phase 9's zone-spread flush, as its classified delta dicts, into a
+      `HoistedSession(cuda)` built from the encoding before the churn: the
+      carries, alloc and allowed_pods then equal a fresh session's from
+      the mutated encoding, and the next 1024 pods decide as it does;
+   f. the f64 PTS weight log(n + 2) on the card: torch.log there against
+      the port's table, and the table read on the card equal to the host's.
 
-It prints the kernels' line, then `{"ok": true, "device": {...}}` last.
+It prints the kernels' line, a `{"hoisted_session": ...}` line with phase
+11's numbers, then `{"ok": true, "device": {...}}` last.
 It needs a CUDA card and imports nothing of JAX or of the JAX package.
 """
 
@@ -129,6 +153,10 @@ PROBES = "kubernetes_tpu_torch/probes/csrc/probes.cu"
 REPLACES = "kubernetes_tpu/ops/pallas_scan.py"
 CHURN = {"evict": 1024, "spread": 2048, "other": 992, "alloc": 32}
 AFF_FOREIGN = 256
+HOISTED_PODS = 1024              # pods per phase-11 batch (11a, 11c, 11e)
+EXPLAIN_PODS = 256               # phase 11d
+PROFILED_PODS = 64               # phases 11a / 11b under torch.profiler
+HOST_PORT = 8080
 
 
 def log(msg: str) -> None:
@@ -243,6 +271,10 @@ def forced_pairs(sess, decisions, Bp):
 
 def clone(carry):
     return {k: v.clone() for k, v in carry.items()}
+
+
+def clone_to(carry, device):
+    return {k: v.to(device, copy=True) for k, v in carry.items()}
 
 
 def carries_equal(a, b) -> bool:
@@ -571,6 +603,8 @@ def phase_zone_spread(sk, gpu):
     _, templates = encode_templates(pe, pending)
     log(f"setup: {len(nodes)} nodes, {len(init_pods)} init pods, "
         f"{len(pending)} pending in {time.perf_counter() - t0:.1f} s")
+    # the encoding the session starts from, for phase 11a
+    snapshot0 = enc.host_snapshot()
     t0 = time.perf_counter()
     sess = ScanSession(enc.device_state("cuda"), templates, multipod_k=1,
                        device="cuda")
@@ -657,7 +691,8 @@ def phase_zone_spread(sk, gpu):
             "bound_by": bound_by, "sess": sess, "multi": multi,
             "batch": batch1, "carry_before": carry_before, "after": after1,
             "out": out, "enc": enc, "pe": pe, "templates": templates,
-            "pending": pending, "carry_end": carry_end, "build_s": build_s}
+            "pending": pending, "carry_end": carry_end, "build_s": build_s,
+            "snapshot0": snapshot0}
 
 
 def directed_case():
@@ -772,6 +807,8 @@ def phase_affinity(sk, gpu, kind):
     enc, pe = reserved_encoding(nodes, init_pods, pending)
     _, templates = encode_templates(pe, pending)
     setup_s = time.perf_counter() - t0
+    # the encoding the session starts from, for phase 11b
+    snapshot0 = enc.host_snapshot()
     t0 = time.perf_counter()
     sess = ScanSession(enc.device_state("cuda"), templates, multipod_k=1,
                        device="cuda")
@@ -869,7 +906,8 @@ def phase_affinity(sk, gpu, kind):
             "bound_by": bound_by, "sess": sess, "multi": multi,
             "batch": batch1, "carry_before": carry_before, "after": after1,
             "out": out, "enc": enc, "pe": pe, "templates": templates,
-            "affinity": aff, "labels": labels, "build_s": build_s}
+            "affinity": aff, "labels": labels, "build_s": build_s,
+            "snapshot0": snapshot0, "batch0": batches[0][0]}
 
 
 KCNT_ZONES = 4
@@ -1514,6 +1552,7 @@ def phase_churn(sk, gpu, d, events, next_pods, label):
     # takes the flush through the host seed path, never launched before
     seeded = ScanSession(enc.device_state("cuda"), templates, multipod_k=1,
                          device="cuda")
+    pre_churn = enc.host_snapshot()  # for phase 11e
     t0 = time.perf_counter()
     deltas, refused = classify(sess, enc, events)
     classify_ms = (time.perf_counter() - t0) * 1e3
@@ -1656,7 +1695,8 @@ def phase_churn(sk, gpu, d, events, next_pods, label):
             "bound_by": nbound[1], "one_ms": one_ms, "same_node_ms": same_ms,
             **device, "call_ms": call_ms, **prep, "one_call_ms": one_call_ms,
             "build_s": build_s, "events": len(deltas), "refused": refused,
-            "case_errs": case_errs}
+            "case_errs": case_errs, "deltas": deltas, "pre_churn": pre_churn,
+            "next_batch": batch}
 
 
 def phase_churn_zone(sk, gpu, zone):
@@ -1841,6 +1881,294 @@ def phase_probes(gpu):
         f"events; {n_fixed} launches; bound {nb[0]:.6f} ms by {nb[1]} "
         f"[{gpu}]")
     return entries
+
+
+def hoisted_run(sess, pods):
+    """One HoistedSession.schedule over `pods` on the card: (decisions,
+    ys, host ms, CUDA-event ms). The events bracket the enqueue of the
+    per-pod steps; the host window ends when the decisions are read."""
+    import torch
+    from kubernetes_tpu_torch.ops.hoisted import HoistedSession
+
+    gc.collect()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    ys = sess.schedule(pods)
+    e1.record()
+    decisions = HoistedSession.decisions(ys)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return decisions, ys, host_ms, e0.elapsed_time(e1)
+
+
+def hoisted_vs_scan(gpu, snapshot, templates, pods, label, dyn_ipa):
+    """Phases 11a / 11b: HoistedSession and ScanSession on the card, both
+    built from the encoding `snapshot` (the carry the cell's ScanSession
+    started from), schedule `pods`; their decisions must be equal (the
+    reference's contract between the kernel session and the hoisted one,
+    kubernetes_tpu/ops/pallas_scan.py:213-217). Returns the numbers."""
+    import torch
+    from kubernetes_tpu_torch.models.encoding import cluster_from_numpy
+    from kubernetes_tpu_torch.ops.hoisted import HoistedSession
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+
+    cluster = cluster_from_numpy(snapshot, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = HoistedSession(cluster, templates, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if hs.dyn_ipa != dyn_ipa or hs.multipod_k != 1:
+        raise AssertionError(f"{label}: dyn_ipa {hs.dyn_ipa}, multipod_k "
+                             f"{hs.multipod_k}")
+    ss = ScanSession(cluster, templates, multipod_k=1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ScanSession.decisions(ss.schedule(pods))
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    carry0 = {k: v.clone() for k, v in hs._carry.items()}
+    got, _, host_ms, event_ms = hoisted_run(hs, pods)
+    if got != want:
+        bad = sum(a != b for a, b in zip(got, want))
+        raise AssertionError(f"{label}: HoistedSession decides {bad} of "
+                             f"{len(pods)} pods otherwise than ScanSession")
+    # the first pods again from the carry before them, under the profiler:
+    # the card's busy time and the kernels launched per pod
+    hs._carry = carry0
+    busy = device_busy(lambda: hs.schedule(pods[:PROFILED_PODS]))
+    n = len(pods)
+    placed = sum(d >= 0 for d in got)
+    log(f"phase {label}: HoistedSession(cuda) == ScanSession(cuda) on "
+        f"{n} pods ({placed} placed) at {cluster['valid'].shape[0]} node "
+        f"rows, T={len(templates)}, dyn_ipa={hs.dyn_ipa}; build "
+        f"{build_s:.3f} s; {host_ms / n:.3f} ms per pod by the host "
+        f"window, {event_ms / n:.3f} ms by CUDA events; "
+        f"{n / host_ms * 1e3:.1f} pods/s; ScanSession on the same pods "
+        f"{scan_ms / n:.4f} ms per pod (one schedule call, wait included); "
+        f"under the profiler ({PROFILED_PODS} pods): {busy['kernels_per_pod']:.1f} "
+        f"kernels per pod, the card busy {busy['busy_ms']:.3f} of "
+        f"{busy['window_ms']:.3f} ms ({busy['busy_share']:.1%}) [{gpu}]")
+    return {"cell": label, "pods": n, "build_s": build_s,
+            "ms_per_pod": host_ms / n, "event_ms_per_pod": event_ms / n,
+            "pods_per_s": n / host_ms * 1e3,
+            "scan_session_ms_per_pod": scan_ms / n, **busy, "sess": hs,
+            "cluster": cluster}
+
+
+def device_busy(fn):
+    """Run fn under torch.profiler: the card's busy time (the sum of its
+    kernels' device time), the host window, and kernels per pod of
+    PROFILED_PODS."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    return {"busy_ms": busy_ms, "window_ms": window_ms,
+            "busy_share": busy_ms / window_ms,
+            "kernels_per_pod": len(kernels) / PROFILED_PODS}
+
+
+def phase_host_ports(gpu):
+    """Phase 11c: bench.py's zone-spread shape at 5000 nodes with a
+    quarter of the pods carrying a hostPort (the carried NodePorts tables);
+    ScanSession refuses it, HoistedSession on cuda and on cpu from the
+    same encoding decide equally and leave equal carries, and no two
+    placed pods share a (node, port)."""
+    import torch
+    from kubernetes_tpu_torch.api import types as v1
+    from kubernetes_tpu_torch.models.encoding import cluster_from_numpy
+    from kubernetes_tpu_torch.ops.hoisted import HoistedSession
+    from kubernetes_tpu_torch.ops.scan import ScanSession, SessionUnsupported
+    from kubernetes_tpu_torch.testing.synth import (
+        synth_cluster,
+        synth_pending_pods,
+    )
+
+    t0 = time.perf_counter()
+    nodes, init_pods = synth_cluster(5000, pods_per_node=2)
+    pending = synth_pending_pods(HOISTED_PODS, spread=True)
+    for i, p in enumerate(pending):
+        if i % 4 == 1:
+            p.spec.containers[0].ports = [v1.ContainerPort(
+                host_port=HOST_PORT, container_port=HOST_PORT)]
+    enc, pe = presized_encoding(nodes, init_pods, pending)
+    arrays, templates = encode_templates(pe, pending)
+    snapshot = enc.host_snapshot()
+    setup_s = time.perf_counter() - t0
+    try:
+        ScanSession(cluster_from_numpy(snapshot, "cuda"), templates,
+                    device="cuda")
+        raise AssertionError("11c: ScanSession took host-port templates")
+    except SessionUnsupported as exc:
+        if exc.reason != "host-ports":
+            raise
+    t0 = time.perf_counter()
+    cuda = HoistedSession(cluster_from_numpy(snapshot, "cuda"), templates,
+                          device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = HoistedSession(cluster_from_numpy(snapshot, "cpu"), templates,
+                         device="cpu")
+    cpu_build_s = time.perf_counter() - t0
+    got, _, host_ms, event_ms = hoisted_run(cuda, arrays)
+    t0 = time.perf_counter()
+    want = HoistedSession.decisions(cpu.schedule(arrays))
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if got != want:
+        raise AssertionError("11c: cuda and cpu decide otherwise")
+    if not carries_equal(cuda._carry, clone_to(cpu._carry, "cuda")):
+        raise AssertionError("11c: the carries differ after the batch")
+    ported = [d for i, d in enumerate(got) if i % 4 == 1 and d >= 0]
+    if len(ported) != len(set(ported)):
+        raise AssertionError("11c: two pods share a (node, port)")
+    held = cuda._carry["cp_any"].cpu()
+    if int(held.max()) > 1:
+        raise AssertionError("11c: a node's port table counts a port twice")
+    n = len(arrays)
+    log(f"phase 11c host ports: setup {setup_s:.1f} s; {n} pods, "
+        f"{len(ported)} with hostPort {HOST_PORT} placed on distinct nodes; "
+        f"ScanSession refuses (host-ports); HoistedSession cuda == cpu "
+        f"(decisions and every carry, cp_any / cp_wild / cp_trip "
+        f"included); build {build_s:.3f} s (cpu {cpu_build_s:.3f} s); "
+        f"{host_ms / n:.3f} ms per pod by the host window, "
+        f"{event_ms / n:.3f} ms by CUDA events, {n / host_ms * 1e3:.1f} "
+        f"pods/s (cpu {cpu_ms / n:.3f} ms per pod) [{gpu}]")
+    return {"cell": "11c host ports", "pods": n, "build_s": build_s,
+            "ms_per_pod": host_ms / n, "event_ms_per_pod": event_ms / n,
+            "pods_per_s": n / host_ms * 1e3, "cpu_ms_per_pod": cpu_ms / n}
+
+
+def phase_explain(gpu, snapshot, templates, pods):
+    """Phase 11d: explain_k=3 on the card and on the cpu from the same
+    encoding: equal payloads, and each placed pod's first candidate is its
+    decision."""
+    import numpy as np
+    from kubernetes_tpu_torch.models.encoding import cluster_from_numpy
+    from kubernetes_tpu_torch.ops.hoisted import HoistedSession
+
+    sessions = [HoistedSession(cluster_from_numpy(snapshot, dev), templates,
+                               explain_k=3, device=dev)
+                for dev in ("cuda", "cpu")]
+    got, ys, host_ms, event_ms = hoisted_run(sessions[0], pods)
+    ys_cpu = sessions[1].schedule(pods)
+    if got != HoistedSession.decisions(ys_cpu):
+        raise AssertionError("11d: cuda and cpu decide otherwise")
+    pay = HoistedSession.explain_payload(ys)
+    pay_cpu = HoistedSession.explain_payload(ys_cpu)
+    for i, (a, b) in enumerate(zip(pay, pay_cpu)):
+        for k in a:
+            if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"11d: pod {i} payload {k} differs")
+        if got[i] >= 0 and int(a["topk_idx"][0]) != got[i]:
+            raise AssertionError(f"11d: pod {i}'s first candidate is not "
+                                 "its decision")
+    n = len(pods)
+    log(f"phase 11d explain: explain_k=3 on {n} pods, payload cuda == cpu "
+        f"(bits, top-3 indices, totals, score splits), every first "
+        f"candidate the decision; {host_ms / n:.3f} ms per pod by the "
+        f"host window, {event_ms / n:.3f} ms by CUDA events [{gpu}]")
+    return {"cell": "11d explain", "pods": n, "ms_per_pod": host_ms / n,
+            "event_ms_per_pod": event_ms / n}
+
+
+def phase_hoisted_churn(gpu, zone, churn, pods):
+    """Phase 11e: phase 9's zone-spread flush, as the classified delta
+    dicts, into a HoistedSession on the card built from the encoding
+    before the churn; its carries and alloc then equal a fresh session's
+    from the mutated encoding, and the next pods decide as that fresh
+    session does."""
+    import torch
+    from kubernetes_tpu_torch.models.encoding import cluster_from_numpy
+    from kubernetes_tpu_torch.ops.hoisted import HoistedSession
+
+    templates = zone["templates"]
+    live = HoistedSession(cluster_from_numpy(churn["pre_churn"], "cuda"),
+                          templates, device="cuda")
+    # ScanSession's match rows cover its pow2-padded template axis (copies
+    # of template 0 past T): the first T rows are the hoisted session's
+    t_n = len(templates)
+    deltas = [dict(d, mf=d["mf"][:t_n], ms=d["ms"][:t_n])
+              if d["kind"] != "node-alloc" else d for d in churn["deltas"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    live.apply_deltas(deltas)
+    torch.cuda.synchronize()
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    fresh = HoistedSession(zone["enc"].device_state("cuda"), templates,
+                           device="cuda")
+    if not carries_equal(live._carry, fresh._carry):
+        raise AssertionError("11e: the patched carries differ from a "
+                             "fresh session's")
+    for k in ("alloc", "allowed_pods"):
+        if not torch.equal(live._c_static[k], fresh._c_static[k]):
+            raise AssertionError(f"11e: the patched {k} differs")
+    got, _, host_ms, _ = hoisted_run(live, pods)
+    want = HoistedSession.decisions(fresh.schedule(pods))
+    if got != want:
+        raise AssertionError("11e: the next pods decide otherwise than a "
+                             "fresh session")
+    log(f"phase 11e churn: {len(deltas)} events into HoistedSession(cuda) "
+        f"by one apply_deltas in {apply_ms:.3f} ms; carries, alloc and "
+        f"allowed_pods == a fresh session's; the next {len(pods)} pods "
+        f"({sum(d >= 0 for d in got)} placed) decide as the fresh session "
+        f"does ({host_ms / len(pods):.3f} ms per pod) [{gpu}]")
+    return {"cell": "11e churn", "events": len(deltas), "apply_ms": apply_ms}
+
+
+def phase_log(gpu, n_max):
+    """Phase 11f: the PTS weight log(n + 2) in f64 on the card. torch.log
+    there against the table (math.log's values, which the CPU tests hold
+    to JAX's CPU f64 log), and the session's table read on the card equal
+    to the table built on the host, for n in [0, n_max]."""
+    import torch
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    x = torch.arange(n_max + 1, dtype=torch.float64)
+    table = K.log_table(n_max, torch.device("cpu"))
+    direct = torch.log(x.cuda() + 2.0).cpu()
+    differ = int((direct.view(torch.int64) != table.view(torch.int64)).sum())
+    on_card = K.log_plus_2(x.cuda(), n_max)
+    if not torch.equal(on_card.cpu().view(torch.int64),
+                       table.view(torch.int64)):
+        raise AssertionError("11f: the table read on the card differs")
+    log(f"phase 11f f64 log: torch.log on the card differs from math.log "
+        f"(= JAX's CPU f64 log) at {differ} of {n_max + 1} arguments n + 2; "
+        f"the port's table read on the card equals it at all [{gpu}]")
+    return {"log_args": n_max + 1, "torch_log_differs": differ}
+
+
+def phase_hoisted(gpu, zone, pref, churn):
+    """Phase 11: the hoisted session (HoistedSession) on the card."""
+    out = {"11a": hoisted_vs_scan(gpu, zone["snapshot0"], zone["templates"],
+                                  zone["batch"][:HOISTED_PODS],
+                                  "11a zone spread 5000n", False)}
+    out["11b"] = hoisted_vs_scan(gpu, pref["snapshot0"], pref["templates"],
+                                 pref["batch0"], f"11b {pref['cell']}", True)
+    out["11c"] = phase_host_ports(gpu)
+    out["11d"] = phase_explain(gpu, zone["snapshot0"], zone["templates"],
+                               zone["batch"][:EXPLAIN_PODS])
+    out["11e"] = phase_hoisted_churn(gpu, zone, churn,
+                                     churn["next_batch"][:HOISTED_PODS])
+    n_max = max(int(zone["snapshot0"]["valid"].shape[0]),
+                int(zone["snapshot0"]["npair"].shape[1]))
+    out["11f"] = phase_log(gpu, n_max)
+    for k in ("11a", "11b"):
+        out[k].pop("sess")
+        out[k].pop("cluster")
+    return out
 
 
 def ipa_ops(ipa, t) -> tuple:
@@ -2059,6 +2387,7 @@ def main() -> int:
     churn = [phase_churn_zone(sk, gpu, zone),                      # 9
              phase_churn_affinity(sk, gpu, aff[0])]
     probe_entries = phase_probes(gpu)                              # 10
+    hoisted = phase_hoisted(gpu, zone, aff[0], churn[0])           # 11
 
     zone["err"] = max(zone["err"], small_err)
     # scan_full_ipa reports its slower cell; `cells` keeps both cells'
@@ -2105,6 +2434,7 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels never launched on their path: {idle}")
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"hoisted_session": hoisted}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

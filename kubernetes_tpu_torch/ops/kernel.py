@@ -1,19 +1,30 @@
 """The scheduling plugins as dense tensor code over the cluster encoding.
 
-Port of the part of kubernetes_tpu/ops/kernel.py that the per-template
-prologue (ops/hoisted.py) calls. The reference ran these sections as
-XLA programs outside any Pallas kernel, so here they are plain torch:
-masked arithmetic over the ClusterEncoding tensors, one template at a
-time. Every plugin of the default profile (reference:
+Port of kubernetes_tpu/ops/kernel.py: every filter and score section,
+and `schedule_pod`, which filters and scores every node for one pending
+pod. The reference ran these sections as XLA programs outside any
+Pallas kernel, so here they are plain torch: masked arithmetic over the
+ClusterEncoding tensors, one template at a time (the reference's vmaps
+over constraints and terms are loops whose outputs are stacked in the
+same axis order). Every plugin of the default profile (reference:
 pkg/scheduler/algorithmprovider/registry.go:71 getDefaultConfig) keeps
 the reference's formula and dtypes; see the per-section docstrings for
-their provenance.
+their provenance. Scores are int64 in [0,100] x weight (interface.go:95).
+
+Outputs of `schedule_pod` (dict):
+  feasible[N]    final filter mask
+  total[N]       weighted sum of normalized scores (int64), -1 where
+                 infeasible
+  mask_*/score_* per-plugin masks and weighted normalized scores
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ..models.encoding import (
@@ -136,6 +147,74 @@ def _node_match(c: Dict, p: Dict):
                                 torch.ones_like(aff_ok))
 
 
+def _pts_filter(c: Dict, p: Dict, node_match):
+    """PodTopologySpread PreFilter+Filter (reference:
+    pkg/scheduler/framework/plugins/podtopologyspread/filtering.go:224
+    preFilter pair registration, :313 Filter skew check)."""
+    n = c["valid"].shape[0]
+    vnp = c["npair"].shape[1]
+    valid_c = p["ptsf_valid"]  # [C]
+    any_c = valid_c.any()
+    key_c = p["ptsf_key"].long()
+    n_c = key_c.shape[0]
+    pair_cn = c["pair_of_key"][:, key_c]  # [N, C] pair id of (key_c, value)
+    key_on_node = c["nkey"][:, key_c]     # [N, C]
+    has_all_keys = torch.where(valid_c[None, :], key_on_node,
+                               torch.ones_like(key_on_node)).all(dim=1)
+    eligible = node_match & has_all_keys & c["valid"]
+    # registered topology pairs (filtering.go:224): eligible nodes only
+    zeros = torch.zeros_like(pair_cn[:, 0])
+    reg = torch.stack([
+        _seg_max_bool(eligible, torch.where(eligible, pair_cn[:, j], zeros),
+                      vnp)
+        for j in range(n_c)
+    ])  # [C, Vnp]
+    # pods matching each constraint's selector in the incoming pod's
+    # namespace
+    match_pc = eval_reqs(p["ptsf_op"], p["ptsf_rkey"], p["ptsf_pairs"],
+                         c["ppair"], c["pkey"])
+    match_pc = (
+        match_pc
+        & c["pvalid"][:, None]
+        & ~c["pterm"][:, None]
+        & (c["pns"] == p["self_ns"])[:, None]
+    )  # [P, C]
+    node_counts = torch.stack([
+        _seg_sum(match_pc[:, j].to(_CNT), c["pnode"], n) for j in range(n_c)
+    ])  # [C, N]
+    count_pair = torch.stack([
+        _seg_sum(node_counts[j], pair_cn[:, j], vnp) for j in range(n_c)
+    ])  # [C, Vnp]
+    # TpPairToMatchNum is ONE map keyed by (key, value): constraints
+    # sharing a topology key accumulate into the same entries
+    # (filtering.go:246)
+    same_key = ((key_c[:, None] == key_c[None, :])
+                & valid_c[:, None] & valid_c[None, :])  # [C, C]
+    shared_cnt = torch.where(same_key[:, :, None], count_pair[None, :, :],
+                             0).sum(dim=1, dtype=_I64)  # [C, Vnp]
+    col = torch.arange(vnp, device=node_match.device)[None, :]
+    reg_real = reg & (col > 0)
+    big = torch.iinfo(_CNT).max
+    min_c = torch.where(reg_real, shared_cnt, big).min(dim=1).values
+    min_c = torch.where(min_c == big, 0, min_c)  # no registered pairs -> 0
+    self_match = eval_reqs_single(
+        p["ptsf_op"], p["ptsf_rkey"], p["ptsf_pairs"], p["self_ppair"],
+        p["self_pkey"]).to(_CNT)  # [C]
+    pair_l = pair_cn.long()
+    cnt_n = torch.gather(shared_cnt.T, 0, pair_l)  # [N, C] counts at node
+    reg_n = torch.gather(reg_real.T, 0, pair_l)
+    cnt_n = torch.where(reg_n, cnt_n, 0)
+    fail_missing = (valid_c[None, :] & ~key_on_node).any(dim=1)
+    skew = cnt_n + self_match[None, :] - min_c[None, :]
+    fail_skew = (valid_c[None, :] & key_on_node
+                 & (skew > p["ptsf_skew"][None, :].to(_CNT))).any(dim=1)
+    mask = ~(any_c & (fail_missing | fail_skew))
+    # missing-key failures are UnschedulableAndUnresolvable
+    # (filtering.go:316)
+    unresolvable = any_c & fail_missing
+    return mask, unresolvable
+
+
 def _ipa_term_matches(c: Dict, p: Dict, prefix: str):
     """Per-term match of every existing pod: selector + namespaces."""
     match_pt = eval_reqs(
@@ -233,32 +312,82 @@ def _ipa_filter_parts(c: Dict, p: Dict) -> Dict:
     )
 
 
-def ipa_compose(p: Dict, parts: Dict):
-    """Compose the InterPodAffinity mask from its static parts (the
-    reference also folds in-scan count deltas; term templates are a
-    later slice of the port). Returns (mask, unresolvable)."""
+def ipa_compose(p: Dict, parts: Dict, anti_dyn=0, aff_dyn=0,
+                aff_total_dyn=0, fail_existing_dyn=False):
+    """Compose the InterPodAffinity mask from static parts + dynamic
+    in-scan count deltas (all deltas default to the pure-static case;
+    the hoisted session's step passes its assumed-pod counts).
+    anti_dyn/aff_dyn broadcast against [N, Taa]/[N, Ta]. Returns (mask,
+    unresolvable)."""
     anti_valid = p["ipaaa_valid"]
     fail_anti = (
         anti_valid[None, :]
         & parts["anti_key_on_node"]
-        & (parts["anti_cnt_n"] > 0)
+        & ((parts["anti_cnt_n"] + anti_dyn) > 0)
     ).any(dim=1)
     aff_valid = p["ipaa_valid"]
-    have = parts["aff_cnt_n"] > 0
+    have = (parts["aff_cnt_n"] + aff_dyn) > 0
     pods_exist = torch.where(aff_valid[None, :], have,
                              torch.ones_like(have)).all(dim=1)
-    counts_empty = parts["aff_total"] == 0
+    counts_empty = (parts["aff_total"] + aff_total_dyn) == 0
     aff_ok = ~parts["has_aff"] | (
         parts["aff_all_keys"]
         & (pods_exist | (counts_empty & parts["self_match_all"]))
     )
-    mask = ~parts["fail_existing"] & ~fail_anti & aff_ok
+    mask = ~(parts["fail_existing"] | fail_existing_dyn) & ~fail_anti & aff_ok
     unresolvable = ~aff_ok  # affinity miss is UnschedulableAndUnresolvable (:374)
     return mask, unresolvable
 
 
+def _ipa_filter(c: Dict, p: Dict):
+    """InterPodAffinity PreFilter+Filter (reference:
+    pkg/scheduler/framework/plugins/interpodaffinity/filtering.go:162
+    existing anti-affinity map, :194 incoming maps, :374 Filter)."""
+    return ipa_compose(p, _ipa_filter_parts(c, p))
+
+
 # ---------------------------------------------------------------------------
-# Scores (pre-normalization parts the prologue keeps per template)
+# Scores (each returns raw-normalized int64 in [0,100] BEFORE weighting,
+# or the pre-normalization part the prologue keeps per template)
+
+
+def balanced_score(nz_requested, nz_req, alloc):
+    """(1 - |cpuFraction - memFraction|) * 100, fractions over NonZero
+    requested+pod (reference: noderesources/balanced_allocation.go:82,
+    resource_allocation.go:91). Shared by schedule_pod and the hoisted
+    step."""
+    cpu_req = (nz_requested[:, 0] + nz_req[0]).to(_F64)
+    mem_req = (nz_requested[:, 1] + nz_req[1]).to(_F64)
+    cpu_cap = alloc[:, 0].to(_F64)
+    mem_cap = alloc[:, 1].to(_F64)
+    cpu_frac = torch.where(cpu_cap == 0, 1.0, cpu_req / cpu_cap)
+    mem_frac = torch.where(mem_cap == 0, 1.0, mem_req / mem_cap)
+    diff = (cpu_frac - mem_frac).abs()
+    score = ((1.0 - diff) * MAX_NODE_SCORE).to(_I64)
+    return torch.where((cpu_frac >= 1) | (mem_frac >= 1), 0, score)
+
+
+def least_allocated_score(nz_requested, nz_req, alloc):
+    """leastResourceScorer with default cpu/mem weights 1/1 (reference:
+    noderesources/least_allocated.go:93,:108). Shared by schedule_pod and
+    the hoisted step."""
+
+    def one(dim):
+        cap = alloc[:, dim]
+        req = nz_requested[:, dim] + nz_req[dim]
+        s = torch.div((cap - req) * MAX_NODE_SCORE,
+                      torch.where(cap == 0, 1, cap), rounding_mode="floor")
+        return torch.where((cap == 0) | (req > cap), 0, s)
+
+    return torch.div(one(0) + one(1), 2, rounding_mode="floor")
+
+
+def _score_balanced(c: Dict, p: Dict):
+    return balanced_score(c["nz_requested"], p["nz_req"], c["alloc"])
+
+
+def _score_least(c: Dict, p: Dict):
+    return least_allocated_score(c["nz_requested"], p["nz_req"], c["alloc"])
 
 
 def _score_image(c: Dict, p: Dict):
@@ -306,6 +435,156 @@ def _nodeaff_count(c: Dict, p: Dict):
         threshold=p["npref_thr"], num=c["nnum"], num_valid=c["nnum_valid"],
     )  # [N, T]
     return (match.to(_I64) * p["npref_weight"][None, :]).sum(dim=1)
+
+
+def _score_taint(c: Dict, p: Dict, feasible):
+    """TaintToleration: count untolerated PreferNoSchedule taints, then
+    DefaultNormalizeScore reverse (reference:
+    tainttoleration/taint_toleration.go:107, helper/normalize_score.go:26)."""
+    return _normalize_default(_taint_count(c, p), feasible, reverse=True)
+
+
+def _score_node_affinity(c: Dict, p: Dict, feasible):
+    """NodeAffinity Score: sum preferred-term weights whose preference
+    matches, then DefaultNormalizeScore (reference:
+    nodeaffinity/node_affinity.go:139)."""
+    return _normalize_default(_nodeaff_count(c, p), feasible, reverse=False)
+
+
+def _normalize_default(scores, feasible, reverse: bool):
+    """DefaultNormalizeScore (reference: helper/normalize_score.go:26):
+    scale by the max over the feasible set; reverse subtracts from 100."""
+    max_count = torch.where(feasible, scores, 0).max()
+    scaled = torch.div(MAX_NODE_SCORE * scores,
+                       torch.where(max_count == 0, 1, max_count),
+                       rounding_mode="floor")
+    if reverse:
+        return torch.where(max_count == 0, MAX_NODE_SCORE,
+                           MAX_NODE_SCORE - scaled)
+    return torch.where(max_count == 0, scores, scaled)
+
+
+@functools.lru_cache(maxsize=16)
+def log_table(n: int, device: torch.device) -> torch.Tensor:
+    """f64 [n + 1] with entry k = log(k + 2), as a table on `device`.
+
+    PodTopologySpread weighs its scores by log(size + 2) in f64
+    (scoring.go:279 topologyNormalizingWeight), and the argument is
+    always a whole count in [0, n]. The reference's jnp.log (XLA's CPU
+    f64 log) returns the correctly rounded libm value, as math.log does;
+    torch's vectorized f64 log does not at every argument (it is one ulp
+    off at 9168 + 2, for one), and the card's log is not that either.
+    So the port reads math.log's values from a table on both devices
+    (tests/test_torch_schedule_pod.py holds it to jnp.log)."""
+    vals = np.array([math.log(k + 2.0) for k in range(n + 1)], np.float64)
+    return torch.from_numpy(vals).to(device)
+
+
+def log_plus_2(counts, n: int):
+    """log(counts + 2) in f64 for whole-valued counts in [0, n], read from
+    `log_table(n)` on the counts' device."""
+    return log_table(n, counts.device)[counts.long()]
+
+
+def _score_pts(c: Dict, p: Dict, node_match, feasible):
+    """PodTopologySpread PreScore+Score+NormalizeScore (reference:
+    podtopologyspread/scoring.go:221 preScore pair registration, :279
+    topologyNormalizingWeight, :287 Score, :247 NormalizeScore)."""
+    n = c["valid"].shape[0]
+    vnp = c["npair"].shape[1]
+    valid_c = p["ptss_valid"]
+    any_c = valid_c.any()
+    key_c = p["ptss_key"].long()
+    n_c = key_c.shape[0]
+    hostname = p["ptss_hostname"]
+    key_on_node = c["nkey"][:, key_c]  # [N, C]
+    has_all = torch.where(valid_c[None, :], key_on_node,
+                          torch.ones_like(key_on_node)).all(dim=1)
+    ignored = feasible & ~has_all  # scoring.go:233 ignored filtered nodes
+    scored = feasible & has_all
+    pair_cn = c["pair_of_key"][:, key_c]  # [N, C]
+    # pair registration over filtered nodes (non-hostname constraints)
+    zeros = torch.zeros_like(pair_cn[:, 0])
+    reg = torch.stack([
+        _seg_max_bool(scored, torch.where(scored, pair_cn[:, j], zeros), vnp)
+        for j in range(n_c)
+    ])  # [C, Vnp]
+    col = torch.arange(vnp, device=feasible.device)[None, :]
+    reg_real = reg & (col > 0) & ~hostname[:, None] & valid_c[:, None]
+    # duplicate-key constraints register no pairs of their own -> size 0
+    # (pair_counts is one (key,value)-keyed map, scoring.go:221-240)
+    topo_size = torch.where(p["ptss_first"], reg_real.sum(dim=1),
+                            0).to(_F64)
+    n_scored = scored.sum().to(_F64)
+    weight = log_plus_2(torch.where(hostname, n_scored, topo_size),
+                        max(n, vnp))  # [C]
+    # pod counts per pair over ALL nodes passing nodeSelector/affinity+keys
+    match_pc = eval_reqs(p["ptss_op"], p["ptss_rkey"], p["ptss_pairs"],
+                         c["ppair"], c["pkey"])
+    match_pc = (
+        match_pc
+        & c["pvalid"][:, None]
+        & ~c["pterm"][:, None]
+        & (c["pns"] == p["self_ns"])[:, None]
+    )  # [P, C]
+    node_counts = torch.stack([
+        _seg_sum(match_pc[:, j].to(_CNT), c["pnode"], n) for j in range(n_c)
+    ])  # [C, N]
+    src = (node_match & has_all & c["valid"]).to(_CNT)  # scoring.go:252
+    count_pair = torch.stack([
+        _seg_sum(node_counts[j] * src, pair_cn[:, j], vnp)
+        for j in range(n_c)
+    ])  # [C, Vnp]
+    # one shared (key,value)-keyed map across same-key constraints
+    same_key = ((key_c[:, None] == key_c[None, :])
+                & valid_c[:, None] & valid_c[None, :])
+    shared_cnt = torch.where(same_key[:, :, None], count_pair[None, :, :],
+                             0).sum(dim=1, dtype=_I64)  # [C, Vnp]
+    pair_l = pair_cn.long()
+    cnt_n = torch.gather(shared_cnt.T, 0, pair_l)  # [N, C]
+    reg_n = torch.gather(reg_real.T, 0, pair_l)
+    cnt_n = torch.where(reg_n, cnt_n, 0)
+    cnt_n = torch.where(hostname[None, :], node_counts.T.to(_I64), cnt_n)
+    raw = pts_raw(valid_c[None, :] & key_on_node, cnt_n, weight,
+                  p["ptss_skew"])
+    return pts_normalize(raw, scored, ignored, any_c)
+
+
+def pts_raw(on, cnt_n, weight, skew):
+    """Per-node raw PTS score (scoring.go:287 Score): the sum over
+    constraints of count * weight + (maxSkew - 1) where the constraint
+    applies, truncated to int64. The f64 terms are added left to right
+    from 0.0, the order of the reference's reduction."""
+    terms = torch.where(
+        on,
+        cnt_n.to(_F64) * weight[None, :] + (skew[None, :].to(_F64) - 1.0),
+        0.0,
+    )  # [N, C]
+    acc = torch.zeros(terms.shape[0], dtype=_F64, device=terms.device)
+    for j in range(terms.shape[1]):
+        acc = acc + terms[:, j]
+    return acc.to(_I64)  # int(score) truncation
+
+
+def pts_normalize(raw, scored, ignored, any_c):
+    """PTS NormalizeScore (scoring.go:247) over the scored set."""
+    big = torch.iinfo(torch.int64).max
+    min_s = torch.where(scored, raw, big).min()
+    max_s = torch.where(scored, raw, 0).max()
+    min_s = torch.where(min_s == big, 0, min_s)
+    norm = torch.div(MAX_NODE_SCORE * (max_s + min_s - raw),
+                     torch.where(max_s == 0, 1, max_s), rounding_mode="floor")
+    norm = torch.where(max_s == 0, MAX_NODE_SCORE, norm)
+    norm = torch.where(ignored, 0, norm)
+    return torch.where(any_c, norm, 0)
+
+
+def _score_ipa(c: Dict, p: Dict, feasible):
+    """InterPodAffinity PreScore+Score+NormalizeScore (reference:
+    interpodaffinity/scoring.go:88 processExistingPod, :225 Score, :247
+    NormalizeScore)."""
+    raw, any_present = _score_ipa_raw(c, p)
+    return _score_ipa_normalize(raw, any_present, feasible)
 
 
 def _score_ipa_raw(c: Dict, p: Dict):
@@ -362,6 +641,90 @@ def _score_ipa_raw(c: Dict, p: Dict):
     raw = torch.where(c["nkey"], per_label, torch.zeros_like(per_label)).sum(
         dim=1, dtype=_I64)
     return raw, present.any()
+
+
+def _score_ipa_normalize(raw, any_present, feasible):
+    """IPA NormalizeScore (scoring.go:247): (raw - min) / (max - min) over
+    the feasible set, in f64, truncated."""
+    big = torch.iinfo(_CNT).max
+    min_s = torch.where(feasible, raw, big).min()
+    max_s = torch.where(feasible, raw, -big).max()
+    diff = (max_s - min_s).to(_F64)
+    norm = torch.where(
+        diff > 0,
+        (MAX_NODE_SCORE * ((raw - min_s).to(_F64)
+                           / torch.where(diff > 0, diff, 1.0))).to(_I64),
+        0,
+    )
+    return torch.where(any_present, norm, 0)
+
+
+# ---------------------------------------------------------------------------
+
+
+def schedule_pod(c: Dict, p: Dict, weights: Dict[str, int] = None) -> Dict:
+    """Filter + score every node for one pending pod (the reference's
+    schedule_pod, and its schedule_pod_jit: eager torch needs no
+    separate compiled entry). Pure."""
+    w = weights or DEFAULT_WEIGHTS
+    with torch.no_grad():
+        mask_name, mask_unsched, mask_taint, mask_ports, mask_fit = \
+            _filter_basics(c, p)
+        node_match = _node_match(c, p)
+        mask_pts, pts_unresolvable = _pts_filter(c, p, node_match)
+        mask_ipa, ipa_unresolvable = _ipa_filter(c, p)
+        feasible = (
+            c["valid"]
+            & mask_name
+            & mask_unsched
+            & mask_taint
+            & mask_ports
+            & mask_fit
+            & node_match
+            & mask_pts
+            & mask_ipa
+        )
+        out = {
+            "feasible": feasible,
+            "mask_name": mask_name,
+            "mask_unsched": mask_unsched,
+            "mask_taint": mask_taint,
+            "mask_ports": mask_ports,
+            "mask_fit": mask_fit,
+            "mask_node_affinity": node_match,
+            "mask_pts": mask_pts,
+            "pts_unresolvable": pts_unresolvable,
+            "mask_ipa": mask_ipa,
+            "ipa_unresolvable": ipa_unresolvable,
+        }
+        scores = {
+            "balanced": _score_balanced(c, p),
+            "least": _score_least(c, p),
+            "image": _score_image(c, p),
+            "prefer_avoid": _score_prefer_avoid(c, p),
+            "taint": _score_taint(c, p, feasible),
+            "node_affinity": _score_node_affinity(c, p, feasible),
+            "pts": _score_pts(c, p, node_match, feasible),
+            "ipa": _score_ipa(c, p, feasible),
+        }
+        total = torch.zeros_like(scores["balanced"])
+        for name, s in scores.items():
+            weighted = s * w[name]
+            out[f"score_{name}"] = weighted
+            total = total + weighted
+        out["total"] = torch.where(feasible, total, -1)
+    return out
+
+
+def schedule_pods(c: Dict, P: Dict, weights: Dict[str, int] = None) -> Dict:
+    """Batched independent evaluation (the reference's schedule_pods_jit,
+    a vmap over pods): every pod of the stacked arrays P ([B, ...] rows)
+    against the SAME cluster state, each output stacked over a leading
+    pod axis. A loop over pods here."""
+    b = next(iter(P.values())).shape[0]
+    outs = [schedule_pod(c, {k: v[i] for k, v in P.items()}, weights)
+            for i in range(b)]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 # ---------------------------------------------------------------------------

@@ -35,8 +35,8 @@ Layout notes (the same as the reference's, so the two compare directly):
   static template×term gate and weight matrices turn them into the
   D1–D5 terms.
 
-Host-port templates raise SessionUnsupported with a fixed reason slug
-(they ride the reference's hoisted session, a later slice of the port).
+Host-port templates raise SessionUnsupported with a fixed reason slug:
+they ride ops/hoisted.py HoistedSession, as explain sessions do.
 """
 
 from __future__ import annotations
@@ -154,7 +154,14 @@ class ScanSession:
     HoistedSession. `multipod_k` None resolves through
     ops/kernel.multipod_k for the session's device. The template set is
     fixed at construction: a batch pod whose fingerprint is unknown
-    raises KeyError."""
+    raises KeyError.
+
+    No explain mode (the reference kernel session's answer, which the
+    backend's session ladder reads): the kernel keeps no per-plugin
+    intermediates, so explain sessions ride ops/hoisted.py
+    HoistedSession."""
+
+    supports_explain = False
 
     def __init__(self, cluster: Dict[str, torch.Tensor],
                  template_arrays_list: List[Dict],
@@ -749,6 +756,12 @@ class ScanSession:
     @staticmethod
     def decisions(ys) -> List[int]:
         return [int(v) for v in ys["rows"][0, :ys["n"]].tolist()]
+
+    @staticmethod
+    def explain_payload(ys):
+        """No attribution rides the kernel's out rows: None for any batch,
+        so a caller may ask every session kind unconditionally."""
+        return None
 
     @staticmethod
     def conflict_stats(ys):

@@ -174,9 +174,15 @@ def _private_alloc(ps):
     array, so PallasSession's bundle alloc can share memory with its host
     `_alloc`; `_patch_alloc_static` then patches the host array in place
     and adds the same patch to the bundle a second time (on a TPU the two
-    are separate buffers)."""
+    are separate buffers). The private buffer is made from a host copy
+    that nothing writes, and is ready before this returns: a device-side
+    copy of the aliased buffer (`alloc + 0`) is dispatched asynchronously
+    and can run after `_patch_alloc_static`'s in-place host write, which
+    then lands in the bundle twice all the same."""
     cfg, statics, ipa = ps._get_bundle()
-    ps._bundle = (cfg, dict(statics, alloc=statics["alloc"] + 0), ipa)
+    alloc = jnp.array(np.array(ps._alloc, copy=True))
+    alloc.block_until_ready()
+    ps._bundle = (cfg, dict(statics, alloc=alloc), ipa)
 
 
 def _fixture_deltas(enc, bound, sess):
