@@ -124,10 +124,38 @@ Phases (each raises on failure; the script then exits non-zero):
       carries, alloc and allowed_pods then equal a fresh session's from
       the mutated encoding, and the next 1024 pods decide as it does;
    f. the f64 PTS weight log(n + 2) on the card: torch.log there against
-      the port's table, and the table read on the card equal to the host's.
+      the port's table, and the table read on the card equal to the host's;
+12. the backend (`scheduler/tpu_backend.py` TPUBackend, on the card) fed
+   through a `SchedulerCache` it listens to (5000 nodes and their bound
+   pods as cache events), batches through `dispatch_many` / `harvest` as
+   a scheduler drives them, placements assumed back into the cache:
+   a. phase 4's cell (3 x 4096 pods) on fresh backends at max_pending 2
+      and 1, four runs each, alternating which goes first: every run
+      binds every pod as phase 4's ScanSession did; the medians of pods/s
+      over the two measured batches, the kernel's CUDA-event time over
+      the host window, the host stages, the session build; and the first
+      batch in two fresh processes, without and with a warm launch of the
+      kernel session at build;
+   b. phase 6's preferred-affinity cell (ur > 0): bindings == phase 6's;
+   c. phase 9's zone-spread events (4096, the delta queue's cap) as cache
+      events into 12a's depth-1 backend, queued as deltas; the next 4096
+      pods flush them in one scan_delta launch and bind as a fresh backend
+      fed the mutated cluster does, and the carries after equal its;
+   d. 11c's host-port pods (512) through the backend on the card and on
+      the CPU: HoistedSession on both (reason host-ports on the card),
+      equal bindings;
+   e. a fault drill on 12a's pods: a NaN harvest re-driven on the kernel,
+      a dispatch raise that persists through the retries (demoting the
+      ladder; the batch re-drives on the hoisted session), the probe
+      re-promoting the ladder within the run (KTPU_PROBE_INTERVAL 0.05 s
+      here), the next batches on the kernel; bindings == 12a's.
+   12a-12c stay on the kernel rung with 0 device faults and 0 failed delta
+   applies; each kernel of the kernels' line carries `backend_launches`,
+   and scan_full, scan_full_ipa and scan_delta must have some.
 
 It prints the kernels' line, a `{"hoisted_session": ...}` line with phase
-11's numbers, then `{"ok": true, "device": {...}}` last.
+11's numbers, a `{"backend": ...}` line with phase 12's, then `{"ok":
+true, "device": {...}}` last.
 It needs a CUDA card and imports nothing of JAX or of the JAX package.
 """
 
@@ -686,9 +714,11 @@ def phase_zone_spread(sk, gpu):
         f"{sess.N} nodes (runs {[round(x, 3) for x in times]}), plain "
         f"version {plain_ms:.1f} ms, bound {bound_ms:.4f} ms by {bound_by} "
         f"({nbytes} bytes, {ops} ops) [{gpu}]")
+    bindings = {p.metadata.name: p.spec.node_name or None for p in pending}
     return {"cell": "zone spread 5000n", "launches": launches, "err": err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "sess": sess, "multi": multi,
+            "bindings": bindings, "window_s": window_s,
             "batch": batch1, "carry_before": carry_before, "after": after1,
             "out": out, "enc": enc, "pe": pe, "templates": templates,
             "pending": pending, "carry_end": carry_end, "build_s": build_s,
@@ -779,21 +809,14 @@ def cluster_directed(sk, sizes):
             f"{k} pods, {len(placed)} placed): every size {sizes} == plain")
 
 
-def phase_affinity(sk, gpu, kind):
-    """scheduler_perf's Scheduling{Preferred,}PodAffinity-5000n through
-    the session: every pod placed, the ur > 0 variant once per batch, all
-    on the cluster kernel at `CLUSTER`, the first measured batch == plain.
-    Returns this phase's numbers, the session (and its mk=4 twin on the
-    same cluster), the first measured batch, the carry before it and the
-    plain version's out and carry after it."""
-    import torch
+def affinity_workload(kind):
+    """Phase 6's cell (and 12b's): (name, nodes, bound app=aff pods,
+    pending pods, their affinity, labels)."""
     from kubernetes_tpu_torch.api import types as v1
-    from kubernetes_tpu_torch.ops.scan import ScanSession
     from kubernetes_tpu_torch.testing.synth import make_pod, synth_cluster
 
     name = {"pref-aff": "SchedulingPreferredPodAffinity-5000n",
             "aff": "SchedulingPodAffinity-5000n"}[kind]
-    t0 = time.perf_counter()
     nodes, _ = synth_cluster(5000, pods_per_node=0)
     labels = {"app": "aff"}
     init_pods = [make_pod(f"init-{i}", cpu="100m", memory="128Mi",
@@ -804,6 +827,21 @@ def phase_affinity(sk, gpu, kind):
     pending = [make_pod(f"pod-{i}", cpu="100m", memory="128Mi",
                         labels=labels, affinity=aff)
                for i in range(sum(AFF_BATCHES))]
+    return name, nodes, init_pods, pending, aff, labels
+
+
+def phase_affinity(sk, gpu, kind):
+    """scheduler_perf's Scheduling{Preferred,}PodAffinity-5000n through
+    the session: every pod placed, the ur > 0 variant once per batch, all
+    on the cluster kernel at `CLUSTER`, the first measured batch == plain.
+    Returns this phase's numbers, the session (and its mk=4 twin on the
+    same cluster), the first measured batch, the carry before it and the
+    plain version's out and carry after it."""
+    import torch
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+
+    t0 = time.perf_counter()
+    name, nodes, init_pods, pending, aff, labels = affinity_workload(kind)
     enc, pe = reserved_encoding(nodes, init_pods, pending)
     _, templates = encode_templates(pe, pending)
     setup_s = time.perf_counter() - t0
@@ -907,7 +945,10 @@ def phase_affinity(sk, gpu, kind):
             "batch": batch1, "carry_before": carry_before, "after": after1,
             "out": out, "enc": enc, "pe": pe, "templates": templates,
             "affinity": aff, "labels": labels, "build_s": build_s,
-            "snapshot0": snapshot0, "batch0": batches[0][0]}
+            "snapshot0": snapshot0, "batch0": batches[0][0],
+            "kind": kind, "window_s": window_s,
+            "bindings": {p.metadata.name: p.spec.node_name or None
+                         for p in pending}}
 
 
 KCNT_ZONES = 4
@@ -2171,6 +2212,691 @@ def phase_hoisted(gpu, zone, pref, churn):
     return out
 
 
+# -- phase 12: the backend (TPUBackend) on the card ---------------------------
+
+BACKEND_HOST_PODS = 512          # phase 12d's pods (11c's shape, cut)
+BACKEND_REPS = 4                 # phase 12a's runs at each depth
+DRILL_SMALL = 256                # phase 12e's faulted batches
+
+
+def backend_world(nodes, init_pods, pending, max_pending=2, device="cuda"):
+    """A port SchedulerCache with a TPUBackend listening; the encoding
+    pre-sized as the perf harness does (kubernetes_tpu/perf/
+    harness.py:603-614, plus score-term rows, as `reserved_encoding`);
+    the nodes and the bound pods enter as cache events; then, as
+    `reserved_encoding` does, a few pending pods are encoded and the
+    encoding synced, so that its vocabularies and tables hold their
+    sizes from the first batch on. -> (cache, backend, feed s)."""
+    from kubernetes_tpu_torch.scheduler.internal.cache import SchedulerCache
+    from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
+
+    t0 = time.perf_counter()
+    be = TPUBackend(device=device)
+    be.max_pending = max_pending
+    be.enc.reserve(pods=int((len(init_pods) + len(pending)) * 1.25),
+                   score_terms=len(init_pods) + len(pending))
+    cache = SchedulerCache()
+    cache.add_listener(be)
+    for node in nodes:
+        cache.add_node(node)
+    for pod in init_pods:
+        cache.add_pod(pod)
+    for pod in pending[:8]:
+        be.pe.encode(pod)
+    with be._on_stream():
+        be.enc.device_state(be.device)
+    return cache, be, time.perf_counter() - t0
+
+
+def assumed(pod, node):
+    """The assumed copy of a placed pod, as the scheduler hands it to
+    the cache (the caller's object is never mutated)."""
+    import copy
+
+    q = copy.copy(pod)
+    q.spec = copy.copy(pod.spec)
+    q.spec.node_name = node
+    return q
+
+
+class BackendRun:
+    """Drives batches through `dispatch_many` / `harvest` as a scheduler
+    with `max_pending` batches in flight does: a batch is harvested when
+    the pipeline is full (inside dispatch_many) or at the end, and each
+    harvest's placements are assumed in the cache (the listener's echo).
+    Times each session build, and brackets each kernel launch of the
+    session with CUDA events on the backend's stream (`kernel_ms`)."""
+
+    def __init__(self, cache, be):
+        import torch
+        from kubernetes_tpu_torch.ops import scan as scan_mod
+
+        self.cache, self.be = cache, be
+        self.bindings = {}
+        self.build_s = []
+        self.events = []
+        # host seconds in dispatch_many (encode + enqueue, and at depth 1
+        # the inline harvest), harvest (wait + readback + decode + the
+        # encoding's assume), the cache's assume_pods, and waiting on the
+        # batches' events (inside both)
+        self.stage = dict.fromkeys(("dispatch", "harvest", "assume", "wait"),
+                                   0.0)
+        orig_wait = be._wait_ready
+
+        def timed_wait(*args):
+            t0 = time.perf_counter()
+            try:
+                return orig_wait(*args)
+            finally:
+                self.stage["wait"] += time.perf_counter() - t0
+
+        be._wait_ready = timed_wait
+        self._scan_mod = scan_mod
+        self._orig = scan_mod.scan_full
+        orig_build = be._build_session
+
+        def timed_build():
+            t0 = time.perf_counter()
+            out = orig_build()
+            self.build_s.append(time.perf_counter() - t0)
+            return out
+
+        be._build_session = timed_build
+        cuda = be.device.type == "cuda"
+
+        def timed_scan(*args, **kwargs):
+            if not cuda:
+                return self._orig(*args, **kwargs)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = self._orig(*args, **kwargs)
+            e1.record()
+            self.events.append((e0, e1))
+            return out
+
+        scan_mod.scan_full = timed_scan
+
+    def close(self):
+        self._scan_mod.scan_full = self._orig
+
+    def reset(self):
+        self.stage.update(dict.fromkeys(self.stage, 0.0))
+
+    def _timed(self, name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self.stage[name] += time.perf_counter() - t0
+
+    def land(self, results):
+        placed = []
+        for pod, node in results:
+            self.bindings[pod.metadata.name] = node
+            if node:
+                placed.append(assumed(pod, node))
+        self._timed("assume", self.cache.assume_pods, placed)
+
+    def run(self, batches, measured=False):
+        """Every batch through the pipeline; returns the host window s.
+        A measured window starts after a collection and runs with the
+        collector off (a full pass over the run's objects takes longer
+        than a batch)."""
+        if measured:
+            gc.collect()
+            gc.disable()
+        t0 = time.perf_counter()
+        try:
+            handles = []
+            for batch in batches:
+                handles.append(self._timed("dispatch", self.be.dispatch_many,
+                                           batch))
+                # a handle the dispatch harvested (pipeline full) lands now
+                while handles and handles[0].results is not None:
+                    self.land(self._timed("harvest", self.be.harvest,
+                                          handles.pop(0)))
+            for h in handles:
+                self.land(self._timed("harvest", self.be.harvest, h))
+            return time.perf_counter() - t0
+        finally:
+            if measured:
+                gc.enable()
+
+    def stages_ms(self):
+        return {k: v * 1e3 for k, v in self.stage.items()}
+
+    def kernel_ms(self, start=0):
+        return sum(a.elapsed_time(b) for a, b in self.events[start:])
+
+
+def counters():
+    """The backend's metrics that phase 12 asserts on, as flat dicts."""
+    from kubernetes_tpu_torch.scheduler import metrics
+
+    return {name: dict(getattr(metrics, name).items())
+            for name in ("session_builds", "session_rebuilds",
+                         "session_delta_applies", "device_faults")}
+
+
+def counters_delta(before):
+    after = counters()
+    return {name: {k: v - before[name].get(k, 0.0)
+                   for k, v in after[name].items()
+                   if v != before[name].get(k, 0.0)}
+            for name in after}
+
+
+def assert_top_rung(be, delta, label, allow_hoisted=False):
+    """12a-12c: the ladder on its top rung throughout, 0 device faults,
+    0 failed delta applies, no hoisted build."""
+    if be.ladder.rung() != be.ladder.top or be.ladder.demotions:
+        raise AssertionError(f"{label}: ladder left its top rung "
+                             f"({be.ladder.mode()}, {be.ladder.demotions} "
+                             "demotions)")
+    if delta["device_faults"]:
+        raise AssertionError(f"{label}: device faults {delta['device_faults']}")
+    failed = {k: v for k, v in delta["session_rebuilds"].items()
+              if k[0] == "delta-apply-failed"}
+    if failed:
+        raise AssertionError(f"{label}: failed delta applies {failed}")
+    hoisted = {k: v for k, v in delta["session_builds"].items()
+               if k[0] != "kernel"}
+    if hoisted and not allow_hoisted:
+        raise AssertionError(f"{label}: builds below the kernel rung "
+                             f"{hoisted}")
+
+
+def launched(sk, before):
+    return {k: v - before[k] for k, v in sk.VARIANT_LAUNCHES.items()
+            if v != before[k]}
+
+
+def zone_batches():
+    from kubernetes_tpu_torch.testing.synth import synth_pending_pods
+
+    pending = synth_pending_pods(3 * BATCH, spread=True)
+    return [pending[i:i + BATCH] for i in range(0, len(pending), BATCH)]
+
+
+def phase_backend_zone(sk, gpu, zone, nodes, init_pods):
+    """Phase 12a: phase 4's cell through fresh backends at max_pending 2
+    and 1, BACKEND_REPS runs each, alternating which depth goes first;
+    every run binds as phase 4's ScanSession did. Returns the numbers
+    (medians over the runs, and every window), the last depth-1 world
+    (for 12c) and each run's launches."""
+    import torch
+
+    out = {"cell": "12a zone spread 5000n"}
+    runs = {2: [], 1: []}
+    launches = []
+    order = [d for rep in range(BACKEND_REPS)
+             for d in ((2, 1) if rep % 2 == 0 else (1, 2))]
+    for depth in order:
+        batches = zone_batches()
+        cache, be, feed_s = backend_world(
+            nodes, init_pods, [p for b in batches for p in b],
+            max_pending=depth)
+        before, lbefore = counters(), dict(sk.VARIANT_LAUNCHES)
+        run = BackendRun(cache, be)
+        try:
+            first_s = run.run(batches[:1])      # builds the session
+            torch.cuda.synchronize()
+            k0 = len(run.events)
+            run.reset()
+            window_s = run.run(batches[1:], measured=True)
+            kernel_ms = run.kernel_ms(k0)
+        finally:
+            run.close()
+        delta = counters_delta(before)
+        launches.append(launched(sk, lbefore))
+        assert_top_rung(be, delta, f"12a depth {depth}")
+        if run.bindings != zone["bindings"]:
+            bad = sum(run.bindings.get(k) != v
+                      for k, v in zone["bindings"].items())
+            raise AssertionError(f"12a depth {depth}: {bad} bindings differ "
+                                 "from phase 4's ScanSession")
+        if launches[-1].get("scan_full", 0) < 3:
+            raise AssertionError(f"12a depth {depth}: launches "
+                                 f"{launches[-1]}")
+        runs[depth].append({
+            "window_ms": window_s * 1e3, "kernel_ms": kernel_ms,
+            "first_batch_ms": first_s * 1e3, "build_s": run.build_s[0],
+            "feed_s": feed_s, "stages_ms": run.stages_ms()})
+        log(f"phase 12a depth {depth}: {len(run.bindings)} pods == phase "
+            f"4's bindings; fed 5000 nodes + {len(init_pods)} pods through "
+            f"the cache in {feed_s:.2f} s; first batch (session build "
+            f"{run.build_s[0]:.3f} s) {first_s * 1e3:.1f} ms; 2 measured "
+            f"batches {window_s * 1e3:.1f} ms, kernel {kernel_ms:.3f} ms by "
+            f"CUDA events; host stages " + ", ".join(
+                f"{k} {v:.1f} ms" for k, v in run.stages_ms().items())
+            + f"; rung {be.ladder.mode()}, 0 faults [{gpu}]")
+        if depth == 1:
+            world = (cache, be, run)
+    n = 2 * BATCH
+    for depth, rs in runs.items():
+        med = {k: statistics.median(r[k] for r in rs)
+               for k in ("window_ms", "kernel_ms", "first_batch_ms",
+                         "build_s", "feed_s")}
+        med["stages_ms"] = {k: statistics.median(r["stages_ms"][k]
+                                                 for r in rs)
+                            for k in rs[0]["stages_ms"]}
+        med["pods_per_s"] = n / med["window_ms"] * 1e3
+        med["kernel_share"] = med["kernel_ms"] / med["window_ms"]
+        med["windows_ms"] = [r["window_ms"] for r in rs]
+        out[f"depth{depth}"] = med
+        log(f"phase 12a depth {depth}, median of {len(rs)} runs: "
+            f"{med['window_ms']:.1f} ms for {n} pods ({med['pods_per_s']:.1f} "
+            f"pods/s; windows {[round(w, 1) for w in med['windows_ms']]}), "
+            f"kernel share {med['kernel_share']:.1%}, wait "
+            f"{med['stages_ms']['wait']:.1f} ms, session build "
+            f"{med['build_s']:.3f} s [{gpu}]")
+    out["depth_gain_ms"] = out["depth1"]["window_ms"] - \
+        out["depth2"]["window_ms"]
+    out["enqueue"] = enqueue_probe(gpu, world[1])
+    return out, world, launches
+
+
+def enqueue_probe(gpu, be):
+    """What the pinned uploads buy: the host time of one
+    `ScanSession.schedule` (batch prep, staged uploads, launch) on the
+    card idle and with the previous batch's kernel still running, on a
+    scratch session from `be`'s encoding (its launches are not the
+    backend's and no phase-12 count includes them)."""
+    import torch
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+    from kubernetes_tpu_torch.testing.synth import synth_pending_pods
+
+    pods = synth_pending_pods(2 * BATCH, spread=True)
+    arrays = [{k: v for k, v in be.pe.encode(p).items()
+               if not k.startswith("_")} for p in pods]
+    sess = ScanSession(be.enc.scratch_state("cuda"),
+                       list(be._known_templates.values()), device="cuda")
+    times = {"idle_ms": [], "busy_ms": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.schedule(arrays[:BATCH])
+        times["idle_ms"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()       # the first batch's kernel runs
+        sess.schedule(arrays[BATCH:])
+        times["busy_ms"].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    out = {k: statistics.median(v) for k, v in times.items()}
+    log(f"phase 12a enqueue: one {BATCH}-pod ScanSession.schedule takes "
+        f"{out['idle_ms']:.2f} ms of host time on an idle card and "
+        f"{out['busy_ms']:.2f} ms with the previous batch's kernel running "
+        f"(medians of 3) [{gpu}]")
+    return out
+
+
+def warm_launch(sess) -> None:
+    """The counterpart of the reference's warm_buckets that the backend
+    leaves out: one launch of a built ScanSession's kernel over a batch of
+    no pods (meta[0] = 0), on the current stream; the carries stay as
+    they are."""
+    import numpy as np
+    from kubernetes_tpu_torch.ops.scan import LANE, WEIGHT_ORDER, scan_full
+
+    if sess._carry is None:
+        sess._carry = sess._initial_carry()
+    dev = sess._stage({"meta": np.zeros(1 + LANE, np.int32),
+                       "match": np.zeros((LANE, 2 * LANE), np.int8)})
+    scan_full(dev["meta"], dev["match"], sess._get_statics(), sess._carry,
+              sess.shapes, tuple(int(sess.weights[k]) for k in WEIGHT_ORDER),
+              mode="full", mk=sess.multipod_k)
+
+
+def warm_child(flag: int) -> None:
+    """A fresh process: the first batch of 12a's cell through a backend,
+    with (1) or without (0) a warm launch of the kernel session as it is
+    built. Prints one JSON line."""
+    import torch
+    from kubernetes_tpu_torch.testing.synth import synth_cluster
+
+    nodes, init_pods = synth_cluster(5000, pods_per_node=2)
+    batches = zone_batches()
+    cache, be, _ = backend_world(nodes, init_pods,
+                                 [p for b in batches for p in b])
+    if flag:
+        build = be._build_session
+
+        def build_and_warm():
+            sess = build()
+            with be._on_stream():
+                warm_launch(sess)
+            return sess
+
+        be._build_session = build_and_warm
+    torch.cuda.synchronize()
+    run = BackendRun(cache, be)
+    try:
+        first_s = run.run(batches[:1])
+    finally:
+        run.close()
+    print(json.dumps({"warm": flag, "first_batch_ms": first_s * 1e3,
+                      "build_s": run.build_s[0],
+                      "scan_ms": run.kernel_ms(0)}), flush=True)
+
+
+def warm_compare(gpu):
+    """12a's first batch in two fresh processes, warm launch off and on."""
+    out = {}
+    for flag in (0, 1):
+        res = subprocess.run(
+            [sys.executable, "-c",
+             f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+             f"chip_smoke.warm_child({flag})"],
+            capture_output=True, text=True, timeout=300, cwd=HERE)
+        if res.returncode != 0:
+            raise AssertionError(f"12a warm child {flag} failed:\n"
+                                 f"{res.stderr[-3000:]}")
+        out["warm" if flag else "cold"] = json.loads(
+            res.stdout.strip().splitlines()[-1])
+    log(f"phase 12a first batch in a fresh process: without the warm launch "
+        f"{out['cold']['first_batch_ms']:.1f} ms (build "
+        f"{out['cold']['build_s']:.3f} s, launches by CUDA events "
+        f"{out['cold']['scan_ms']:.3f} ms), with it "
+        f"{out['warm']['first_batch_ms']:.1f} ms (build "
+        f"{out['warm']['build_s']:.3f} s, launches {out['warm']['scan_ms']:.3f}"
+        f" ms) [{gpu}]")
+    return out
+
+
+def phase_backend_affinity(sk, gpu, pref):
+    """Phase 12b: phase 6's preferred-affinity cell through the backend
+    (ur > 0), its batches at max_pending 2; bindings == phase 6's."""
+    name, nodes, init_pods, pending, _, _ = affinity_workload(pref["kind"])
+    cache, be, feed_s = backend_world(nodes, init_pods, pending)
+    batches, lo = [], 0
+    for size in AFF_BATCHES:
+        batches.append(pending[lo:lo + size])
+        lo += size
+    before, lbefore = counters(), dict(sk.VARIANT_LAUNCHES)
+    run = BackendRun(cache, be)
+    try:
+        run.run(batches[:1])
+        k0 = len(run.events)
+        run.reset()
+        window_s = run.run(batches[1:], measured=True)
+        kernel_ms = run.kernel_ms(k0)
+    finally:
+        run.close()
+    delta = counters_delta(before)
+    launches = launched(sk, lbefore)
+    assert_top_rung(be, delta, "12b")
+    if run.bindings != pref["bindings"]:
+        bad = sum(run.bindings.get(k) != v for k, v in pref["bindings"].items())
+        raise AssertionError(f"12b: {bad} bindings differ from phase 6's")
+    if launches.get("scan_full_ipa", 0) < len(AFF_BATCHES):
+        raise AssertionError(f"12b: launches {launches}")
+    n = sum(AFF_BATCHES[1:])
+    log(f"phase 12b {name}: {len(run.bindings)} pods == phase 6's bindings; "
+        f"feed {feed_s:.2f} s, build {run.build_s[0]:.3f} s; "
+        f"{n / window_s:.1f} pods/s over the {len(AFF_BATCHES) - 1} measured "
+        f"batches at max_pending 2, kernel {kernel_ms:.3f} ms by CUDA events "
+        f"({kernel_ms / (window_s * 1e3):.1%} of the window); host stages "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in run.stages_ms().items())
+        + f"; launches {launches} [{gpu}]")
+    return {"cell": f"12b {name}", "pods_per_s": n / window_s,
+            "stages_ms": run.stages_ms(),
+            "window_ms": window_s * 1e3, "kernel_ms": kernel_ms,
+            "kernel_share": kernel_ms / (window_s * 1e3),
+            "build_s": run.build_s[0], "feed_s": feed_s,
+            "launches": launches}
+
+
+def phase_backend_churn(sk, gpu, world, nodes):
+    """Phase 12c: phase 9's zone-spread events as cache events into 12a's
+    depth-1 backend, queued as deltas (the cap KTPU_MAX_QUEUED_DELTAS);
+    the next batch flushes them; its bindings and the carries after it
+    equal those of a fresh backend fed the mutated cluster."""
+    import random
+
+    import numpy as np
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+    from kubernetes_tpu_torch.testing.synth import synth_pending_pods
+
+    cache, be, run = world
+    sess = be._session
+    if not isinstance(sess, ScanSession):
+        raise AssertionError(f"12c: the live session is {type(sess).__name__}")
+    placed = [p for p in cache.list_pods()
+              if p.metadata.name.startswith("pending-")]
+    events = churn_events({"enc": be.enc, "sess": sess, "pending": placed},
+                          random.Random(9))
+    before, lbefore = counters(), dict(sk.VARIANT_LAUNCHES)
+    t0 = time.perf_counter()
+    for kind, obj in events:
+        if kind == "add":
+            cache.add_pod(obj)
+        elif kind == "remove":
+            cache.remove_pod(obj)
+        else:
+            cache.update_node(obj)
+    events_ms = (time.perf_counter() - t0) * 1e3
+    queued = len(be._deltas)
+    if be._session is not sess or queued != len(events):
+        raise AssertionError(f"12c: {queued} of {len(events)} events queued "
+                             f"(session kept: {be._session is sess})")
+    flush = {}
+    orig_flush = be._apply_session_deltas_locked
+
+    def timed_flush():
+        t = time.perf_counter()
+        orig_flush()
+        flush.setdefault("ms", (time.perf_counter() - t) * 1e3)
+
+    be._apply_session_deltas_locked = timed_flush
+    next_pods = synth_pending_pods(BATCH, spread=True)
+    for i, p in enumerate(next_pods):
+        p.metadata.name = f"next-{i}"
+    live = BackendRun(cache, be)
+    try:
+        live.run([next_pods])
+    finally:
+        live.close()
+    delta = counters_delta(before)
+    launches = launched(sk, lbefore)
+    assert_top_rung(be, delta, "12c")
+    applies = sum(delta["session_delta_applies"].values())
+    rebuilds = sum(delta["session_rebuilds"].values())
+    if applies != len(events) or rebuilds or be._session is not sess:
+        raise AssertionError(f"12c: {applies} deltas applied, {rebuilds} "
+                             f"rebuilds {delta['session_rebuilds']}")
+    if launches.get("scan_delta") != 1 or launches.get("scan_full") != 1:
+        raise AssertionError(f"12c: launches {launches}")
+    # a fresh backend fed the mutated cluster, nodes in the live lanes'
+    # order
+    cur_nodes, bound = cache.dump()
+    by_name = {n.metadata.name: n for n in cur_nodes}
+    mut_nodes = [by_name[n] for n in be.enc.node_names if n]
+    bound = [p for p in bound if not p.metadata.name.startswith("next-")]
+    t0 = time.perf_counter()
+    fcache, fresh, _ = backend_world(mut_nodes, bound, next_pods)
+    frun = BackendRun(fcache, fresh)
+    try:
+        frun.run([next_pods])
+    finally:
+        frun.close()
+    fresh_s = time.perf_counter() - t0
+    want = {k: v for k, v in frun.bindings.items()}
+    got = {k: live.bindings[k] for k in want}
+    if got != want:
+        bad = sum(got[k] != want[k] for k in want)
+        raise AssertionError(f"12c: {bad} of the next batch's bindings "
+                             "differ from a fresh backend's")
+    if list(fresh.enc.node_names[:fresh.enc.n_lanes]) != \
+            list(be.enc.node_names[:be.enc.n_lanes]):
+        raise AssertionError("12c: the fresh backend's lanes differ")
+    a = unscaled(sess, sess._carry)
+    b = unscaled(fresh._session, fresh._session._carry)
+    diff = [k for k in b if not np.array_equal(a[k], b[k])]
+    if diff:
+        raise AssertionError(f"12c: carries {diff} differ from a fresh "
+                             "backend's")
+    log(f"phase 12c churn: {len(events)} cache events in {events_ms:.1f} ms, "
+        f"all {queued} queued as deltas (cap {be.max_queued_deltas}); the "
+        f"next {BATCH}-pod batch flushed them ({applies:.0f} delta applies, "
+        f"{rebuilds:.0f} rebuilds, one scan_delta launch; flush "
+        f"{flush.get('ms', 0.0):.3f} ms) and bound as a fresh backend fed "
+        f"the mutated cluster (built and run in {fresh_s:.2f} s); carries "
+        f"after it equal (unscaled, valid lanes) [{gpu}]")
+    return {"cell": "12c churn", "events": len(events),
+            "events_ms": events_ms, "deltas_applied": applies,
+            "rebuilds": rebuilds, "flush_ms": flush.get("ms"),
+            "fresh_s": fresh_s, "launches": launches}
+
+
+def phase_backend_host_ports(sk, gpu):
+    """Phase 12d: 11c's pods (cut to BACKEND_HOST_PODS) through the backend
+    on the card and on the CPU: a HoistedSession (reason host-ports) on
+    both, equal bindings, 0 device faults."""
+    from kubernetes_tpu_torch.api import types as v1
+    from kubernetes_tpu_torch.testing.synth import (
+        synth_cluster,
+        synth_pending_pods,
+    )
+
+    nodes, init_pods = synth_cluster(5000, pods_per_node=2)
+    pending = synth_pending_pods(BACKEND_HOST_PODS, spread=True)
+    for i, p in enumerate(pending):
+        if i % 4 == 1:
+            p.spec.containers[0].ports = [v1.ContainerPort(
+                host_port=HOST_PORT, container_port=HOST_PORT)]
+    out = {"cell": "12d host ports", "pods": len(pending)}
+    bindings = {}
+    for device in ("cuda", "cpu"):
+        cache, be, _ = backend_world(nodes, init_pods, pending,
+                                     device=device)
+        before = counters()
+        run = BackendRun(cache, be)
+        try:
+            window_s = run.run([pending])
+        finally:
+            run.close()
+        delta = counters_delta(before)
+        builds = delta["session_builds"]
+        # the CPU backend's top rung is the hoisted session itself
+        reason = "host-ports" if device == "cuda" else "platform is not cuda"
+        if builds != {("hoisted", reason, ""): 1.0} \
+                or delta["device_faults"]:
+            raise AssertionError(f"12d {device}: builds {builds}, faults "
+                                 f"{delta['device_faults']}")
+        bindings[device] = run.bindings
+        out[f"{device}_ms_per_pod"] = window_s * 1e3 / len(pending)
+    if bindings["cuda"] != bindings["cpu"]:
+        raise AssertionError("12d: the card's backend binds otherwise than "
+                             "the CPU's")
+    ported = [bindings["cuda"][p.metadata.name] for i, p in enumerate(pending)
+              if i % 4 == 1 and bindings["cuda"][p.metadata.name]]
+    if len(ported) != len(set(ported)):
+        raise AssertionError("12d: two pods share a (node, port)")
+    log(f"phase 12d host ports: {len(pending)} pods through the backend, "
+        f"HoistedSession (reason host-ports) on cuda and on cpu, equal "
+        f"bindings, {len(ported)} hostPort pods on distinct nodes, 0 device "
+        f"faults; {out['cuda_ms_per_pod']:.3f} ms per pod on the card, "
+        f"{out['cpu_ms_per_pod']:.3f} on the CPU [{gpu}]")
+    return out
+
+
+def phase_backend_faults(sk, gpu, zone, nodes, init_pods):
+    """Phase 12e: 12a's pods through a backend with a FaultInjector: a NaN
+    harvest on one pipelined batch (re-driven on the kernel), then a
+    dispatch raise on another that persists through the retries (three
+    consecutive faults demote the ladder; the batch re-drives on the
+    hoisted rung); the probe (KTPU_PROBE_INTERVAL short) re-promotes the
+    ladder within the run, and the next batches run on the kernel again.
+    Every binding equals 12a's (phase 4's)."""
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+    from kubernetes_tpu_torch.scheduler.degradation import RUNG_KERNEL
+    from kubernetes_tpu_torch.testing.faults import FaultInjector
+
+    pending = [p for b in zone_batches() for p in b]
+    os.environ["KTPU_PROBE_INTERVAL"] = "0.05"
+    try:
+        cache, be, _ = backend_world(nodes, init_pods, pending)
+    finally:
+        del os.environ["KTPU_PROBE_INTERVAL"]
+    inj = FaultInjector()
+    be.faults = inj
+    be.retry_base = 0.0  # the demoted re-drive starts before any probe
+    s = DRILL_SMALL
+    parts = [pending[:BATCH], pending[BATCH:BATCH + s],
+             pending[BATCH + s:BATCH + 2 * s],
+             pending[BATCH + 2 * s:2 * BATCH], pending[2 * BATCH:]]
+    before, lbefore = counters(), dict(sk.VARIANT_LAUNCHES)
+    run = BackendRun(cache, be)
+    t0 = time.perf_counter()
+    try:
+        run.run(parts[:1])
+        inj.arm("nan-harvest", shots=1)
+        run.run(parts[1:2])
+        if be.ladder.rung() != RUNG_KERNEL:
+            raise AssertionError("12e: a NaN harvest demoted the ladder")
+        inj.arm("raise-dispatch", shots=3, min_rung=RUNG_KERNEL)
+        run.run(parts[2:3])
+        demoted = be.ladder.demotions
+        deadline = time.monotonic() + 30
+        while be.ladder.rung() != RUNG_KERNEL and time.monotonic() < deadline:
+            time.sleep(0.01)
+        promoted_s = time.perf_counter() - t0
+        if be.ladder.rung() != RUNG_KERNEL:
+            raise AssertionError("12e: the probe did not re-promote")
+        lk = dict(sk.VARIANT_LAUNCHES)
+        run.run(parts[3:])
+        on_kernel = isinstance(be._session, ScanSession) and \
+            sk.VARIANT_LAUNCHES["scan_full"] > lk["scan_full"]
+    finally:
+        run.close()
+        be.close()
+    delta = counters_delta(before)
+    faults = delta["device_faults"]
+    builds = delta["session_builds"]
+    if not demoted or not on_kernel or faults.get(("invalid",), 0) < 1 \
+            or faults.get(("raise",), 0) < 3 \
+            or ("hoisted", "ladder-demoted", "") not in builds:
+        raise AssertionError(f"12e: demotions {demoted}, back on the kernel "
+                             f"{on_kernel}, faults {faults}")
+    if run.bindings != zone["bindings"]:
+        bad = sum(run.bindings.get(k) != v for k, v in zone["bindings"].items())
+        raise AssertionError(f"12e: {bad} bindings differ from 12a's")
+    log(f"phase 12e fault drill: NaN harvest -> re-driven on the kernel; "
+        f"dispatch raise x3 -> demoted to hoisted, re-driven there; the "
+        f"probe re-promoted to kernel {promoted_s:.2f} s into the drill, and "
+        f"the next batches ran on the kernel; all {len(run.bindings)} "
+        f"bindings == 12a's; faults {faults}; builds {builds}; injected "
+        f"{inj.injected} [{gpu}]")
+    return {"cell": "12e fault drill", "faults": {k[0]: v for k, v in
+                                                   faults.items()},
+            "demotions": demoted, "promotions": be.ladder.promotions,
+            "promoted_s": promoted_s,
+            "builds": {"/".join(k[:2]): v for k, v in builds.items()},
+            "launches": launched(sk, lbefore)}
+
+
+def phase_backend(sk, gpu, zone, pref):
+    """Phase 12: the backend on the card. Returns (numbers, launches per
+    kernel variant over 12a-12c plus 12e)."""
+    from kubernetes_tpu_torch.testing.synth import synth_cluster
+
+    nodes, init_pods = synth_cluster(5000, pods_per_node=2)
+    out = {}
+    total = dict.fromkeys(sk.VARIANT_LAUNCHES, 0)
+    out["12a"], world, launches = phase_backend_zone(sk, gpu, zone, nodes,
+                                                     init_pods)
+    out["12a"]["warm"] = warm_compare(gpu)
+    out["12b"] = phase_backend_affinity(sk, gpu, pref)
+    out["12c"] = phase_backend_churn(sk, gpu, world, nodes)
+    out["12d"] = phase_backend_host_ports(sk, gpu)
+    out["12e"] = phase_backend_faults(sk, gpu, zone, nodes, init_pods)
+    for got in (*launches, out["12b"]["launches"],
+                out["12c"]["launches"], out["12e"]["launches"]):
+        for k, v in got.items():
+            total[k] += v
+    return out, total
+
+
 def ipa_ops(ipa, t) -> tuple:
     """The IPA branch's operations for one template-t pod, from the
     session's gate matrices: only the nonzero gate entries of the terms
@@ -2388,6 +3114,7 @@ def main() -> int:
              phase_churn_affinity(sk, gpu, aff[0])]
     probe_entries = phase_probes(gpu)                              # 10
     hoisted = phase_hoisted(gpu, zone, aff[0], churn[0])           # 11
+    backend, backend_launches = phase_backend(sk, gpu, zone, aff[0])  # 12
 
     zone["err"] = max(zone["err"], small_err)
     # scan_full_ipa reports its slower cell; `cells` keeps both cells'
@@ -2433,8 +3160,24 @@ def main() -> int:
     idle = [e["name"] for e in kernels if not e["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on their path: {idle}")
+    # phase 12: each kernel's launches by the backend's calls
+    for e in kernels:
+        variants = {"scan_full": ("scan_full",),
+                    "scan_full_ipa": ("scan_full_ipa",),
+                    "scan_multi": ("scan_multi", "scan_multi_ipa"),
+                    "scan_eval": ("scan_eval", "scan_eval_ipa"),
+                    "scan_apply": ("scan_apply", "scan_apply_ipa"),
+                    "scan_delta": ("scan_delta",)}.get(e["name"], ())
+        e["backend_launches"] = sum(backend_launches.get(v, 0)
+                                    for v in variants)
+    idle = [n for n in ("scan_full", "scan_full_ipa", "scan_delta")
+            if not next(e for e in kernels if e["name"] == n)[
+                "backend_launches"]]
+    if idle:
+        raise AssertionError(f"kernels the backend never launched: {idle}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"hoisted_session": hoisted}))
+    log(json.dumps({"backend": backend}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

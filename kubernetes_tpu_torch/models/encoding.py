@@ -6,7 +6,8 @@ copy. The device half holds torch tensors: device_state(device) uploads
 the matrices once and then rewrites only dirty rows in place, one
 index_copy_ per row array; scratch_state(device) is a fresh upload that
 shares nothing with that cache; cluster_from_numpy turns any numpy
-cluster dict (host_snapshot() of either package) into the same tensors.
+cluster dict (host_snapshot() of either package) into the same tensors;
+StagingRing uploads per-batch payloads through pinned host buffers.
 
 The reference scheduler walks Go object graphs per node inside its hot loop
 (reference: pkg/scheduler/framework/runtime/framework.go:723 RunScorePlugins,
@@ -95,6 +96,66 @@ def _upload(a, device: torch.device) -> torch.Tensor:
     """Copy of one numpy array as a tensor on `device`, same dtype (never
     a view of the host buffer, which mutates in place)."""
     return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+class StagingRing:
+    """Per-batch uploads to the card through a ring of pinned host
+    buffers, copied with `non_blocking=True` on the current stream.
+
+    A copy from pageable memory waits for the work queued before it on
+    the stream (the running scan), so a dispatch that uploads its batch
+    that way cannot overlap the batch before it. A copy from pinned
+    memory returns at once, but it reads its buffer whenever the stream
+    reaches it: the buffer must not be rewritten until then. So the ring
+    keeps `depth` staging sets (one per batch in flight), records an
+    event after each set's copies, and rewrites a set only after the
+    event of the batch that last used it has completed (waiting for it
+    if not). `event_factory` makes those events (torch.cuda.Event;
+    stand-ins in the tests); `pin` False keeps ordinary host buffers
+    (a CPU-only torch build cannot pin memory)."""
+
+    def __init__(self, device, depth: int = 2, event_factory=None,
+                 pin: Optional[bool] = None):
+        self.device = torch.device(device)
+        self.depth = max(1, int(depth))
+        self.pin = self.device.type == "cuda" if pin is None else pin
+        self._event_factory = event_factory or torch.cuda.Event
+        self._sets: List[Dict[str, torch.Tensor]] = [
+            {} for _ in range(self.depth)]
+        self._events: List = [None] * self.depth
+        self._next = 0
+        self.waits = 0  # reuses that had to wait for their set's event
+
+    def _buffer(self, bufs: Dict, name: str, a: np.ndarray) -> torch.Tensor:
+        buf = bufs.get(name)
+        want = torch.from_numpy(np.empty(0, a.dtype)).dtype
+        if buf is None or buf.dtype != want or tuple(buf.shape) != a.shape:
+            buf = bufs[name] = torch.empty(a.shape, dtype=want,
+                                           pin_memory=self.pin)
+        return buf
+
+    def upload(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Stage `arrays` in the next set and enqueue their copies; returns
+        the device tensors, name for name."""
+        i = self._next
+        self._next = (i + 1) % self.depth
+        ev = self._events[i]
+        if ev is not None:
+            if not ev.query():
+                self.waits += 1
+                ev.synchronize()
+            self._events[i] = None
+        bufs = self._sets[i]
+        out = {}
+        for name, a in arrays.items():
+            a = np.ascontiguousarray(a)
+            buf = self._buffer(bufs, name, a)
+            buf.numpy()[...] = a
+            out[name] = buf.to(self.device, non_blocking=True)
+        ev = self._event_factory()
+        ev.record()
+        self._events[i] = ev
+        return out
 
 
 def cluster_from_numpy(host: Dict, device=None) -> Dict[str, torch.Tensor]:

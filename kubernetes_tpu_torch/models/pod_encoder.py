@@ -10,20 +10,18 @@ Encodings are cached by spec fingerprint: benchmark workloads (reference:
 test/integration/scheduler_perf/config/performance-config.yaml) create
 thousands of pods from one template, so the per-pod host cost amortizes to
 a dict lookup.
-
-Port of kubernetes_tpu/models/pod_encoder.py, a copy except for the
-volume device path: the reference's `volume_resolver` hook (None unless
-the scheduler loop installs one) and its branches are left out, so an
-encoding here equals the reference's with no resolver set.
 """
 
 from __future__ import annotations
+
+import json
 
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..api import types as v1
+from ..utils import serde
 from ..api.labels import Selector
 from ..api.taints import (
     TAINT_EFFECT_NO_EXECUTE,
@@ -76,21 +74,57 @@ class PodEncoder:
         self.ignored_resource_groups = ignored_resource_groups or set()
         self.default_constraints = default_constraints or []
         self._cache: Dict[str, dict] = {}
+        # volume device path (scheduler/volume_device.py): resolves a
+        # bound-PVC pod's volume constraints into extra node-affinity
+        # term groups + attach-count scalars. None = PVC pods never
+        # reach this encoder (the oracle diversion).
+        self.volume_resolver = None
 
     def encode(self, pod: v1.Pod) -> dict:
-        fp = _fingerprint(pod)
+        # PVC-bearing pods: the kernel inputs depend on volumes ONLY
+        # through the RESOLUTION (term groups + attach scalars), so the
+        # cache key embeds that and drops the volumes section — 5000
+        # PV pods with 5000 distinct claim names in the same zone share
+        # ONE encode instead of missing per pod (the per-pod ~2ms
+        # re-encode was SchedulingInTreePVs-5000n's dominant host cost)
+        vol = None
+        vol_sig = None
+        if self.volume_resolver is not None and any(
+            (v.source or {}).get("persistentVolumeClaim")
+            for v in pod.spec.volumes or []
+        ):
+            vol = self.volume_resolver.resolve(pod)
+            if vol is not None:
+                vol_sig = json.dumps(
+                    [[serde.to_dict(t) for t in g] for g in vol.term_groups],
+                    sort_keys=True, default=str,
+                ) + "|" + json.dumps(sorted(vol.extra_scalars.items()))
+        fp = (
+            _fingerprint(pod, strip_volumes=True) + "#V" + vol_sig
+            if vol_sig is not None else _fingerprint(pod)
+        )
         cached = self._cache.get(fp)
-        if cached is not None and cached["_caps"] == self._caps_signature():
+        if (
+            cached is not None
+            and cached["_caps"] == self._caps_signature()
+            and cached["_volver"] in (None, self._vol_version())
+        ):
             out = dict(cached)
             # node-name index depends on current node table, not the spec
             out["node_name_idx"], out["has_node_name"] = self._node_name(pod)
             return out
-        arrays = self._encode(pod)
+        arrays = self._encode(pod, vol=vol, have_vol=vol_sig is not None)
         arrays["_caps"] = self._caps_signature()
         self._cache[fp] = arrays
         out = dict(arrays)
         out["node_name_idx"], out["has_node_name"] = self._node_name(pod)
         return out
+
+    def _vol_version(self):
+        return (
+            self.volume_resolver.version
+            if self.volume_resolver is not None else None
+        )
 
     def _caps_signature(self) -> tuple:
         e = self.enc
@@ -107,11 +141,45 @@ class PodEncoder:
 
     # ------------------------------------------------------------------
 
-    def _encode(self, pod: v1.Pod) -> dict:
+    def _encode(self, pod: v1.Pod, vol=None, have_vol: bool = False) -> dict:
         enc = self.enc
         enc._intern_pod_vocabs(pod)
         pod_info = PodInfo(pod)
         out: dict = {}
+
+        # volume device path: resolve bound-PVC constraints FIRST so the
+        # attach-limit scalar names intern before the resource width is
+        # captured (a new driver widens the resource rows; device_state's
+        # _caps_grew rebuild aligns the cluster side). encode() may have
+        # resolved already (have_vol) — the resolution is part of its
+        # cache key.
+        out["_volver"] = None
+        if self.volume_resolver is not None and any(
+            (v.source or {}).get("persistentVolumeClaim")
+            for v in pod.spec.volumes or []
+        ):
+            out["_volver"] = self._vol_version()
+            if not have_vol:
+                vol = self.volume_resolver.resolve(pod)
+            if vol is None and not pod.spec.node_name:
+                # the scheduler gated this pod kernel-safe, but the
+                # resolution changed before encode (a PVC/assume event
+                # raced the cycle). Encoding WITHOUT the volume
+                # constraints would let the kernel violate the PV's node
+                # affinity — fail the attempt instead; the retry
+                # re-gates. (Bound pods are pinned by NodeName; encoding
+                # them without volume constraints is safe.)
+                from ..scheduler.volume_device import (
+                    VolumeResolutionChanged,
+                )
+
+                raise VolumeResolutionChanged(
+                    f"volume resolution changed for "
+                    f"{pod.metadata.namespace}/{pod.metadata.name}"
+                )
+            if vol is not None:
+                for name in vol.extra_scalars:
+                    enc.scalar_vocab.intern(name)
 
         # -- NodeResourcesFit (fit.go:148 computePodResourceRequest) -------
         res, _, _ = calculate_resource(pod)
@@ -131,11 +199,19 @@ class PodEncoder:
                 "/" in name and name.split("/", 1)[0] in self.ignored_resource_groups
             )
             check[2 + s] = not ignored
+        if vol is not None:
+            # attach limits ride the resource-fit mask as scalar dims
+            # (nodevolumelimits/csi.go -> attachable-volumes-csi-<drv>)
+            for name, val in vol.extra_scalars.items():
+                s = enc.scalar_vocab.intern(name)
+                req[2 + s] += val
+                check[2 + s] = True
         out["req"] = req
         out["req_check"] = check
         out["req_has_any"] = np.array(
             res.milli_cpu != 0 or res.memory != 0 or res.ephemeral_storage != 0
             or bool(res.scalar_resources)
+            or bool(vol is not None and vol.extra_scalars)
         )
         out["nz_req"] = np.array(
             [
@@ -189,6 +265,23 @@ class PodEncoder:
         sel_table, aff_terms, has_aff = compile_pod_node_constraints(
             pod, enc.node_key_vocab, enc.node_pair_vocab
         )
+        if vol is not None and vol.term_groups:
+            # bound-PV constraints (PV nodeAffinity + VolumeZone) join
+            # the pod's required node affinity by term distribution —
+            # mask_node_affinity then enforces them on-device
+            from ..scheduler.volume_device import (
+                _own_affinity_terms,
+                distribute_term_groups,
+            )
+            from .selectors import compile_node_selector_terms
+
+            combined = distribute_term_groups(
+                _own_affinity_terms(pod), vol.term_groups
+            )
+            aff_terms = compile_node_selector_terms(
+                combined, enc.node_key_vocab, enc.node_pair_vocab
+            )
+            has_aff = True
         nr = bucket_capacity(max(sel_table.n_reqs, 1), minimum=2)
         nv = bucket_capacity(max(sel_table.n_vals, 1), minimum=2)
         sel = sel_table.padded(nr, nv)

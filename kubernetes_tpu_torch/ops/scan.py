@@ -37,6 +37,11 @@ Layout notes (the same as the reference's, so the two compare directly):
 
 Host-port templates raise SessionUnsupported with a fixed reason slug:
 they ride ops/hoisted.py HoistedSession, as explain sessions do.
+
+On the card each batch's `meta` / `match` (and `forced` in apply mode)
+go up through a ring of `staging_depth` pinned host buffers
+(models/encoding.py StagingRing) with non-blocking copies, so that
+enqueueing batch k+1 does not wait for batch k's launch to finish.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.encoding import _upload
+from ..models.encoding import StagingRing, _upload
 from ..models.vocab import bucket_capacity
 from .hoisted import (
     SESSION_TP_NP_KEYS,
@@ -162,6 +167,9 @@ class ScanSession:
     HoistedSession."""
 
     supports_explain = False
+    # pinned staging sets for the per-batch uploads on the card: one per
+    # batch in flight (the backend sets its pipeline depth)
+    staging_depth = 2
 
     def __init__(self, cluster: Dict[str, torch.Tensor],
                  template_arrays_list: List[Dict],
@@ -236,6 +244,7 @@ class ScanSession:
                 "shared memory", reason="smem-budget")
         self._carry: Optional[Dict[str, torch.Tensor]] = None
         self._statics: Optional[Dict[str, torch.Tensor]] = None
+        self._ring: Optional[StagingRing] = None
 
     # -- host-side prologue remap ------------------------------------------
 
@@ -677,6 +686,15 @@ class ScanSession:
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return _upload(a, self.device)
 
+    def _stage(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """One batch's payload to the device: through the pinned ring on
+        the card, plain copies elsewhere."""
+        if self.device.type != "cuda":
+            return {k: self._upload(a) for k, a in arrays.items()}
+        if self._ring is None:
+            self._ring = StagingRing(self.device, depth=self.staging_depth)
+        return self._ring.upload(arrays)
+
     def _initial_carry(self) -> Dict[str, torch.Tensor]:
         carry = {
             "requested": self._upload(self._requested0),
@@ -726,20 +744,21 @@ class ScanSession:
             self._fps, self._tp_np, pod_arrays_list, minimum=LANE,
             require_unbound=mode == "full")
         meta, match = self._pack_batch(B, Bp, tmpl, mfa, msa)
-        fvec = None
+        payload = {"meta": meta, "match": match}
         if mode == "apply":
             fvec = np.zeros(2 * Bp, np.int32)
             for i, (lane, ok) in enumerate(forced):
                 fvec[2 * i] = lane
                 fvec[2 * i + 1] = ok
-            fvec = self._upload(fvec)
+            payload["forced"] = fvec
         if self._carry is None:
             self._carry = self._initial_carry()
+        dev = self._stage(payload)
         out = scan_full(
-            self._upload(meta), self._upload(match), self._get_statics(),
+            dev["meta"], dev["match"], self._get_statics(),
             self._carry, self.shapes,
             tuple(int(self.weights[k]) for k in WEIGHT_ORDER),
-            mode=mode, mk=mk, forced=fvec,
+            mode=mode, mk=mk, forced=dev.get("forced"),
         )
         return {"rows": out, "n": B}
 

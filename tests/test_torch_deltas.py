@@ -11,8 +11,9 @@ jnp program _carry_delta_scan, exactly.
   PallasSession's, array for array, on test_session_deltas.py's
   _pallas_fixture;
 - after seeded random churn (foreign pods bound and evicted, terminating
-  pods, allocatable bumps), classified by the port's
-  testing/churn.py exactly as the reference backend's classifiers do, the
+  pods, allocatable bumps), classified by the port's backend
+  (TPUBackend._queue_pod_delta / _queue_alloc_patch) exactly as the
+  reference backend's classifiers do, the
   patched session's carries equal a fresh session's (in unscaled units)
   and its next batch decides as the fresh session and
   PallasSession(interpret=True) do;
@@ -41,7 +42,7 @@ from kubernetes_tpu_torch.models.pod_encoder import PodEncoder
 from kubernetes_tpu_torch.ops import scan_kernel
 from kubernetes_tpu_torch.ops.hoisted import ipa_term_match_np
 from kubernetes_tpu_torch.ops.scan import ScanSession
-from kubernetes_tpu_torch.testing import churn
+from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend as PortBackend
 
 from .test_session_deltas import _pallas_fixture, _remove_delta, _spread_pod
 from .test_torch_encoding import _port_obj
@@ -406,20 +407,30 @@ def _ref_backend(enc, sess):
 
 
 def _port_deltas(enc, sess, events):
-    deltas = []
+    """The port's backend classifiers against `enc` and `sess`, as
+    _ref_backend runs the reference's."""
+    be = PortBackend(device="cpu")
+    be.enc = enc
+    be._session = sess
+    be.delta_patching = True
+    be._deltas = []
     for kind, obj in events:
         obj = _port_obj(obj)
+        n = len(be._deltas)
         if kind == "alloc":
-            d = churn.alloc_patch(sess, enc, obj)
+            old = ClusterEncoding.node_fingerprint(
+                enc._nodes[obj.metadata.name])
+            assert be._queue_alloc_patch(
+                obj, old, ClusterEncoding.node_fingerprint(obj))
         else:
             sign = 1 if kind == "add" else -1
             mutate = ((lambda p=obj: enc.add_pod(p, p.spec.node_name))
                       if sign > 0 else (lambda p=obj: enc.remove_pod(p)))
-            d = churn.pod_delta(sess, enc, obj, obj.spec.node_name, sign,
-                                mutate)
-        assert d is not None, (kind, obj.metadata.name)
-        deltas.append(d)
-    return deltas
+            assert be._queue_pod_delta(obj, obj.spec.node_name, sign,
+                                       mutate)
+        assert be._session is sess and len(be._deltas) == n + 1, (
+            kind, obj.metadata.name)
+    return be._deltas
 
 
 def _ref_deltas(enc, sess, events):
@@ -513,3 +524,35 @@ def test_random_churn_equals_fresh_session(seed, carry_path):
     assert decisions == ScanSession.decisions(fresh.schedule(second))
     assert decisions == ps.decisions(ps.schedule(second))
     assert any(d >= 0 for d in decisions)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_churn_wrappers_equal_backend_classifiers(seed):
+    """testing/churn.py's wrappers (what chip_smoke.py classifies with)
+    give the backend's deltas on the same churn, each on its own copy of
+    the encoding."""
+    from kubernetes_tpu_torch.testing import churn
+
+    nodes, bound, pending, foreign = _churn_cluster()
+    encs = [_presize(ClusterEncoding, PodEncoder, nodes, bound, pending,
+                     foreign, to_port=True) for _ in range(2)]
+    templates = _templates_of(encs[0][1])
+    sessions = [ScanSession(e.device_state("cpu"), templates, multipod_k=1,
+                            device="cpu") for e, _ in encs]
+    events = _events(seed, nodes, bound, foreign)
+    want = _port_deltas(encs[0][0], sessions[0], events)
+    enc, sess = encs[1][0], sessions[1]
+    got = []
+    for kind, obj in events:
+        obj = _port_obj(obj)
+        if kind == "alloc":
+            got.append(churn.alloc_patch(sess, enc, obj))
+        else:
+            sign = 1 if kind == "add" else -1
+            mutate = ((lambda p=obj: enc.add_pod(p, p.spec.node_name))
+                      if sign > 0 else (lambda p=obj: enc.remove_pod(p)))
+            got.append(churn.pod_delta(sess, enc, obj, obj.spec.node_name,
+                                       sign, mutate))
+    assert len(got) == len(want) == len(events)
+    for a, b in zip(got, want):
+        _same_delta(a, b)

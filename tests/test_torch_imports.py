@@ -26,6 +26,14 @@ VERBATIM = (
     "api/__init__.py", "api/types.py", "api/quantity.py", "api/labels.py",
     "api/taints.py", "utils/serde.py", "models/vocab.py",
     "models/selectors.py", "testing/synth.py", "testing/__init__.py",
+    "models/pod_encoder.py", "utils/metrics.py", "utils/tracing.py",
+    "utils/configz.py", "utils/selfstats.py", "scheduler/metrics.py",
+    "scheduler/core.py", "scheduler/framework/interface.py",
+    "scheduler/framework/types.py", "scheduler/framework/snapshot.py",
+    "scheduler/framework/runtime.py", "scheduler/internal/__init__.py",
+    "scheduler/internal/cache.py", "scheduler/plugins/helper.py",
+    "scheduler/plugins/volumes.py", "scheduler/volume_device.py",
+    "volume/csi_translation.py",
 )
 
 
