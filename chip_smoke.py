@@ -153,9 +153,39 @@ Phases (each raises on failure; the script then exits non-zero):
    applies; each kernel of the kernels' line carries `backend_launches`,
    and scan_full, scan_full_ipa and scan_delta must have some.
 
+13. the scheduler loop (`scheduler/scheduler.py` Scheduler: the port's
+   APIServer, informers, PriorityQueue and TPUBackend on the card, bound
+   through the apiserver), driven through its entry point
+   `perf.harness.run_workload`:
+   a. SchedulingBasic-500 (scripts/bench_configs.py's "basic" row: 500
+      nodes, 1000 init and 1000 measured pods, max_batch 1024) on the card
+      and on the CPU: every pod bound, to the same node on both; on the
+      card the ladder stays on the kernel rung, the session is
+      ScanSession, 0 device faults, scan_full launched;
+   b. Default-5000n-10k (the "default5000" row: 5000 nodes, 6144 init and
+      10000 measured zone-spread pods, max_batch 2048, kernel_direct):
+      every pod bound, every scan_full launch on the `CLUSTER`-block
+      cluster, loop_kernel_ratio > 0, and the bindings equal a fresh
+      backend's `schedule_many` replay of the batches in the order the
+      loop dispatched them, fed the same nodes through a SchedulerCache;
+      (d: the same cell again with the flight recorder on, level 1, for
+      the loop's per-stage span summary: pop, dispatch, wait, harvest,
+      assume, bind, ...);
+   c. the ladder through the loop (13a's cluster, max_batch 64): a
+      dispatch raise from the second measured batch on demotes to the
+      oracle rung, whose framework chain schedules the faulted batch; the
+      probe re-promotes to the kernel rung; a pod bound mid-run by another
+      actor reaches the live session as a delta (scan_delta launched);
+      every pod bound once, no node over its allocatable.
+   Each cell prints pods/s (mean, p50, p90), pod scheduling latency p50
+   and p99, attempts, the window and wall time, session builds, launches
+   per kernel variant, kernel ms per measured batch by CUDA events around
+   the backend's launches, the kernel share of the window and
+   loop_kernel_ratio; the kernels' line gains `loop_launches`.
+
 It prints the kernels' line, a `{"hoisted_session": ...}` line with phase
-11's numbers, a `{"backend": ...}` line with phase 12's, then `{"ok":
-true, "device": {...}}` last.
+11's numbers, a `{"backend": ...}` line with phase 12's, a `{"loop": ...}`
+line with phase 13's, then `{"ok": true, "device": {...}}` last.
 It needs a CUDA card and imports nothing of JAX or of the JAX package.
 """
 
@@ -2897,6 +2927,512 @@ def phase_backend(sk, gpu, zone, pref):
     return out, total
 
 
+# -- phase 13: the scheduler loop -------------------------------------------
+
+# scripts/bench_configs.py's "basic" and "default5000" rows
+LOOP_BASIC = dict(name="SchedulingBasic-500", num_nodes=500,
+                  num_init_pods=1000, num_pods=1000, max_batch=1024)
+LOOP_DEFAULT = dict(name="Default-5000n-10k", num_nodes=5000,
+                    num_init_pods=6144, num_pods=10000, max_batch=2048,
+                    timeout=900.0, spread=True)
+DRILL_BATCH = 64                 # phase 13c's max_batch
+DRILL_WAVES = (512, 488)         # 13c's measured pods: faulted wave, then clean
+
+
+class LoopRun:
+    """One `run_workload` call watched from outside: the harness's APIServer is captured (to list the
+    bindings), every batch the loop hands to `TPUBackend.dispatch_many`
+    is recorded in order (a copy of each pod, pending as dispatched), and
+    on the card each `scan_full` launch of the backend is bracketed with
+    CUDA events on the backend's stream, tagged "measured" (a batch of
+    measure-* pods), "init" (another loop batch) or "other" (launched
+    outside dispatch_many: the harness's kernel-direct rate)."""
+
+    def __init__(self, cuda: bool):
+        import copy
+
+        import torch
+        from kubernetes_tpu_torch.ops import scan as scan_mod
+        from kubernetes_tpu_torch.perf import harness
+        from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
+
+        self.apis, self.batches, self.events, self.backends = [], [], [], []
+        self._restore = []
+        self._tag = "other"
+        run = self
+
+        class CapturedAPIServer(harness.APIServer):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                run.apis.append(self)
+
+        orig_dispatch = TPUBackend.dispatch_many
+
+        def dispatch_many(be, pods):
+            if be not in run.backends:
+                run.backends.append(be)
+            batch = []
+            for p in pods:
+                q = copy.copy(p)
+                q.spec = copy.copy(p.spec)
+                batch.append(q)
+            run.batches.append(batch)
+            run._tag = "measured" if any(
+                p.metadata.name.startswith("measure-") for p in pods) \
+                else "init"
+            try:
+                return orig_dispatch(be, pods)
+            finally:
+                run._tag = "other"
+
+        orig_scan = scan_mod.scan_full
+
+        def scan_full(*args, **kwargs):
+            if not cuda:
+                return orig_scan(*args, **kwargs)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = orig_scan(*args, **kwargs)
+            e1.record()
+            run.events.append((run._tag, e0, e1))
+            return out
+
+        for obj, name, new in ((harness, "APIServer", CapturedAPIServer),
+                               (TPUBackend, "dispatch_many", dispatch_many),
+                               (scan_mod, "scan_full", scan_full)):
+            self._restore.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, new)
+
+    def close(self):
+        for obj, name, orig in reversed(self._restore):
+            setattr(obj, name, orig)
+
+    def kernel_ms(self, tags=("init", "measured")):
+        import torch
+
+        if self.events:
+            torch.cuda.synchronize()
+        return [a.elapsed_time(b) for t, a, b in self.events if t in tags]
+
+    def bindings(self):
+        from kubernetes_tpu_torch.client import Clientset
+
+        pods, _ = Clientset(self.apis[-1]).pods.list(namespace="default")
+        return {p.metadata.name: p.spec.node_name for p in pods}
+
+
+def loop_workload(spec, **extra):
+    """The harness's Workload for a LOOP_* row (`spread`: a zone
+    ScheduleAnyway spread on the init and measured templates)."""
+    from kubernetes_tpu_torch.perf.harness import PodTemplate, Workload
+
+    kw = dict(spec)
+    if kw.pop("spread", False):
+        kw["init_template"] = PodTemplate(spread_zone=True)
+        kw["template"] = PodTemplate(spread_zone=True)
+    kw.update(extra)
+    return Workload(**kw)
+
+
+def loop_cell(sk, gpu, label, w, device="cuda", trace=False):
+    """`run_workload(w, device=device)` under a LoopRun (with `trace`, the
+    flight recorder on at level 1 for the call, so that the harness
+    returns its per-stage span summary). Returns the cell's printed
+    numbers (the launches per kernel variant in the call: counts set to 0
+    just before it, read just after), the bindings and the LoopRun."""
+    from kubernetes_tpu_torch.perf.harness import run_workload
+    from kubernetes_tpu_torch.utils import tracing
+
+    cuda = device == "cuda"
+    before = counters()
+    if cuda:
+        reset_counts(sk)
+    run = LoopRun(cuda)
+    level = tracing.set_level(1) if trace else None
+    t0 = time.perf_counter()
+    try:
+        r = run_workload(w, device=device)
+    finally:
+        run.close()
+        if trace:
+            tracing.set_level(level)
+    wall_s = time.perf_counter() - t0
+    launches = {k: v for k, v in sk.VARIANT_LAUNCHES.items() if v} \
+        if cuda else {}
+    cluster = {k: v for k, v in sk.CLUSTER_LAUNCHES.items() if v} \
+        if cuda else {}
+    delta = counters_delta(before)
+    builds = {}
+    for key, v in delta["session_builds"].items():
+        builds[key[0]] = builds.get(key[0], 0) + int(v)
+    measured_ms = run.kernel_ms(("measured",))
+    loop_ms = run.kernel_ms()
+    window_ms = r.duration_s * 1e3
+    out = {
+        "cell": label, "device": device, "pods_per_s": r.throughput_avg,
+        "pods_per_s_p50": r.throughput_p50,
+        "pods_per_s_p90": r.throughput_p90,
+        "latency_p50_s": r.pod_scheduling_p50,
+        "latency_p99_s": r.pod_scheduling_p99,
+        "attempts": r.attempts, "bound": r.num_bound, "pods": w.num_pods,
+        "window_s": r.duration_s, "wall_s": wall_s,
+        "session_kind": r.session_kind,
+        "session_builds": builds,
+        "batches": len(run.batches),
+        "launches": launches, "cluster_launches": cluster,
+        "kernel_ms_per_batch": (statistics.mean(measured_ms)
+                                if measured_ms else None),
+        "kernel_ms_measured": sum(measured_ms),
+        "kernel_ms_loop": sum(loop_ms),
+        "kernel_share": (sum(measured_ms) / window_ms
+                         if measured_ms and window_ms else None),
+        "kernel_direct_pods_per_s": r.kernel_direct_pods_per_sec,
+        "loop_kernel_ratio": r.loop_kernel_ratio,
+    }
+    if trace:
+        out["stage_latency"] = r.stage_latency
+        out["stage_window_s"] = r.stage_window_s
+    if r.num_bound != w.num_pods:
+        raise AssertionError(f"{label} on {device}: {r.num_bound} of "
+                             f"{w.num_pods} measured pods bound")
+    bindings = run.bindings()
+    unbound = [k for k, v in bindings.items() if not v]
+    if unbound or len(bindings) != w.num_init_pods + w.num_pods:
+        raise AssertionError(f"{label} on {device}: {len(unbound)} pods "
+                             f"unbound of {len(bindings)}")
+    if cuda:
+        be = run.backends[-1]
+        if be.ladder.rung() != be.ladder.top or be.ladder.demotions \
+                or delta["device_faults"]:
+            raise AssertionError(f"{label}: ladder {be.ladder.mode()}, "
+                                 f"{be.ladder.demotions} demotions, faults "
+                                 f"{delta['device_faults']}")
+        if r.session_kind != "ScanSession" or not launches.get("scan_full"):
+            raise AssertionError(f"{label}: session {r.session_kind}, "
+                                 f"launches {launches}")
+    log(f"phase {label} on {device}: {r.num_bound} measured pods "
+        f"(+{w.num_init_pods} init) bound over {w.num_nodes} nodes; "
+        f"{r.throughput_avg} pods/s (p50 {r.throughput_p50}, p90 "
+        f"{r.throughput_p90}); pod scheduling latency p50 "
+        f"{r.pod_scheduling_p50} s, p99 {r.pod_scheduling_p99} s; "
+        f"{r.attempts} attempts; window {r.duration_s} s, wall "
+        f"{wall_s:.2f} s; {len(run.batches)} batches; session "
+        f"{r.session_kind}, builds in the call {builds}; launches "
+        f"{launches} (cluster sizes {cluster}); kernel "
+        + (f"{out['kernel_ms_per_batch']:.3f} ms per measured batch by CUDA "
+           f"events, {out['kernel_share']:.1%} of the window"
+           if measured_ms else "not timed (no CUDA events on the CPU)")
+        + f"; kernel-direct {r.kernel_direct_pods_per_sec} pods/s, "
+        f"loop_kernel_ratio {r.loop_kernel_ratio}"
+        + ("; stages (count, total ms): " + ", ".join(
+            f"{k} {int(v['count'])} {v['total_s'] * 1e3:.1f}"
+            for k, v in sorted((r.stage_latency or {}).items()))
+           + f" over {r.stage_window_s} s of spans" if trace else "")
+        + f" [{gpu}]")
+    return out, bindings, run
+
+
+def replay_bindings(batches, nodes, device="cuda"):
+    """The loop's batches, in the order it dispatched them, through a fresh
+    TPUBackend's `schedule_many` fed the same nodes through a
+    SchedulerCache; each batch's placements assumed back into the cache
+    (the loop's assume), as phase 12 does."""
+    from kubernetes_tpu_torch.scheduler.internal.cache import SchedulerCache
+    from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
+
+    be = TPUBackend(device=device)
+    be.enc.reserve(pods=int(sum(len(b) for b in batches) * 1.25))
+    cache = SchedulerCache()
+    cache.add_listener(be)
+    for node in nodes:
+        cache.add_node(node)
+    out = {}
+    try:
+        for batch in batches:
+            placed = []
+            for pod, node in be.schedule_many(batch):
+                out[pod.metadata.name] = node
+                if node:
+                    placed.append(assumed(pod, node))
+            cache.assume_pods(placed)
+    finally:
+        be.close()
+    return out
+
+
+def loop_drill(device, num_nodes=500, num_init=1000, waves=DRILL_WAVES,
+               max_batch=DRILL_BATCH, use_kernel=None):
+    """Phase 13c (and, small and on the CPU, tests/test_torch_loop.py):
+    the degradation ladder through the live scheduler loop. The harness's
+    cluster (nodes as run_workload makes them) through the port's
+    APIServer, informers and Scheduler(max_batch) on
+    TPUBackend(device); init pods bound on the top rung; then the first
+    wave of measured pods with a FaultInjector that makes every dispatch
+    raise from the wave's second batch on: the retries demote the ladder
+    to hoisted, then to oracle, where the framework's plugin chain
+    schedules pod by pod; once the oracle has scheduled a batch's worth,
+    the faulted batch's pods among them, the fault is disarmed and the
+    probe re-promotes the ladder rung by rung. The second wave runs on the
+    top rung again; before its second batch a pod bound straight to
+    node-7 by another actor is created through the apiserver, and the
+    cache listener queues it into the live session as a delta. Returns
+    the drill's numbers; raises if a pod binds twice, stays unbound, or a
+    node holds more than its allocatable."""
+    from kubernetes_tpu_torch.api import types as v1
+    from kubernetes_tpu_torch.api.quantity import parse_quantity
+    from kubernetes_tpu_torch.apiserver import APIServer
+    from kubernetes_tpu_torch.client import Clientset, SharedInformerFactory
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+    from kubernetes_tpu_torch.perf.harness import PodTemplate
+    from kubernetes_tpu_torch.scheduler import metrics
+    from kubernetes_tpu_torch.scheduler.degradation import RUNG_ORACLE
+    from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
+    from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
+    from kubernetes_tpu_torch.testing.faults import (
+        BindIntegrityChecker,
+        FaultInjector,
+    )
+    from kubernetes_tpu_torch.testing.synth import make_node, make_pod
+
+    api = APIServer()
+    cs = Clientset(api)
+    for i in range(num_nodes):
+        cs.nodes.create(make_node(f"node-{i}", labels={
+            v1.LABEL_HOSTNAME: f"node-{i}", v1.LABEL_ZONE: f"zone-{i % 3}",
+            v1.LABEL_REGION: f"region-{i % 3 % 2}"}))
+    factory = SharedInformerFactory(cs)
+    be = TPUBackend(device=device, use_kernel=use_kernel)
+    sched = Scheduler(cs, factory, backend="tpu", max_batch=max_batch,
+                      tpu_backend=be)
+    total = num_init + sum(waves)
+    be.enc.reserve(pods=int((total + 1) * 1.25))
+    be.retry_base = 0.0
+    ladder = be.ladder
+    ladder._probe_interval = ladder._probe_delay = 0.05
+    ladder._probe_max = 0.2
+    inj = FaultInjector()
+    sched.install_fault_injector(inj)
+    checker = BindIntegrityChecker().attach(factory.pods())
+    drill = {"wave": "init", "batches": 0, "faulted": set(), "oracle": [],
+             "foreign": False, "rung_at_foreign": None}
+    orig_dispatch = be.dispatch_many
+    orig_oracle = sched._schedule_one_oracle
+
+    def dispatch(pods):
+        drill["batches"] += 1
+        if drill["wave"] == "a" and not drill["faulted"] \
+                and drill["batches"] == 2:
+            inj.arm("raise-dispatch", shots=-1)
+            drill["faulted"] = {p.metadata.name for p in pods}
+            drill["t_fault"] = time.perf_counter()
+        if drill["wave"] == "b" and not drill["foreign"] \
+                and isinstance(be._session, ScanSession):
+            drill["foreign"] = True
+            drill["rung_at_foreign"] = ladder.mode()
+            drill["deltas0"] = sum(v for _, v in
+                                   metrics.session_delta_applies.items())
+            # the harness pods' requests and label: a new label value
+            # would grow the encoding's vocabulary, and requests off the
+            # kernel session's GCD scale leave its delta envelope (either
+            # is a rebuild)
+            cs.pods.create(make_pod("foreign", cpu=tmpl.cpu,
+                                    memory=tmpl.memory, node_name="node-7",
+                                    labels=dict(tmpl.labels)))
+            deadline = time.monotonic() + 30
+            while not sched.cache.has_pod("default/foreign") \
+                    and time.monotonic() < deadline:
+                time.sleep(0.005)
+        return orig_dispatch(pods)
+
+    def oracle(info):
+        if ladder.rung() == RUNG_ORACLE:
+            drill["oracle"].append(info.pod.metadata.name)
+            if len(drill["oracle"]) >= max_batch and inj.armed(
+                    "raise-dispatch") and drill["faulted"] <= set(
+                        drill["oracle"]):
+                inj.disarm("raise-dispatch")
+                drill["t_disarm"] = time.perf_counter()
+        return orig_oracle(info)
+
+    be.dispatch_many = dispatch
+    sched._schedule_one_oracle = oracle
+    tmpl = PodTemplate()
+
+    def stage(prefix, n, timeout=300.0):
+        sched.pause()
+        time.sleep(0.3)
+        bound0 = len(sched.bind_timestamps)
+        for i in range(n):
+            cs.pods.create(tmpl.build(f"{prefix}-{i}"))
+        deadline = time.monotonic() + 60
+        while sched.queue.num_active() < n and time.monotonic() < deadline:
+            time.sleep(0.02)
+        t0 = time.perf_counter()
+        sched.resume()
+        deadline = time.monotonic() + timeout
+        while len(sched.bind_timestamps) - bound0 < n:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"13c: wave {prefix} did not bind "
+                                     f"({len(sched.bind_timestamps) - bound0}"
+                                     f" of {n})")
+            time.sleep(0.01)
+        return time.perf_counter() - t0
+
+    t_start = time.perf_counter()
+    try:
+        factory.start()
+        if not factory.wait_for_cache_sync(timeout=180.0):
+            raise AssertionError("13c: informer sync failed")
+        sched.start()
+        init_s = stage("init", num_init)
+        drill["wave"], drill["batches"] = "a", 0
+        wave_a_s = stage("measure-a", waves[0])
+        deadline = time.monotonic() + 60
+        while ladder.rung() != ladder.top and time.monotonic() < deadline:
+            time.sleep(0.01)
+        repromoted_s = time.perf_counter() - drill.get("t_disarm", 0.0)
+        if ladder.rung() != ladder.top:
+            raise AssertionError(f"13c: the probe did not re-promote "
+                                 f"({ladder.mode()})")
+        drill["wave"] = "b"
+        wave_b_s = stage("measure-b", waves[1])
+        sched.pause()
+        sched._drain_pipeline(timeout=30.0)
+        deltas = sum(v for _, v in metrics.session_delta_applies.items()) \
+            - drill.get("deltas0", 0)
+    finally:
+        sched.shutdown()
+        factory.stop()
+    pods, _ = cs.pods.list(namespace="default")
+    nodes, _ = cs.nodes.list()
+    unbound = [p.metadata.name for p in pods if not p.spec.node_name]
+    used = {}
+    for p in pods:
+        u = used.setdefault(p.spec.node_name, [0, 0, 0])
+        for c in p.spec.containers:
+            req = c.resources.requests or {}
+            u[0] += parse_quantity(req.get("cpu", "0"))
+            u[1] += parse_quantity(req.get("memory", "0"))
+        u[2] += 1
+    over = []
+    for node in nodes:
+        a = node.status.allocatable
+        cap = (parse_quantity(a["cpu"]), parse_quantity(a["memory"]),
+               int(a["pods"]))
+        if any(x > c for x, c in zip(used.get(node.metadata.name,
+                                              (0, 0, 0)), cap)):
+            over.append(node.metadata.name)
+    binds = len(sched.bind_timestamps)
+    out = {
+        "cell": "13c ladder drill", "device": device, "nodes": num_nodes,
+        "pods": total, "max_batch": max_batch, "binds": binds,
+        "unbound": len(unbound), "overcommitted_nodes": over,
+        "bind_violations": list(checker.violations),
+        "faulted_batch": len(drill["faulted"]),
+        "oracle_pods": len(drill["oracle"]),
+        "faulted_on_oracle": drill["faulted"] <= set(drill["oracle"]),
+        "demotions": ladder.demotions, "promotions": ladder.promotions,
+        "rung_at_end": ladder.mode(), "rung_at_foreign": drill[
+            "rung_at_foreign"], "foreign": drill["foreign"],
+        "delta_applies": deltas, "injected": dict(inj.injected),
+        "init_s": init_s, "wave_a_s": wave_a_s, "wave_b_s": wave_b_s,
+        "repromoted_s": repromoted_s,
+        "wall_s": time.perf_counter() - t_start,
+    }
+    if unbound or binds != total or over or checker.violations \
+            or not out["faulted_on_oracle"] or ladder.demotions < 2 \
+            or ladder.promotions < 2 or ladder.rung() != ladder.top \
+            or not drill["foreign"] or deltas < 1:
+        raise AssertionError(f"13c: {out}")
+    return out
+
+
+def phase_loop(sk, gpu):
+    """Phase 13: the scheduler loop on the card through its entry points.
+    Returns (numbers, launches per kernel variant over the phase)."""
+    from kubernetes_tpu_torch.client import Clientset
+
+    total = dict.fromkeys(sk.VARIANT_LAUNCHES, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    out = {}
+    t0 = time.perf_counter()
+    # 13a: SchedulingBasic-500 on the card, then on the CPU
+    w = loop_workload(LOOP_BASIC, kernel_direct=True)
+    a, card, _ = loop_cell(sk, gpu, "13a", w)
+    add(a["launches"])
+    cpu, cpu_bind, _ = loop_cell(sk, gpu, "13a", loop_workload(LOOP_BASIC),
+                                 device="cpu")
+    if card != cpu_bind:
+        bad = sum(card.get(k) != v for k, v in cpu_bind.items())
+        raise AssertionError(f"13a: {bad} of {len(card)} bindings differ "
+                             "between the card and the CPU")
+    a["cpu"] = {k: cpu[k] for k in ("pods_per_s", "latency_p50_s",
+                                    "latency_p99_s", "window_s", "wall_s",
+                                    "session_kind")}
+    log(f"phase 13a: all {len(card)} bindings equal on the card and on the "
+        f"CPU [{gpu}]")
+    out["13a"] = a
+    # 13b: Default-5000n-10k; the bindings against a schedule_many replay
+    w = loop_workload(LOOP_DEFAULT, kernel_direct=True)
+    b, bind_b, run_b = loop_cell(sk, gpu, "13b", w)
+    add(b["launches"])
+    if b["launches"].get("scan_full") != b["cluster_launches"].get(
+            sk.CLUSTER) or len(b["cluster_launches"]) != 1:
+        raise AssertionError(f"13b: scan_full launches {b['launches']} not "
+                             f"all on the {sk.CLUSTER}-block cluster "
+                             f"({b['cluster_launches']})")
+    if not b["loop_kernel_ratio"] > 0:
+        raise AssertionError("13b: loop_kernel_ratio 0 (the kernel-direct "
+                             "measurement failed)")
+    t1 = time.perf_counter()
+    nodes, _ = Clientset(run_b.apis[-1]).nodes.list()
+    batches = run_b.batches
+    replay = replay_bindings(batches, nodes)
+    b["replay_s"] = time.perf_counter() - t1
+    diff = sorted(k for k in bind_b if replay.get(k) != bind_b[k])
+    b["replay_differs"] = len(diff)
+    if diff:
+        raise AssertionError(f"13b: {len(diff)} of {len(bind_b)} loop "
+                             f"bindings differ from the schedule_many "
+                             f"replay, first {diff[:5]}")
+    log(f"phase 13b: all {len(bind_b)} loop bindings equal a fresh "
+        f"backend's schedule_many replay of the loop's {len(batches)} "
+        f"batches ({b['replay_s']:.2f} s) [{gpu}]")
+    out["13b"] = b
+    # 13d: 13b again with the flight recorder on, for its stage split
+    d, _, _ = loop_cell(sk, gpu, "13d", loop_workload(LOOP_DEFAULT),
+                        trace=True)
+    add(d["launches"])
+    out["13d"] = d
+    # 13c: the ladder drill through the loop
+    reset_counts(sk)
+    c = loop_drill("cuda")
+    c["launches"] = {k: v for k, v in sk.VARIANT_LAUNCHES.items() if v}
+    add(c["launches"])
+    if not c["launches"].get("scan_delta") or not c["launches"].get(
+            "scan_full"):
+        raise AssertionError(f"13c: launches {c['launches']}")
+    log(f"phase 13c ladder drill: {c['pods']} pods over {c['nodes']} nodes "
+        f"at max_batch {c['max_batch']}, each bound once ({c['binds']} binds,"
+        f" 0 rebinds, no node over its allocatable); a dispatch raise from "
+        f"the first wave's 2nd batch on: {c['demotions']} demotions to "
+        f"oracle, the framework scheduled {c['oracle_pods']} pods "
+        f"(the faulted batch's {c['faulted_batch']} among them); the probe "
+        f"re-promoted to {c['rung_at_end']} {c['repromoted_s']:.2f} s after "
+        f"the fault was disarmed ({c['promotions']} promotions); a foreign "
+        f"pod bound mid-run reached the live session on the "
+        f"{c['rung_at_foreign']} rung ({c['delta_applies']} delta applies); "
+        f"launches {c['launches']}; wall {c['wall_s']:.2f} s [{gpu}]")
+    out["13c"] = c
+    out["phase_s"] = time.perf_counter() - t0
+    return out, total
+
+
 def ipa_ops(ipa, t) -> tuple:
     """The IPA branch's operations for one template-t pod, from the
     session's gate matrices: only the nonzero gate entries of the terms
@@ -3115,6 +3651,7 @@ def main() -> int:
     probe_entries = phase_probes(gpu)                              # 10
     hoisted = phase_hoisted(gpu, zone, aff[0], churn[0])           # 11
     backend, backend_launches = phase_backend(sk, gpu, zone, aff[0])  # 12
+    loop, loop_launches = phase_loop(sk, gpu)                      # 13
 
     zone["err"] = max(zone["err"], small_err)
     # scan_full_ipa reports its slower cell; `cells` keeps both cells'
@@ -3160,7 +3697,8 @@ def main() -> int:
     idle = [e["name"] for e in kernels if not e["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on their path: {idle}")
-    # phase 12: each kernel's launches by the backend's calls
+    # phases 12 and 13: each kernel's launches by the backend's calls and
+    # by the scheduler loop's
     for e in kernels:
         variants = {"scan_full": ("scan_full",),
                     "scan_full_ipa": ("scan_full_ipa",),
@@ -3170,14 +3708,21 @@ def main() -> int:
                     "scan_delta": ("scan_delta",)}.get(e["name"], ())
         e["backend_launches"] = sum(backend_launches.get(v, 0)
                                     for v in variants)
+        e["loop_launches"] = sum(loop_launches.get(v, 0) for v in variants)
     idle = [n for n in ("scan_full", "scan_full_ipa", "scan_delta")
             if not next(e for e in kernels if e["name"] == n)[
                 "backend_launches"]]
     if idle:
         raise AssertionError(f"kernels the backend never launched: {idle}")
+    idle = [n for n in ("scan_full", "scan_delta")
+            if not next(e for e in kernels if e["name"] == n)[
+                "loop_launches"]]
+    if idle:
+        raise AssertionError(f"kernels the loop never launched: {idle}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"hoisted_session": hoisted}))
     log(json.dumps({"backend": backend}))
+    log(json.dumps({"loop": loop}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

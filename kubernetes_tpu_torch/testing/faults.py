@@ -3,9 +3,9 @@
 Port of kubernetes_tpu/testing/faults.py (FaultInjector), for the
 backend's fault drills: the hooks are the reference's, and
 `corrupt_harvest` reads a tensor payload back to the host with `.cpu()`
-(np.asarray refuses a CUDA tensor) and returns tensors. The reference's
-gang and bind integrity checkers read the informer, and come with the
-scheduler loop.
+(np.asarray refuses a CUDA tensor) and returns tensors. The gang and
+bind integrity checkers are the reference's: they watch a pods informer
+of the scheduler loop.
 
 The backend holds an OPTIONAL `faults` attribute and calls the hooks
 below at the natural fault points; production code never imports this
@@ -200,3 +200,162 @@ class FaultInjector:
             import time
 
             time.sleep(self.stall_delay)
+
+
+class GangIntegrityChecker:
+    """Gang atomicity monitor for fault drills: a gang is always
+    all-bound, all-waiting, or all-rolled-back — never TORN (some live
+    members holding a binding while sibling members sit unbound) for
+    longer than `grace` seconds. Transient partials
+    are legal and expected: a committed wave binds as one batch but the
+    apiserver echoes its bindings one watch event at a time, and a
+    killed member's ReplicaSet replacement takes a moment to reserve and
+    re-complete the gang (bound siblings stay in the Coscheduling
+    reserved index, so the replacement counts them and the gang heals).
+    The grace window absorbs both; a gang that STAYS partial past it is
+    exactly the torn state the permit/rollback protocol exists to
+    prevent. Attach to any pods informer; read `violations` after the
+    drill and assert `partial_gangs()` is empty once converged."""
+
+    def __init__(self, grace: float = 15.0):
+        self.grace = grace
+        self._lock = threading.Lock()
+        # (namespace, group) -> {pod key: bound?} over LIVE members
+        # (deleting/deleted members left the gang — they are the
+        # rolled-back third of the invariant, not a partial state)
+        self._members: Dict[str, Dict[str, bool]] = {}
+        self._min_avail: Dict[str, int] = {}
+        self._partial_since: Dict[str, float] = {}
+        self._flagged: set = set()
+        self.violations = []
+
+    def attach(self, pods_informer) -> "GangIntegrityChecker":
+        from ..client.informer import EventHandler
+
+        pods_informer.add_event_handler(EventHandler(
+            on_add=self._on_add,
+            on_update=self._on_update,
+            on_delete=self._on_delete,
+        ))
+        return self
+
+    @staticmethod
+    def _gang_of(pod):
+        from ..scheduler.plugins.coscheduling import pod_group
+
+        group, min_available = pod_group(pod)
+        if not group or min_available <= 1:
+            return None, 0
+        return (pod.metadata.namespace, group), min_available
+
+    def _on_add(self, pod) -> None:
+        self._observe(pod)
+
+    def _on_update(self, old, new) -> None:
+        self._observe(new)
+
+    def _on_delete(self, pod) -> None:
+        gk, _ = self._gang_of(pod)
+        if gk is None:
+            return
+        key = f"{pod.metadata.namespace}/{pod.metadata.name}"
+        with self._lock:
+            members = self._members.get(gk)
+            if members is not None:
+                members.pop(key, None)
+                if not members:
+                    self._members.pop(gk, None)
+                    self._min_avail.pop(gk, None)
+            self._scan_locked()
+
+    def _observe(self, pod) -> None:
+        gk, min_available = self._gang_of(pod)
+        if gk is None:
+            return
+        key = f"{pod.metadata.namespace}/{pod.metadata.name}"
+        deleting = pod.metadata.deletion_timestamp is not None
+        with self._lock:
+            if deleting:
+                members = self._members.get(gk)
+                if members is not None:
+                    members.pop(key, None)
+            else:
+                self._members.setdefault(gk, {})[key] = bool(
+                    pod.spec.node_name)
+                self._min_avail[gk] = min_available
+            self._scan_locked()
+
+    def _scan_locked(self, now: Optional[float] = None) -> None:
+        import time
+
+        now = time.monotonic() if now is None else now
+        partial = self._partial_locked()
+        for gk in list(self._partial_since):
+            if gk not in partial:
+                del self._partial_since[gk]
+                self._flagged.discard(gk)  # episode over; re-flaggable
+        for gk, (bound, live, need) in partial.items():
+            since = self._partial_since.setdefault(gk, now)
+            if now - since > self.grace and gk not in self._flagged:
+                self._flagged.add(gk)
+                self.violations.append(
+                    f"{gk[0]}/{gk[1]}: partial gang for "
+                    f"{now - since:.1f}s ({bound}/{need} bound, "
+                    f"{live} live members)"
+                )
+
+    def _partial_locked(self) -> Dict:
+        # torn = some live members bound while others are not: the state
+        # the all-or-nothing permit protocol must never leave standing.
+        # A gang whose bound membership merely SHRANK below min-available
+        # (an external delete with no owner to replace the member) is
+        # all-bound-though-shrunk, not torn — the scheduler admitted it
+        # atomically and Kubernetes semantics keep bound pods bound.
+        out = {}
+        for gk, members in self._members.items():
+            need = self._min_avail.get(gk, 0)
+            if need <= 1 or not members:
+                continue
+            bound = sum(1 for b in members.values() if b)
+            if 0 < bound < len(members):
+                out[gk] = (bound, len(members), need)
+        return out
+
+    def partial_gangs(self) -> Dict:
+        """Current partial gangs: {(ns, group): (bound, live, need)} —
+        must be empty once the cluster has converged (the drill's final
+        zero-partial-gangs gate, grace-independent)."""
+        with self._lock:
+            self._scan_locked()
+            return dict(self._partial_locked())
+
+
+class BindIntegrityChecker:
+    """Double-bind detector for fault drills: a pod whose spec.nodeName
+    moves from one non-empty node to a DIFFERENT non-empty node was bound
+    twice — the invariant the fault-tolerant pipeline must never break
+    (the apiserver's binding endpoint Conflict-rejects the second bind,
+    so a violation surfacing here means a pod object was re-created or
+    rebound around that guard). Attach to any pods informer; read
+    `violations` after the drill."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.violations = []
+
+    def attach(self, pods_informer) -> "BindIntegrityChecker":
+        from ..client.informer import EventHandler
+
+        pods_informer.add_event_handler(
+            EventHandler(on_update=self._on_update))
+        return self
+
+    def _on_update(self, old, new) -> None:
+        o = old.spec.node_name
+        n = new.spec.node_name
+        if o and n and o != n:
+            with self._lock:
+                self.violations.append(
+                    f"{new.metadata.namespace}/{new.metadata.name}: "
+                    f"rebound {o} -> {n}"
+                )

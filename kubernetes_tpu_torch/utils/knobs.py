@@ -160,6 +160,8 @@ _declare("KTPU_DEMOTE_THRESHOLD", "int", 3,
          "one rung")
 _declare("KTPU_PROBE_INTERVAL", "float", 1.0,
          "re-promotion canary probe cadence seconds")
+_declare("KTPU_DRAIN_TIMEOUT", "float", DERIVED,
+         "pipeline drain budget seconds (default max(30, 3x watchdog))")
 _declare("KTPU_DEBUG_INVALIDATE", "flag", "",
          "debug: print a stack trace at every session teardown")
 
@@ -195,6 +197,51 @@ _declare("KTPU_EXPLAIN_TOPK", "int", 3,
 _declare("KTPU_SHADOW_SAMPLE", "float", 0.0,
          "fraction of decided pods the completion worker replays through "
          "the oracle parity sentinel (any rate > 0 turns explain on)")
+_declare("KTPU_SHADOW_BUNDLE_DIR", "str", "",
+         "where drift repro bundles land (unset = "
+         "$TMPDIR/ktpu-shadow-bundles)")
+
+# -- host overload monitor
+_declare("KTPU_OVERLOAD", "bool", True,
+         "host overload monitor: shed optional work under sustained "
+         "pressure (0 disables)")
+_declare("KTPU_OVERLOAD_FIFO_AGE", "float", 0.5,
+         "completion-FIFO age high-water mark seconds")
+_declare("KTPU_OVERLOAD_FIFO_AGE_LOW", "float", DERIVED,
+         "FIFO-age low mark (default 0.2x the high mark)")
+_declare("KTPU_OVERLOAD_QUEUE_DEPTH", "int", DERIVED,
+         "scheduling-queue depth high mark (default max(256, 4x "
+         "max_batch))")
+_declare("KTPU_OVERLOAD_QUEUE_DEPTH_LOW", "int", DERIVED,
+         "queue-depth low mark (default high//4)")
+_declare("KTPU_OVERLOAD_STAGE_P99", "float", 0.0,
+         "windowed completion-stage p99 high mark seconds (0 = signal "
+         "off; workload-shaped, deployment sets it)")
+_declare("KTPU_OVERLOAD_SHED_DWELL", "int", 3,
+         "consecutive hot ticks before shedding the next lever")
+_declare("KTPU_OVERLOAD_RESTORE_DWELL", "int", 8,
+         "consecutive calm ticks before restoring the last-shed lever")
+_declare("KTPU_OVERLOAD_COOLDOWN", "float", 1.0,
+         "min seconds between overload-monitor transitions")
+
+# -- scheduler failover / leader election
+_declare("KTPU_LEASE_FENCE_MARGIN", "float", 2.0,
+         "seconds before lease expiry a leader self-fences (stops "
+         "renewing and demotes) so a GC-paused or partitioned instance "
+         "never races the successor's adoption")
+
+# -- gang scheduling (Coscheduling permit transaction)
+_declare("KTPU_GANG_PERMIT_TIMEOUT", "float", 60.0,
+         "max seconds a gang may hold reserved capacity while waiting "
+         "for its remaining members; past this the whole gang rolls "
+         "back (also the orphaned-gang bound for promotion reconcile)")
+_declare("KTPU_GANG_DEADLOCK_TICKS", "int", 3,
+         "consecutive stalled drainer observations (>=2 gangs waiting, "
+         "no membership progress) before the deadlock breaker backs "
+         "off the youngest gang")
+_declare("KTPU_GANG_DEADLOCK_INTERVAL", "float", 0.5,
+         "min seconds between gang deadlock-breaker observations (the "
+         "hysteresis clock; ticks faster than this are ignored)")
 
 
 class _KnobConfigz:

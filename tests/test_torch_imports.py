@@ -34,6 +34,25 @@ VERBATIM = (
     "scheduler/internal/cache.py", "scheduler/plugins/helper.py",
     "scheduler/plugins/volumes.py", "scheduler/volume_device.py",
     "volume/csi_translation.py",
+    "api/storage.py", "api/apps.py", "api/autoscaling.py", "api/batch.py",
+    "api/certificates.py", "api/discovery.py", "api/metrics.py",
+    "api/networking.py", "api/rbac.py", "store/__init__.py", "store/wal.py",
+    "store/kv.py", "apiserver/__init__.py", "apiserver/requestcontext.py",
+    "apiserver/server.py", "client/__init__.py", "client/workqueue.py",
+    "client/clientset.py", "client/informer.py", "client/events.py",
+    "client/leaderelection.py", "volume/__init__.py", "volume/binder.py",
+    "scheduler/plugins/nodebasic.py", "scheduler/plugins/noderesources.py",
+    "scheduler/plugins/podtopologyspread.py",
+    "scheduler/plugins/interpodaffinity.py", "scheduler/plugins/nodelabel.py",
+    "scheduler/plugins/selectorspread.py",
+    "scheduler/plugins/serviceaffinity.py",
+    "scheduler/plugins/volumebinding.py",
+    "scheduler/plugins/defaultpreemption.py",
+    "scheduler/plugins/coscheduling.py", "scheduler/plugins/registry.py",
+    "scheduler/apis/__init__.py", "scheduler/apis/config.py",
+    "scheduler/apis/legacy.py", "scheduler/extender.py",
+    "scheduler/internal/queue.py", "scheduler/internal/nominator.py",
+    "scheduler/preemption.py", "scheduler/scheduler.py",
 )
 
 
