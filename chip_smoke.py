@@ -183,9 +183,37 @@ Phases (each raises on failure; the script then exits non-zero):
    the backend's launches, the kernel share of the window and
    loop_kernel_ratio; the kernels' line gains `loop_launches`.
 
+14. the device preemption planner (`ops/whatif.py`, its walk the CUDA
+   kernel of `ops/csrc/whatif.cu`, and the device rung of
+   `scheduler/preemption_device.py`), the what-if on by its default:
+   a-c. Preemption-500n-500hi, Preemption-PDB-500n-500hi and
+      Preemption-IPA-500n-500hi (scripts/bench_configs.py:131-137,
+      :229-237, :245-255: 500 nodes saturated by 2000 priority-1 pods,
+      500 priority-100 preemptors; PDB-covered victims; preemptors with a
+      required zone affinity toward the victims) through `run_workload`:
+      every preemptor bound, no node over its allocatable, every victim of
+      priority 1, every preemptor planned on the device rung (no what-if
+      fallback but the planner's node-skew guard, a pod re-planned while
+      victims' delete echoes move the encoding), the ladder on its top
+      rung with 0 faults; the what-if kernel's launches counted from 0
+      over each call, its first 64 launches held to the plain walk;
+   d. scripts/probe_preemption.py's sweep (50x2, 200x4, 500x4, 500x8 and
+      the affinity preemptors at 50x2, 200x4; waves of 8, preemptors
+      asking twice the probe's request so that each needs an eviction) on
+      fresh backends on the card: the device, fast and oracle plans
+      agree; ms per preemptor of each rung, the kernel alone (CUDA graph)
+      against its bound and the plain walk, CUDA launches per what-if
+      (`torch.profiler`), context builds; every what-if launch of the
+      sweep held to the plain walk on the card;
+   e. raise-whatif on a wave's first preemptor: it falls to the fast rung
+      on the same books, no victim claimed twice, no session rebuild;
+   f. `gang_feasible` on the card against the same reductions on the CPU
+      at several k.
+
 It prints the kernels' line, a `{"hoisted_session": ...}` line with phase
 11's numbers, a `{"backend": ...}` line with phase 12's, a `{"loop": ...}`
-line with phase 13's, then `{"ok": true, "device": {...}}` last.
+line with phase 13's, a `{"preemption": ...}` line with phase 14's, then
+`{"ok": true, "device": {...}}` last.
 It needs a CUDA card and imports nothing of JAX or of the JAX package.
 """
 
@@ -3180,7 +3208,6 @@ def loop_drill(device, num_nodes=500, num_init=1000, waves=DRILL_WAVES,
     the drill's numbers; raises if a pod binds twice, stays unbound, or a
     node holds more than its allocatable."""
     from kubernetes_tpu_torch.api import types as v1
-    from kubernetes_tpu_torch.api.quantity import parse_quantity
     from kubernetes_tpu_torch.apiserver import APIServer
     from kubernetes_tpu_torch.client import Clientset, SharedInformerFactory
     from kubernetes_tpu_torch.ops.scan import ScanSession
@@ -3307,22 +3334,7 @@ def loop_drill(device, num_nodes=500, num_init=1000, waves=DRILL_WAVES,
     pods, _ = cs.pods.list(namespace="default")
     nodes, _ = cs.nodes.list()
     unbound = [p.metadata.name for p in pods if not p.spec.node_name]
-    used = {}
-    for p in pods:
-        u = used.setdefault(p.spec.node_name, [0, 0, 0])
-        for c in p.spec.containers:
-            req = c.resources.requests or {}
-            u[0] += parse_quantity(req.get("cpu", "0"))
-            u[1] += parse_quantity(req.get("memory", "0"))
-        u[2] += 1
-    over = []
-    for node in nodes:
-        a = node.status.allocatable
-        cap = (parse_quantity(a["cpu"]), parse_quantity(a["memory"]),
-               int(a["pods"]))
-        if any(x > c for x, c in zip(used.get(node.metadata.name,
-                                              (0, 0, 0)), cap)):
-            over.append(node.metadata.name)
+    over = overcommitted(pods, nodes)
     binds = len(sched.bind_timestamps)
     out = {
         "cell": "13c ladder drill", "device": device, "nodes": num_nodes,
@@ -3431,6 +3443,632 @@ def phase_loop(sk, gpu):
     out["13c"] = c
     out["phase_s"] = time.perf_counter() - t0
     return out, total
+
+
+# phase 14: the preemption rows of scripts/bench_configs.py (:131-137,
+# :229-237, :245-255), at their own sizes
+PREEMPTION_ROWS = (
+    ("14a", dict(name="Preemption-500n-500hi", num_nodes=500,
+                 num_init_pods=2000, num_pods=500, max_batch=512,
+                 timeout=900.0, stall_stop=30.0), {}, {}),
+    ("14b", dict(name="Preemption-PDB-500n-500hi", num_nodes=500,
+                 num_init_pods=2000, num_pods=500, max_batch=512,
+                 timeout=900.0, stall_stop=30.0,
+                 pdb_disruptions_allowed=2000),
+     {"labels": {"app": "victim"}}, {}),
+    ("14c", dict(name="Preemption-IPA-500n-500hi", num_nodes=500,
+                 num_init_pods=2000, num_pods=500, max_batch=512,
+                 timeout=900.0, stall_stop=30.0),
+     {"labels": {"app": "victim"}},
+     {"pod_affinity_zone": True, "labels": {"app": "victim"}}),
+)
+# 14d: scripts/probe_preemption.py's sweep (nodes x victims per node)
+WHATIF_POINTS = ("50x2", "200x4", "500x4", "500x8")
+WHATIF_AFF_POINTS = ("50x2", "200x4")
+WHATIF_WAVE = 8
+WHATIF_REPS = 5
+WHATIF_KEEP = 64                 # what-if launches kept per 14a-c cell
+WHATIF_SOURCE = "kubernetes_tpu_torch/ops/csrc/whatif.cu"
+
+
+class WhatifWatch:
+    """ops.whatif's `whatif_walk` wrapped for one phase: every call
+    counted, the first `keep` calls' inputs and outputs kept (None: all),
+    so that each can be held to the plain walk on the same inputs."""
+
+    def __init__(self, keep=None):
+        from kubernetes_tpu_torch.ops import whatif as wi
+
+        self.calls, self.n, self.keep = [], 0, keep
+        self._mod, self._orig = wi, wi.whatif_walk
+        watch = self
+
+        def walk(p, v, nom, has_nom, dyn_ipa):
+            out = watch._orig(p, v, nom, has_nom=has_nom, dyn_ipa=dyn_ipa)
+            watch.n += 1
+            if watch.keep is None or len(watch.calls) < watch.keep:
+                watch.calls.append(((p, v, nom, has_nom, dyn_ipa), out))
+            return out
+
+        wi.whatif_walk = walk
+
+    def close(self):
+        self._mod.whatif_walk = self._orig
+
+
+def walk_errs(calls):
+    """Each kept what-if launch's outputs against `whatif_walk_reference`
+    on the same inputs on the card: the count of differing bools."""
+    import torch
+    from kubernetes_tpu_torch.ops.whatif_kernel import whatif_walk_reference
+
+    torch.cuda.synchronize()
+    err = 0
+    for args, out in calls:
+        if out["base"].device.type != "cuda":
+            raise AssertionError("a what-if launch ran off the card")
+        ref = whatif_walk_reference(*args)
+        err += sum(int((out[k] != ref[k]).sum())
+                   for k in ("fits_now", "base", "victims"))
+    return err
+
+
+def whatif_bound(call):
+    """Least time for one what-if launch: each tensor the kernel reads
+    read once, its outputs written once; the operations are the
+    feasibility passes this launch's data needs (fits_now, base and one
+    per valid slot, twice with nominated pods), each a compare per
+    checked resource, a few per PTS constraint and IPA term."""
+    from kubernetes_tpu_torch.ops import whatif_kernel as wk
+
+    (p, v, nom, has_nom, dyn_ipa), out = call
+    d = wk.shapes(p, v)
+    named = wk._named(p, v, nom)
+    specs = wk._specs(d, dyn_ipa, has_nom)
+    nbytes = sum(named[k].nbytes for k in specs) + sum(
+        t.nbytes for t in out.values())
+    passes = (2 * d["N"] + int(v["valid"].sum())) * (2 if has_nom else 1)
+    per_pass = 3 + 3 * int(p["chk"].sum()) + 8 * d["C"] + (
+        4 * d["TAA"] + 4 * d["TA"] + 4 if dyn_ipa else 0)
+    # the running eviction: the sum over all L slots, and the add-back
+    per_slot = d["R"] + 1 + d["C"] + d["TAA"] + 1
+    ops = passes * per_pass + per_slot * (d["N"] * d["L"]
+                                          + int(v["valid"].sum()))
+    return roofline(nbytes, ops)
+
+
+def time_whatif(call):
+    """(kernel ms by a CUDA graph of 20 launches, plain ms by CUDA events
+    over 5 calls, bound) for one kept what-if launch."""
+    import torch
+    from kubernetes_tpu_torch.ops import whatif_kernel as wk
+
+    (p, v, nom, has_nom, dyn_ipa), _ = call
+    ms = graph_ms(lambda: wk.whatif_walk(p, v, nom, has_nom=has_nom,
+                                          dyn_ipa=dyn_ipa))
+    wk.whatif_walk_reference(p, v, nom, has_nom, dyn_ipa)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(5):
+        wk.whatif_walk_reference(p, v, nom, has_nom, dyn_ipa)
+    e1.record()
+    torch.cuda.synchronize()
+    bound_ms, bound_by, nbytes, ops = whatif_bound(call)
+    d = wk.shapes(p, v)
+    return {"ms": ms, "plain_ms": e0.elapsed_time(e1) / 5,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops, "shape": dict(d, has_nom=has_nom,
+                                      dyn_ipa=dyn_ipa)}
+
+
+def overcommitted(pods, nodes):
+    """Nodes whose bound pods' cpu, memory or count is above their
+    allocatable."""
+    from kubernetes_tpu_torch.api.quantity import parse_quantity
+
+    used = {}
+    for p in pods:
+        u = used.setdefault(p.spec.node_name, [0, 0, 0])
+        for c in p.spec.containers:
+            req = c.resources.requests or {}
+            u[0] += parse_quantity(req.get("cpu", "0"))
+            u[1] += parse_quantity(req.get("memory", "0"))
+        u[2] += 1
+    over = []
+    for node in nodes:
+        a = node.status.allocatable
+        cap = (parse_quantity(a["cpu"]), parse_quantity(a["memory"]),
+               int(a["pods"]))
+        if any(x > c for x, c in zip(used.get(node.metadata.name,
+                                              (0, 0, 0)), cap)):
+            over.append(node.metadata.name)
+    return over
+
+
+def preempted():
+    """(preemptions applied, victims they named) so far: the loop's
+    scheduler_preemption_attempts_total and the sum of its
+    scheduler_preemption_victims."""
+    from kubernetes_tpu_torch.scheduler import metrics
+
+    attempts = sum(v for _, v in metrics.preemption_attempts.items())
+    named = next(float(line.split()[-1])
+                 for line in metrics.preemption_victims.collect()
+                 if line.startswith("scheduler_preemption_victims_sum"))
+    return int(attempts), int(named)
+
+
+def preemption_cell(sk, gpu, label, spec, init, template):
+    """One Preemption row through `run_workload` on the card, the what-if
+    planner on by its default: every measured pod bound, no node over its
+    allocatable, every victim of lower priority than every preemptor,
+    every preemptor planned on the device rung (what-if launches > 0), no
+    what-if fallback but the planner's node-skew guard (a pod re-planned
+    while its wave's encoding moved), the ladder on its top rung with 0
+    device faults. The what-if kernel's launches and the scan variants' are
+    counted from 0 over the call."""
+    from kubernetes_tpu_torch.client import Clientset
+    from kubernetes_tpu_torch.ops import whatif_kernel as wk
+    from kubernetes_tpu_torch.perf.harness import (
+        PodTemplate,
+        Workload,
+        run_workload,
+    )
+
+    w = Workload(init_template=PodTemplate(cpu="900m", memory="64Mi",
+                                           priority=1, **init),
+                 template=PodTemplate(cpu="900m", memory="64Mi",
+                                      priority=100, **template), **spec)
+    before = counters()
+    pre0 = preempted()
+    reset_counts(sk)
+    wk.LAUNCHES = 0
+    run = LoopRun(True)
+    watch = WhatifWatch(keep=WHATIF_KEEP)
+    t0 = time.perf_counter()
+    try:
+        r = run_workload(w)
+    finally:
+        watch.close()
+        run.close()
+    wall_s = time.perf_counter() - t0
+    launches = {k: v for k, v in sk.VARIANT_LAUNCHES.items() if v}
+    launches["whatif"] = wk.LAUNCHES
+    delta = counters_delta(before)
+    cs = Clientset(run.apis[-1])
+    pods, _ = cs.pods.list(namespace="default")
+    nodes, _ = cs.nodes.list()
+    left = {p.metadata.name for p in pods}
+    victims = sorted(f"init-{i}" for i in range(w.num_init_pods)
+                     if f"init-{i}" not in left)
+    hi = [p for p in pods if (p.spec.priority or 0) >= 100]
+    lo_prio = {p.spec.priority for p in pods
+               if (p.spec.priority or 0) < 100}
+    be = run.backends[-1]
+    attempts, named = (a - b for a, b in zip(preempted(), pre0))
+    out = {
+        "cell": label, "row": w.name, "pods_per_s": r.throughput_avg,
+        "pods_per_s_p50": r.throughput_p50,
+        "latency_p50_s": r.pod_scheduling_p50,
+        "latency_p99_s": r.pod_scheduling_p99, "attempts": r.attempts,
+        "bound": r.num_bound, "pods": w.num_pods, "window_s": r.duration_s,
+        "wall_s": wall_s, "victims": len(victims),
+        "preemptions": attempts, "victims_named": named,
+        "planner_paths": r.preemption_planner_paths,
+        "whatif_launches": r.whatif_launches,
+        "whatif_fallbacks": r.whatif_fallbacks, "launches": launches,
+        "session_kind": r.session_kind,
+        "session_rebuilds": r.session_rebuild_reasons,
+        "session_builds": {k[0]: int(v)
+                           for k, v in delta["session_builds"].items()},
+        "context_builds": be.whatif_builds,
+        "context_build_ms": (be.whatif_build_s * 1e3 / be.whatif_builds
+                             if be.whatif_builds else None),
+    }
+    over = overcommitted(pods, nodes)
+    unbound = [p.metadata.name for p in hi if not p.spec.node_name]
+    paths = r.preemption_planner_paths or {}
+    if r.num_bound != w.num_pods or unbound or over:
+        raise AssertionError(f"{label}: {r.num_bound} of {w.num_pods} bound,"
+                             f" unbound {unbound[:5]}, over {over[:5]}")
+    if not victims or lo_prio - {1} or len(hi) != w.num_pods:
+        raise AssertionError(f"{label}: {len(victims)} victims, priorities "
+                             f"below the preemptors {lo_prio}")
+    # every evicted pod was a victim a preemption named (a preemptor the
+    # loop re-plans before its victims' delete echoes land names a new
+    # one, as the reference's loop does)
+    if named != len(victims):
+        raise AssertionError(f"{label}: {len(victims)} evicted, {named} "
+                             f"named by {attempts} preemptions")
+    # a fallback may only be the planner's guard against concurrent churn
+    # ("node-skew": the encoding moved between the wave's books and the
+    # launch, as victims' delete echoes land; the reference's loop shows
+    # it too), raised before any launch; every other planned pod rides
+    # the device rung
+    fallbacks = dict(r.whatif_fallbacks or {})
+    skewed = fallbacks.pop("node-skew", 0)
+    device = paths.get("device", 0)
+    if fallbacks or not r.whatif_launches or device < w.num_pods \
+            or sum(paths.values()) - device != skewed \
+            or wk.LAUNCHES < r.whatif_launches:
+        raise AssertionError(f"{label}: paths {paths}, whatif launches "
+                             f"{r.whatif_launches} (kernel {wk.LAUNCHES}), "
+                             f"fallbacks {r.whatif_fallbacks}")
+    if be.ladder.rung() != be.ladder.top or delta["device_faults"]:
+        raise AssertionError(f"{label}: ladder {be.ladder.mode()}, faults "
+                             f"{delta['device_faults']}")
+    out["walk_err"] = walk_errs(watch.calls)
+    out["walks_checked"] = len(watch.calls)
+    if out["walk_err"]:
+        raise AssertionError(f"{label}: the what-if kernel differs from the "
+                             f"plain walk in {out['walk_err']} bools")
+    log(f"phase {label} {w.name}: {r.num_bound} preemptors bound over "
+        f"{w.num_nodes} nodes ({len(victims)} victims evicted, named by "
+        f"{attempts} preemptions, all of "
+        f"priority {sorted(lo_prio)} < 100; no node over its allocatable); "
+        f"{r.throughput_avg} pods/s (p50 {r.throughput_p50}); latency p50 "
+        f"{r.pod_scheduling_p50} s, p99 {r.pod_scheduling_p99} s; "
+        f"{r.attempts} attempts; planner paths {paths}, what-if launches "
+        f"{r.whatif_launches} (kernel {wk.LAUNCHES}), fallbacks "
+        f"{r.whatif_fallbacks}; context builds {be.whatif_builds} "
+        f"({out['context_build_ms']} ms each); session {r.session_kind}, "
+        f"rebuilds {r.session_rebuild_reasons}; launches {launches}; "
+        f"{len(watch.calls)} launches == plain walk; window {r.duration_s}"
+        f" s, wall {wall_s:.2f} s [{gpu}]")
+    return out, watch.calls
+
+
+def saturated_cluster(n_nodes, vpn, labels=None, zones=3):
+    """scripts/probe_preemption.py's cluster, as the port's objects."""
+    from kubernetes_tpu_torch.api import types as v1
+    from kubernetes_tpu_torch.testing.synth import make_node, make_pod
+
+    cpu_m = 4000 // max(vpn + 1, 1)
+    nodes = [make_node(f"n{i}", cpu="4", pods=2 * vpn + 4,
+                       labels={"zone": f"z{i % zones}",
+                               v1.LABEL_HOSTNAME: f"n{i}"})
+             for i in range(n_nodes)]
+    pods = []
+    for i in range(n_nodes):
+        for j in range(vpn):
+            p = make_pod(f"low-{i}-{j}", cpu=f"{cpu_m}m", memory="64Mi",
+                         node_name=f"n{i}", priority=1,
+                         labels=labels or {})
+            p.status.start_time = float((i * 31 + j * 7) % 97)
+            pods.append(p)
+    return nodes, pods, cpu_m
+
+
+def oracle_plan(snapshot, pod):
+    """The DefaultPreemption plugin's dry run (the oracle rung) for one
+    preemptor -> (node, sorted victims) or None."""
+    from kubernetes_tpu_torch.scheduler.framework.interface import CycleState
+    from kubernetes_tpu_torch.scheduler.framework.runtime import Framework
+    from kubernetes_tpu_torch.scheduler.internal.nominator import (
+        PodNominator,
+    )
+    from kubernetes_tpu_torch.scheduler.plugins.registry import (
+        default_plugins,
+        new_in_tree_registry,
+    )
+
+    f = Framework(new_in_tree_registry(), plugins=default_plugins(),
+                  snapshot_fn=lambda: snapshot)
+    f.nominator = PodNominator()
+    f.pdb_lister = lambda: []
+    state = CycleState()
+    if f.run_pre_filter_plugins(state, pod) is not None:
+        raise AssertionError("oracle: prefilter refused the preemptor")
+    statuses = {}
+    for ni in snapshot.list():
+        st = f.run_filter_plugins(state, pod, ni)
+        if st:
+            statuses[ni.node.metadata.name] = next(iter(st.values()))
+    result, _ = f.plugins["DefaultPreemption"].post_filter(
+        state, pod, statuses)
+    if result is None:
+        return None
+    return (result.nominated_node_name,
+            sorted(p.metadata.name for p in result.victims))
+
+
+def cand_key(c):
+    from kubernetes_tpu_torch.scheduler.preemption_device import (
+        ORACLE_FALLBACK,
+    )
+
+    if c is None:
+        return None
+    if c is ORACLE_FALLBACK:
+        return "oracle-fallback"
+    return (c.node_name, sorted(p.metadata.name for p in c.victims))
+
+
+class GcClock:
+    """The seconds Python's garbage collector ran while it was open (its
+    `gc.callbacks` start / stop pairs)."""
+
+    def __init__(self):
+        self.s = 0.0
+        self._t0 = None
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.s += time.perf_counter() - self._t0
+            self._t0 = None
+
+    def __enter__(self):
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self)
+
+
+def whatif_point(gpu, point, affinity, watch):
+    """One point of 14d: a saturated cluster on a fresh backend on the
+    card; a wave of WHATIF_WAVE preemptors planned by the device rung,
+    the fast rung (not for the affinity preemptors, outside its envelope)
+    and the oracle (the first preemptor): the plans must agree. Times
+    each rung per preemptor (host clock, the device wave synchronized),
+    the launches per what-if under torch.profiler, and the context
+    builds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kubernetes_tpu_torch.api import types as v1
+    from kubernetes_tpu_torch.ops import whatif_kernel as wk
+    from kubernetes_tpu_torch.scheduler.framework.snapshot import Snapshot
+    from kubernetes_tpu_torch.scheduler.internal.nominator import (
+        PodNominator,
+    )
+    from kubernetes_tpu_torch.scheduler.preemption import (
+        FastPreemptionPlanner,
+    )
+    from kubernetes_tpu_torch.scheduler.preemption_device import (
+        DevicePreemptionPlanner,
+    )
+    from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
+    from kubernetes_tpu_torch.testing.synth import make_pod
+
+    n_nodes, vpn = (int(x) for x in point.split("x"))
+    labels = {"app": "victim"} if affinity else None
+    nodes, pods, cpu_m = saturated_cluster(n_nodes, vpn, labels=labels)
+    snapshot = Snapshot.from_objects(pods, nodes)
+    be = TPUBackend()
+    if not be.whatif:
+        raise AssertionError("14d: the what-if is off by default on the card")
+    for n in nodes:
+        be.on_add_node(n)
+    for p in pods:
+        be.on_add_pod(p, p.spec.node_name)
+    aff = v1.Affinity(pod_affinity=v1.PodAffinity(
+        required_during_scheduling_ignored_during_execution=[
+            v1.PodAffinityTerm(label_selector=v1.LabelSelector(
+                match_labels={"app": "victim"}), topology_key="zone")]))
+    # the probe's preemptors ask for cpu_m, which fits beside the victims
+    # (4000 - vpn * cpu_m >= cpu_m); twice that needs one eviction
+    wave = [make_pod(f"{'a' if affinity else ''}hi-{k}",
+                     cpu=f"{2 * cpu_m}m",
+                     memory="64Mi", priority=100, labels=labels,
+                     affinity=aff if affinity else None)
+            for k in range(WHATIF_WAVE)]
+    elig = {v1.pod_key(p): (True, not affinity) for p in wave}
+
+    def dev_plan():
+        pl = DevicePreemptionPlanner(snapshot, PodNominator(), be,
+                                     eligibility=elig)
+        out = pl.plan(list(wave))
+        torch.cuda.synchronize()
+        if set(pl.planner_paths) != {"device"}:
+            raise AssertionError(f"14d {point}: paths {pl.planner_paths}")
+        return out
+
+    def fast_plan():
+        return FastPreemptionPlanner(snapshot, PodNominator()).plan(
+            list(wave))
+
+    def per_preemptor_ms(fn):
+        """(median ms a preemptor over WHATIF_REPS waves, each wave's ms
+        a preemptor, each wave's ms in the garbage collector, the
+        plans)."""
+        fn()
+        reps, gc_ms = [], []
+        for _ in range(WHATIF_REPS):
+            with GcClock() as clock:
+                t0 = time.perf_counter()
+                out = fn()
+                reps.append((time.perf_counter() - t0) * 1e3 / WHATIF_WAVE)
+            gc_ms.append(clock.s * 1e3)
+        return statistics.median(reps), reps, gc_ms, out
+
+    n0 = len(watch.calls)
+    builds0 = be.whatif_builds
+    dev_ms, dev_reps, dev_gc, dev_out = per_preemptor_ms(dev_plan)
+    row = {"point": point, "profile": "ipa-affinity" if affinity else
+           "plain", "nodes": n_nodes, "victims_per_node": vpn,
+           "wave": WHATIF_WAVE, "device_ms_per_preemptor": dev_ms,
+           "device_ms_reps": dev_reps, "device_gc_ms_reps": dev_gc,
+           "context_builds": be.whatif_builds,
+           "context_builds_in_reps": be.whatif_builds - builds0,
+           "context_build_ms": be.whatif_build_s * 1e3 / max(
+               be.whatif_builds, 1)}
+    if not affinity:
+        (row["fast_ms_per_preemptor"], row["fast_ms_reps"], _,
+         fast_out) = per_preemptor_ms(fast_plan)
+        if [cand_key(c) for c in dev_out] != [cand_key(c) for c in fast_out]:
+            raise AssertionError(f"14d {point}: device and fast plans differ")
+    with GcClock() as clock:
+        t0 = time.perf_counter()
+        want = oracle_plan(snapshot, wave[0])
+        row["oracle_ms_per_preemptor"] = (time.perf_counter() - t0) * 1e3
+    row["oracle_gc_ms"] = clock.s * 1e3
+    if cand_key(dev_out[0]) != want:
+        raise AssertionError(f"14d {point}: device {cand_key(dev_out[0])} "
+                             f"!= oracle {want}")
+    row["candidates"] = sum(c is not None for c in dev_out)
+    if row["candidates"] != WHATIF_WAVE:
+        raise AssertionError(f"14d {point}: {row['candidates']} of "
+                             f"{WHATIF_WAVE} preemptors found victims")
+    # launches per what-if: every CUDA kernel and copy of one wave
+    k0 = wk.LAUNCHES
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dev_plan()
+    n_whatif = wk.LAUNCHES - k0
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    row["whatif_kernels_in_wave"] = n_whatif
+    row["cuda_launches_per_whatif"] = len(events) / max(n_whatif, 1)
+    row["device_busy_ms_per_whatif"] = sum(
+        e.device_time_total for e in events) / 1e3 / max(n_whatif, 1)
+    row["whatif_kernel_ms_by_profiler"] = sum(
+        e.device_time_total for e in events
+        if "whatif_kernel" in e.name) / 1e3 / max(n_whatif, 1)
+    call = watch.calls[n0]
+    row.update({f"kernel_{k}": v for k, v in time_whatif(call).items()})
+    log(f"phase 14d {point} {row['profile']}: device "
+        f"{dev_ms:.3f} ms per preemptor (median; waves "
+        f"{', '.join(f'{x:.3f}' for x in dev_reps)}, of which in the "
+        f"collector {', '.join(f'{x:.1f}' for x in dev_gc)} ms a wave)"
+        + (f", fast {row['fast_ms_per_preemptor']:.3f}"
+           if not affinity else "")
+        + f", oracle {row['oracle_ms_per_preemptor']:.3f} (first "
+        f"preemptor, {row['oracle_gc_ms']:.1f} ms in the collector); plans "
+        f"agree ({row['candidates']} of {WHATIF_WAVE} "
+        f"with a candidate); kernel {row['kernel_ms']:.4f} ms (CUDA graph),"
+        f" plain walk {row['kernel_plain_ms']:.3f} ms, bound "
+        f"{row['kernel_bound_ms']:.6f} ms ({row['kernel_bound_by']}); "
+        f"{row['cuda_launches_per_whatif']:.1f} CUDA launches per what-if "
+        f"(device busy {row['device_busy_ms_per_whatif']:.3f} ms); context "
+        f"builds {be.whatif_builds} at {row['context_build_ms']:.1f} ms "
+        f"[{gpu}]")
+    return row
+
+
+def whatif_fault_drill(gpu):
+    """14e: raise-whatif on the first preemptor of a 3-pod wave on the
+    card: it falls to the fast rung on the same books, the rest ride the
+    device rung, no victim is claimed twice, and the session count does
+    not move."""
+    from kubernetes_tpu_torch.api import types as v1
+    from kubernetes_tpu_torch.scheduler import metrics
+    from kubernetes_tpu_torch.scheduler.framework.snapshot import Snapshot
+    from kubernetes_tpu_torch.scheduler.internal.nominator import (
+        PodNominator,
+    )
+    from kubernetes_tpu_torch.scheduler.preemption_device import (
+        DevicePreemptionPlanner,
+    )
+    from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
+    from kubernetes_tpu_torch.testing.faults import FaultInjector
+    from kubernetes_tpu_torch.testing.synth import make_pod
+
+    nodes, pods, cpu_m = saturated_cluster(200, 4)
+    be = TPUBackend()
+    for n in nodes:
+        be.on_add_node(n)
+    for p in pods:
+        be.on_add_pod(p, p.spec.node_name)
+    inj = FaultInjector()
+    inj.arm("raise-whatif", shots=1)
+    be.faults = inj
+    r0 = sum(v for _, v in metrics.session_rebuilds.items())
+    wave = [make_pod(f"hi-{k}", cpu=f"{2 * cpu_m}m", memory="64Mi",
+                     priority=100) for k in range(3)]
+    pl = DevicePreemptionPlanner(
+        Snapshot.from_objects(pods, nodes), PodNominator(), be,
+        eligibility={v1.pod_key(p): (True, True) for p in wave})
+    cands = pl.plan(wave)
+    keys = [v1.pod_key(v) for c in cands if c is not None for v in c.victims]
+    out = {"paths": pl.planner_paths, "injected": dict(inj.injected),
+           "victims": len(keys), "rung": be.ladder.mode(),
+           "rebuilds": sum(v for _, v in metrics.session_rebuilds.items())
+           - r0}
+    if pl.planner_paths != ["fast", "device", "device"] \
+            or inj.injected.get("raise-whatif") != 1 \
+            or None in cands or len(keys) != len(set(keys)) \
+            or out["rebuilds"]:
+        raise AssertionError(f"14e: {out}")
+    log(f"phase 14e raise-whatif drill: paths {pl.planner_paths}, "
+        f"{len(keys)} victims claimed once each, session rebuilds +0, "
+        f"ladder {be.ladder.mode()} [{gpu}]")
+    return out
+
+
+def gang_check(gpu):
+    """14f: `gang_feasible` on the card against the plain version (the
+    same reductions on a CPU what-if view of the same encoding) at
+    several k."""
+    from kubernetes_tpu_torch.ops.whatif import WhatifContext
+    from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
+    from kubernetes_tpu_torch.testing.synth import make_pod
+
+    nodes, pods, _ = saturated_cluster(500, 2)
+    be = TPUBackend()
+    for n in nodes:
+        be.on_add_node(n)
+    for p in pods:
+        be.on_add_pod(p, p.spec.node_name)
+    gang = make_pod("gang", cpu="1", memory="64Mi", priority=1)
+    pa = {k: a for k, a in be.pe.encode(gang).items()
+          if not k.startswith("_")}
+    cpu_ctx = WhatifContext.from_encoding(be.enc, pa, device="cpu")
+    tj = cpu_ctx.template_index(pa)
+    rows = []
+    for k in (1, 2, 64, 500, 501, 5000):
+        got = be.gang_feasible(gang, k)
+        want = cpu_ctx.gang_fits(tj, k)
+        rows.append((k, got))
+        if got is not want:
+            raise AssertionError(f"14f: k={k} card {got} plain {want}")
+    if {g for _, g in rows} != {True, False}:
+        raise AssertionError(f"14f: one answer only {rows}")
+    log(f"phase 14f gang_feasible on the card == plain at k "
+        f"{[k for k, _ in rows]}: {[g for _, g in rows]} [{gpu}]")
+    return rows
+
+
+def phase_preemption(sk, gpu):
+    """Phase 14: the device preemption planner on the card. Returns (the
+    phase's numbers, the what-if kernel's kernels-line numbers, launches
+    per scan variant over 14a-c)."""
+    from kubernetes_tpu_torch.ops import whatif_kernel as wk
+
+    t0 = time.perf_counter()
+    out = {}
+    loop_launches = {}
+    kept = []
+    for label, spec, init, template in PREEMPTION_ROWS:
+        cell, calls = preemption_cell(sk, gpu, label, spec, init, template)
+        out[label] = cell
+        kept += calls
+        for k, v in cell["launches"].items():
+            loop_launches[k] = loop_launches.get(k, 0) + v
+    # the kernel at the main path's shape: 14a's first launch
+    main = time_whatif(kept[0])
+    watch = WhatifWatch()
+    try:
+        out["14d"] = [whatif_point(gpu, pt, False, watch)
+                      for pt in WHATIF_POINTS] + [
+            whatif_point(gpu, pt, True, watch) for pt in WHATIF_AFF_POINTS]
+    finally:
+        watch.close()
+    err = walk_errs(kept) + walk_errs(watch.calls)
+    if err:
+        raise AssertionError(f"14d: the what-if kernel differs from the "
+                             f"plain walk in {err} bools")
+    log(f"phase 14d: {len(watch.calls)} what-if launches of the sweep and "
+        f"{len(kept)} of 14a-c == plain walk [{gpu}]")
+    out["14e"] = whatif_fault_drill(gpu)
+    out["14f"] = gang_check(gpu)
+    out["phase_s"] = time.perf_counter() - t0
+    kernel = dict(main, launches=loop_launches["whatif"], err=err,
+                  checked=len(kept) + len(watch.calls))
+    return out, kernel, loop_launches
 
 
 def ipa_ops(ipa, t) -> tuple:
@@ -3621,9 +4259,10 @@ def main() -> int:
 
     from kubernetes_tpu_torch import probes
     from kubernetes_tpu_torch.ops import build
+    from kubernetes_tpu_torch.ops import whatif_kernel as wk
 
     t0 = time.perf_counter()
-    built = build.build([sk.SOURCE, probes.SOURCE], verbose=True)
+    built = build.build([sk.SOURCE, probes.SOURCE, wk.SOURCE], verbose=True)
     log("phase 2: built " + ", ".join(
         f"{src.name} in {sec:.2f} s" for src, sec in built.items())
         + f" (one nvcc each, in parallel; {time.perf_counter() - t0:.2f} s "
@@ -3652,6 +4291,9 @@ def main() -> int:
     hoisted = phase_hoisted(gpu, zone, aff[0], churn[0])           # 11
     backend, backend_launches = phase_backend(sk, gpu, zone, aff[0])  # 12
     loop, loop_launches = phase_loop(sk, gpu)                      # 13
+    preemption, whatif, pre_launches = phase_preemption(sk, gpu)   # 14
+    for k, v in pre_launches.items():
+        loop_launches[k] = loop_launches.get(k, 0) + v
 
     zone["err"] = max(zone["err"], small_err)
     # scan_full_ipa reports its slower cell; `cells` keeps both cells'
@@ -3693,6 +4335,9 @@ def main() -> int:
                                       "case_errs")}
                    for c in churn]),
         *probe_entries,
+        entry("whatif", "kubernetes_tpu/ops/whatif.py:119", whatif,
+              source=WHATIF_SOURCE, checked_launches=whatif["checked"],
+              shape=whatif["shape"]),
     ]
     idle = [e["name"] for e in kernels if not e["launches"]]
     if idle:
@@ -3705,7 +4350,8 @@ def main() -> int:
                     "scan_multi": ("scan_multi", "scan_multi_ipa"),
                     "scan_eval": ("scan_eval", "scan_eval_ipa"),
                     "scan_apply": ("scan_apply", "scan_apply_ipa"),
-                    "scan_delta": ("scan_delta",)}.get(e["name"], ())
+                    "scan_delta": ("scan_delta",),
+                    "whatif": ("whatif",)}.get(e["name"], ())
         e["backend_launches"] = sum(backend_launches.get(v, 0)
                                     for v in variants)
         e["loop_launches"] = sum(loop_launches.get(v, 0) for v in variants)
@@ -3714,7 +4360,8 @@ def main() -> int:
                 "backend_launches"]]
     if idle:
         raise AssertionError(f"kernels the backend never launched: {idle}")
-    idle = [n for n in ("scan_full", "scan_delta")
+    idle = [n for n in ("scan_full", "scan_full_ipa", "scan_delta",
+                        "whatif")
             if not next(e for e in kernels if e["name"] == n)[
                 "loop_launches"]]
     if idle:
@@ -3723,6 +4370,7 @@ def main() -> int:
     log(json.dumps({"hoisted_session": hoisted}))
     log(json.dumps({"backend": backend}))
     log(json.dumps({"loop": loop}))
+    log(json.dumps({"preemption": preemption}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

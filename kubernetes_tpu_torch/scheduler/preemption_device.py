@@ -23,27 +23,46 @@ pick-one ladder, because both read and write the same books. Node
 choice, victim sets and PDB handling stay bit-identical to the Go-oracle
 semantics pinned in tests/test_preemption_fast.py.
 
-Port of kubernetes_tpu/scheduler/preemption_device.py with the fast and
-oracle rungs only: the device rung needs the what-if scan (ops/whatif.py),
-which the port does not have yet, and raises NotImplementedError. The
-port's backend reports whatif_enabled() False, so the scheduler builds
-the numpy FastPreemptionPlanner and never reaches that raise.
+A device fault mid-what-if (launch raise, watchdog timeout) falls the
+pod one rung — device -> fast (or oracle when the numpy envelope rejects
+it) — through the degradation ladder: the fault is counted and
+ladder-recorded, but the LIVE session is never invalidated (the what-if
+ran on a scratch snapshot; `scheduler_session_rebuilds_total` must not
+move from planning).
+
+Port of kubernetes_tpu/scheduler/preemption_device.py, the same code but
+for the launch's wait: the what-if program (ops/whatif.py, its walk the
+CUDA kernel of ops/whatif_kernel.py on the card) is enqueued on the
+backend's stream, a CUDA event is recorded after it, the watchdog waits on
+that event, and the three outputs are read back once after it.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
+import numpy as np
+
 from ..api import types as v1
+from ..utils import tracing
+from . import metrics
+from .degradation import DeviceFault
+from .plugins.defaultpreemption import Candidate
 from .preemption import (
     FastPreemptionPlanner,
     WaveAntiTerms,
+    _prio,
     eviction_invariant_gates,
 )
+
+logger = logging.getLogger(__name__)
 
 # sentinel candidate: this pod must fall to the ORACLE rung (the
 # scheduler routes it through the batched redispatch + DefaultPreemption)
 ORACLE_FALLBACK = object()
+
+_I64_MIN = np.iinfo(np.int64).min
 
 
 def device_eligible(pod: v1.Pod, extenders: Sequence,
@@ -81,21 +100,475 @@ class DevicePreemptionPlanner(FastPreemptionPlanner):
         self.eligibility = eligibility or {}
         self.planner_paths: List[str] = []
 
+    # -- wave books: device-side extensions --------------------------------
+
+    def _build(self, wave: List[v1.Pod]) -> None:
+        super()._build(wave)
+        self.planner_paths = []
+        enc = self.backend.enc
+        with self.backend._lock:
+            # node_index / row arrays materialize at rebuild time; a
+            # fresh backend that never dispatched has neither (host-only
+            # rebuild — the cached device dict is untouched)
+            if enc._rebuild_needed or not enc._arrays:
+                enc.rebuild()
+            # pin the encoding epoch the wave books were built against:
+            # concurrent churn (informer threads mutate enc under the
+            # backend lock) bumps enc.version, the what-if context
+            # rebuilds over the REORDERED encoding, and the lane map
+            # below would attribute verdicts to the wrong nodes — the
+            # per-pod launch re-checks this pin and falls a rung instead
+            self._books_version = enc.version
+        # memoized per-row-object match tensors: claim lists only grow
+        # across a wave, and re-matching EVERY accumulated entry per
+        # preemptor is the O(wave^2) trap the base class's running
+        # totals exist to avoid (preemption.py _nom_sum comment)
+        self._match_memo: Dict[Tuple[int, int], Tuple] = {}
+        # planner (snapshot) node order -> encoding lane
+        self._enc_idx = np.array(
+            [enc.node_index.get(ni.node.metadata.name, -1)
+             for ni in self.nodes],
+            dtype=np.int64,
+        )
+        # victim device rows, dense by (planner node, victim slot): a
+        # slot is an eviction UNIT (singleton or whole co-located gang)
+        # — its request row is the members' SUM, while label rows and
+        # terminating flags stay per member (match tensors and the
+        # prologue's ~pterm PTS gate are per-pod facts the slot
+        # aggregates at tensor-prep time)
+        R = enc._arrays["requested"].shape[1] if enc._arrays else 0
+        self._enc_r = R
+        vm = max(self._vmax, 1)
+        self._v_enc_req = np.zeros((self.n, vm, R), np.int64)
+        self._v_rows: List[List[List[Dict]]] = [
+            [[] for _ in range(vm)] for _ in range(self.n)
+        ]
+        self._v_term: List[List[List[bool]]] = [
+            [[] for _ in range(vm)] for _ in range(self.n)
+        ]
+        for i in range(self.n):
+            for j, slot_pods in enumerate(self._vpods[i]):
+                for vpod in slot_pods:
+                    vec, _nz = enc.pod_row_delta(vpod)
+                    if vec.shape[0] == R:
+                        self._v_enc_req[i, j] += vec
+                    self._v_rows[i][j].append(
+                        self.backend._pod_self_rows(vpod)
+                    )
+                    self._v_term[i][j].append(
+                        vpod.metadata.deletion_timestamp is not None
+                    )
+        # claimed victims (earlier in-flight waves): resident in the
+        # encoding but already spoken for — every what-if state drains
+        # them, at topology-pair granularity (their groups span nodes)
+        self._pre: List[Tuple[int, Dict, np.ndarray, bool]] = []
+        for i, ni in enumerate(self.nodes):
+            lane = int(self._enc_idx[i])
+            if lane < 0:
+                continue
+            for pi in ni.pods:
+                if v1.pod_key(pi.pod) not in self.claimed_victims:
+                    continue
+                vec, _nz = enc.pod_row_delta(pi.pod)
+                self._pre.append((
+                    lane, self.backend._pod_self_rows(pi.pod),
+                    vec if vec.shape[0] == R else np.zeros(R, np.int64),
+                    pi.pod.metadata.deletion_timestamp is not None,
+                ))
+        # nominated entries with pod rows (the base class keeps only
+        # request vectors in planner dims); claims append here too
+        self._nom_entries: List[Tuple[int, int, Dict, np.ndarray]] = []
+        if self.nominator is not None:
+            wave_keys = {v1.pod_key(p) for p in wave}
+            for i, ni in enumerate(self.nodes):
+                for np_pod in self.nominator.nominated_pods_for_node(
+                    ni.node.metadata.name
+                ):
+                    if v1.pod_key(np_pod) in wave_keys:
+                        continue
+                    vec, _nz = enc.pod_row_delta(np_pod)
+                    self._nom_entries.append((
+                        i, _prio(np_pod),
+                        self.backend._pod_self_rows(np_pod),
+                        vec if vec.shape[0] == R else np.zeros(R, np.int64),
+                    ))
+
+    def _claim(self, cand: Candidate, pod: v1.Pod, prio: int,
+               req: np.ndarray) -> None:
+        i = self._name_to_idx[cand.node_name]
+        lane = int(self._enc_idx[i]) if hasattr(self, "_enc_idx") else -1
+        keys = {v1.pod_key(vp) for vp in cand.victims}
+        claimed_rows = []
+        if lane >= 0:
+            enc = self.backend.enc
+            for j, slot_pods in enumerate(self._vpods[i]):
+                for m, vp in enumerate(slot_pods):
+                    if v1.pod_key(vp) not in keys:
+                        continue
+                    # per-MEMBER request rows (the slot's _v_enc_req is
+                    # the unit sum; claimed drains stay per pod)
+                    vec, _nz = enc.pod_row_delta(vp)
+                    claimed_rows.append((
+                        lane, self._v_rows[i][j][m],
+                        vec if vec.shape[0] == self._enc_r
+                        else np.zeros(self._enc_r, np.int64),
+                        bool(self._v_term[i][j][m]),
+                    ))
+        super()._claim(cand, pod, prio, req)
+        # the victims just left the books; later what-ifs must drain
+        # them from every state, and the preemptor is nominated load
+        self._pre.extend(claimed_rows)
+        if lane >= 0:
+            enc = self.backend.enc
+            vec, _nz = enc.pod_row_delta(pod)
+            self._nom_entries.append((
+                i, prio, self.backend._pod_self_rows(pod),
+                vec if vec.shape[0] == self._enc_r
+                else np.zeros(self._enc_r, np.int64),
+            ))
+
     # -- per-pod rung routing ----------------------------------------------
 
     def _plan_one(self, pod: v1.Pod, limit: int):
+        from ..ops.whatif_kernel import WhatifKernelError
+
         dev_ok, fast_ok = self.eligibility.get(v1.pod_key(pod),
                                                (False, True))
         if dev_ok:
-            # the port's backend never enables the what-if planner
-            # (whatif_enabled() is False), so the scheduler marks no pod
-            # device-eligible and builds no planner of this class
-            raise NotImplementedError(
-                "the device what-if rung (ops/whatif.py) is not ported "
-                "yet (ROADMAP.md, Queue 1, item 5)")
+            try:
+                # own stage (not "planner"): this span nests inside the
+                # wave-level planner span, and stage_stats sums per
+                # stage — sharing the stage would double-count the
+                # wave's wall-clock in the attribution tables. The
+                # pod-key attr is gated on enabled(): this is per-POD
+                # code, and the disabled path must not pay a string
+                # build per preemptor
+                sp = tracing.span(
+                    "whatif", "whatif", pod=v1.pod_key(pod),
+                ) if tracing.enabled() else tracing.NOOP_SPAN
+                with sp:
+                    fits, cand = self._plan_one_device(pod, limit)
+                self.fits_now.append(fits)
+                self.planner_paths.append("device")
+                metrics.preemption_planner.inc(path="device")
+                return cand
+            except WhatifKernelError:
+                # a kernel that did not build, took a malformed input or
+                # failed to launch or run: no rung plans in its place
+                raise
+            except Exception as e:  # noqa: BLE001 — any device/prep
+                # failure falls one rung; the wave must keep planning
+                from ..ops.whatif import WhatifUnavailable
+
+                if isinstance(e, DeviceFault):
+                    reason = "fault"
+                    self.backend.record_whatif_fault(e.kind)
+                elif isinstance(e, WhatifUnavailable):
+                    reason = e.reason
+                else:
+                    reason = "error"
+                    logger.warning("what-if planning failed; falling back",
+                                   exc_info=True)
+                metrics.whatif_fallbacks.inc(reason=reason)
         if fast_ok:
             self.planner_paths.append("fast")
             return super()._plan_one(pod, limit)
         self.planner_paths.append("oracle")
         self.fits_now.append(False)
         return ORACLE_FALLBACK
+
+    # -- the device rung ---------------------------------------------------
+
+    def _plan_one_device(self, pod: v1.Pod, limit: int):
+        """One fused what-if launch for this preemptor; returns
+        (fits_now, Candidate | None). Raises WhatifUnavailable /
+        DeviceFault to fall a rung, WhatifKernelError to stop."""
+        from ..ops.whatif import WhatifUnavailable, slot_bucket
+        from ..ops.whatif_kernel import WhatifKernelError
+        from .volume_device import VolumeResolutionChanged
+
+        backend = self.backend
+        try:
+            enc_pa = backend.pe.encode(pod)
+        except VolumeResolutionChanged as e:
+            raise WhatifUnavailable(str(e), reason="encode") from e
+        pa = {k: v for k, v in enc_pa.items() if not k.startswith("_")}
+        ctx = backend.whatif_context(pa)
+        tj = ctx.template_index(pa)
+        nps = ctx.np_slices(tj)
+        prio = _prio(pod)
+        req = self._req_vec(pod)
+        lanes = self._enc_idx
+        Ncap = ctx.n_lanes
+        if (
+            self.n == 0
+            or (lanes < 0).any()
+            or int(lanes.max()) >= Ncap
+            # the lane map must describe the SAME encoding epoch the
+            # context snapshotted: concurrent churn reorders lanes
+            # in-range (capacities are pow2 buckets), so the version
+            # pin — not the range check — is the real guard
+            or backend.enc.version != self._books_version
+        ):
+            raise WhatifUnavailable("node table skew vs the encoding",
+                                    reason="node-skew")
+
+        # -- per-node reprieve slot order: PDB-violating group first,
+        # then the rest, each in MoreImportantPod order (the oracle's
+        # :633-646 walk; the split is host PDB bookkeeping shared with
+        # the fast rung) --------------------------------------------------
+        allC = np.arange(self.n)
+        violating = self._pdb_violating(allC, prio)        # [n, Vmax]
+        valid_ij = self._valive & (self._vprio < prio)     # [n, Vmax]
+        js = self._vsort
+        valid_sorted = np.take_along_axis(valid_ij, js, axis=1)
+        vio_sorted = np.take_along_axis(violating, js, axis=1)
+        max_valid = int(valid_sorted.sum(axis=1).max(initial=0))
+        L = slot_bucket(max_valid)
+        order_key = np.where(
+            ~valid_sorted, 2, np.where(vio_sorted, 0, 1)
+        )
+        perm = np.argsort(order_key, axis=1, kind="stable")
+        Lp = min(L, js.shape[1])
+        slot_j = np.take_along_axis(js, perm, axis=1)[:, :Lp]
+        slot_valid = np.take_along_axis(valid_sorted, perm, axis=1)[:, :Lp]
+        slot_vio = np.take_along_axis(vio_sorted, perm, axis=1)[:, :Lp]
+        if Lp < L:  # pad slots to the pow2 bucket
+            pad = L - Lp
+            slot_j = np.concatenate(
+                [slot_j, np.zeros((self.n, pad), slot_j.dtype)], axis=1)
+            slot_valid = np.concatenate(
+                [slot_valid, np.zeros((self.n, pad), bool)], axis=1)
+            slot_vio = np.concatenate(
+                [slot_vio, np.zeros((self.n, pad), bool)], axis=1)
+
+        # -- victim tensors in encoding-lane space: a slot aggregates
+        # its unit's members (per-member match rows summed; request row
+        # is the prebuilt unit sum; cnt carries the member count the
+        # kernel's pod-count filter releases/re-adds per slot) ---------
+        same_key = nps["f_same_key"].astype(np.int32)      # [C, C]
+        C_n = same_key.shape[0]
+        taa = nps["ipaaa_valid"].shape[0]
+        flat_rows: List[Dict] = []
+        flat_pos: List[Tuple[int, int, int]] = []  # (node, slot, member)
+        for i in range(self.n):
+            for s in range(L):
+                if slot_valid[i, s]:
+                    j = int(slot_j[i, s])
+                    for m, row in enumerate(self._v_rows[i][j]):
+                        flat_rows.append(row)
+                        flat_pos.append((i, s, m))
+        mf_flat, manti_flat, mall_flat = self._match_rows(
+            ctx, nps, tj, flat_rows)
+        # terminating victims never entered the PTS counts (~pterm gate)
+        for b, (i, s, m) in enumerate(flat_pos):
+            if self._v_term[i][int(slot_j[i, s])][m]:
+                mf_flat[b] = 0
+        mfs_flat = mf_flat @ same_key.T                    # [B, C]
+        v = {
+            "valid": np.zeros((Ncap, L), bool),
+            "cnt": np.zeros((Ncap, L), np.int64),
+            "req": np.zeros((Ncap, L, self._enc_r), np.int64),
+            "mfs": np.zeros((Ncap, L, C_n), np.int32),
+            "manti": np.zeros((Ncap, L, taa), np.int32),
+            "mall": np.zeros((Ncap, L), np.int32),
+        }
+        for b, (i, s, m) in enumerate(flat_pos):
+            lane = int(lanes[i])
+            j = int(slot_j[i, s])
+            if not v["valid"][lane, s]:
+                v["valid"][lane, s] = True
+                v["cnt"][lane, s] = self._vsize[i, j]
+                v["req"][lane, s] = self._v_enc_req[i, j]
+            v["mfs"][lane, s] += mfs_flat[b]
+            v["manti"][lane, s] += manti_flat[b]
+            v["mall"][lane, s] += mall_flat[b]
+
+        nom = self._nom_tensors(ctx, nps, tj, prio, Ncap, C_n, taa,
+                                same_key)
+        pre = self._pre_tensors(ctx, nps, tj, Ncap, C_n, taa, same_key)
+
+        # -- the launch: the injector's raise and the watchdog's timeout
+        # are device faults the ladder absorbs; any other raise on the
+        # launch path (the prologue, the kernel, the readback) is a
+        # WhatifKernelError and plans nothing --------------------------------
+        try:
+            backend.check_whatif_fault()
+        except Exception as e:  # noqa: BLE001 — testing/faults raise-whatif
+            raise DeviceFault(f"what-if launch raised: {e}",
+                              kind="raise") from e
+        metrics.whatif_launches.inc()
+        try:
+            with backend._on_stream():
+                ys = ctx.run(tj, v, nom, pre)
+                event = backend._record_event()
+            if not backend._wait_ready(event, backend.watchdog_timeout):
+                raise DeviceFault("what-if launch exceeded the watchdog",
+                                  kind="timeout")
+            ys = backend._read_back(ys, event)
+        except (DeviceFault, WhatifKernelError):
+            raise
+        except Exception as e:  # noqa: BLE001 — a CUDA error surfaces
+            # at whichever call meets it first
+            raise WhatifKernelError(f"what-if launch raised: {e}") from e
+        fits_now = ys["fits_now"].numpy()
+        base = ys["base"].numpy()
+        victims_dev = ys["victims"].numpy()
+
+        # -- epilogue: candidate cut + pick, host-side like the fast
+        # rung (snapshot order is the oracle's candidate order) -------------
+        if bool(fits_now[lanes].any()):
+            return True, None
+        has_victims = slot_valid.any(axis=1)
+        feasible = base[lanes] & has_victims
+        idxs = np.flatnonzero(feasible)
+        if idxs.size == 0:
+            return False, None
+        Cc = idxs[:limit]
+        vmask = victims_dev[lanes[Cc]]                    # [Csz, L]
+        vmask = vmask & slot_valid[Cc]
+        sj = slot_j[Cc]
+        vprio = self._vprio[Cc[:, None], sj]
+        vsize = self._vsize[Cc[:, None], sj]
+        # pick-ladder tallies are per POD, not per slot: a gang unit
+        # contributes its member count / summed priorities / latest
+        # highest-priority start
+        n_vict = np.where(vmask, vsize, 0).sum(axis=1)
+        n_pdbv = np.where(vmask & slot_vio[Cc], vsize, 0).sum(axis=1)
+        sum_prio = np.where(
+            vmask, self._vpriosum[Cc[:, None], sj], 0
+        ).sum(axis=1)
+        max_prio = np.where(vmask, vprio, _I64_MIN).max(
+            axis=1, initial=_I64_MIN)
+        hi_mask = vmask & (vprio == max_prio[:, None])
+        latest = np.max(np.where(
+            hi_mask, self._vlatest_hi[Cc[:, None], sj], -np.inf
+        ), axis=1)
+        ci = self._pick_index(n_vict > 0, n_pdbv, max_prio, sum_prio,
+                              n_vict, latest)
+        if ci is None:
+            return False, None
+        i = int(Cc[ci])
+        victims = [
+            vp
+            for s in range(L) if vmask[ci, s]
+            for vp in self._vpods[i][int(sj[ci, s])]
+        ]
+        cand = Candidate(
+            self.nodes[i].node.metadata.name, victims,
+            num_pdb_violations=int(n_pdbv[ci]),
+        )
+        self._claim(cand, pod, prio, req)
+        return False, cand
+
+    # -- host tensor prep helpers ------------------------------------------
+
+    def _match_rows(self, ctx, nps, tj, rows: List[Optional[Dict]]):
+        """(mf [B, C], manti [B, TAA], mall [B]) for a list of pod label
+        rows against the preemptor's template. Memoized per (template,
+        row-object): claim/nominated lists only GROW across a wave, and
+        the books hold each row dict for the planner's lifetime, so
+        later preemptors re-match only the entries their predecessors'
+        claims appended — not the whole accumulated list."""
+        from ..ops.hoisted import match_matrices_np
+        from ..ops.whatif import ipa_victim_matches_np
+
+        C_n = nps["f_same_key"].shape[0]
+        taa = nps["ipaaa_valid"].shape[0]
+        B = len(rows)
+        mf = np.zeros((B, C_n), np.int32)
+        manti = np.zeros((B, taa), np.int32)
+        mall = np.zeros(B, np.int32)
+        if B == 0:
+            return mf, manti, mall
+        miss = [
+            b for b, r in enumerate(rows)
+            if (tj, id(r)) not in self._match_memo
+        ]
+        if miss:
+            miss_rows = [rows[b] for b in miss]
+            mf_t, _ms_t = match_matrices_np(ctx.tp_np, miss_rows)
+            mf_new = mf_t[tj].astype(np.int32)
+            if ctx.dyn_ipa:
+                manti_new, mall_new = ipa_victim_matches_np(nps, miss_rows)
+            else:
+                manti_new = np.zeros((len(miss), taa), np.int32)
+                mall_new = np.zeros(len(miss), np.int32)
+            for k, b in enumerate(miss):
+                self._match_memo[(tj, id(rows[b]))] = (
+                    mf_new[k], manti_new[k], mall_new[k])
+        for b, r in enumerate(rows):
+            mf[b], manti[b], mall[b] = self._match_memo[(tj, id(r))]
+        return mf, manti, mall
+
+    def _nom_tensors(self, ctx, nps, tj, prio, Ncap, C_n, taa, same_key):
+        """Per-node aggregates of nominated pods with priority >= the
+        preemptor's (framework.go:610's add set), as POSITIVE deltas."""
+        entries = [e for e in self._nom_entries if e[1] >= prio]
+        nom = {
+            "req": np.zeros((Ncap, self._enc_r), np.int64),
+            "cnt": np.zeros(Ncap, np.int64),
+            "mfs": np.zeros((Ncap, C_n), np.int32),
+            "manti": np.zeros((Ncap, taa), np.int32),
+            "mall": np.zeros(Ncap, np.int32),
+            "has_nom": bool(entries),
+        }
+        if not entries:
+            return nom
+        mf, manti, mall = self._match_rows(
+            ctx, nps, tj, [e[2] for e in entries])
+        mfs = mf @ same_key.T
+        for b, (i, _p, _rows, vec) in enumerate(entries):
+            lane = int(self._enc_idx[i])
+            if lane < 0:
+                continue
+            nom["req"][lane] += vec
+            nom["cnt"][lane] += 1
+            nom["mfs"][lane] += mfs[b]
+            nom["manti"][lane] += manti[b]
+            nom["mall"][lane] += mall[b]
+        return nom
+
+    def _pre_tensors(self, ctx, nps, tj, Ncap, C_n, taa, same_key):
+        """Already-claimed-victim drains, applied to every what-if
+        state. Utilization is node-local; PTS/IPA counts drain at
+        topology-PAIR granularity because a claimed victim on another
+        node still empties this node's shared groups."""
+        vnp = ctx.vnp
+        pre = {
+            "req": np.zeros((Ncap, self._enc_r), np.int64),
+            "cnt": np.zeros(Ncap, np.int64),
+            "shared": np.zeros((C_n, vnp), np.int32),
+            "anti": np.zeros((taa, vnp), np.int32),
+            "aff": np.zeros(vnp, np.int32),
+            "atot": np.int32(0),
+        }
+        if not self._pre:
+            return pre
+        mf, manti, mall = self._match_rows(
+            ctx, nps, tj, [e[1] for e in self._pre])
+        pair_cn = nps["f_pair_cn"]  # [Ncap, C] for this template
+        pok = ctx.pok_np()
+        anti_keys = nps["ipaaa_key"]
+        aff_keys = nps["ipaa_key"]
+        aff_valid = nps["ipaa_valid"]
+        raw = np.zeros((C_n, vnp), np.int32)
+        for b, (lane, _rows, vec, terminating) in enumerate(self._pre):
+            pre["req"][lane] += vec
+            pre["cnt"][lane] += 1
+            if not terminating:
+                for c in range(C_n):
+                    raw[c, pair_cn[lane, c]] += mf[b, c]
+            if ctx.dyn_ipa:
+                for t in range(taa):
+                    pre["anti"][t, pok[lane, anti_keys[t]]] += manti[b, t]
+                if mall[b]:
+                    for t in range(aff_valid.shape[0]):
+                        if aff_valid[t]:
+                            pre["aff"][pok[lane, aff_keys[t]]] += 1
+        pre["shared"] = (same_key @ raw).astype(np.int32)
+        pre["shared"][:, 0] = 0
+        pre["anti"][:, 0] = 0
+        pre["aff"][0] = 0
+        pre["atot"] = np.int32(pre["aff"].sum())
+        return pre

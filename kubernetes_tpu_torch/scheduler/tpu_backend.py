@@ -38,10 +38,12 @@ What the port changes against the reference, and why:
   reference's (so are the decisions); no live session reads those
   tensors (ScanSession uploads its own statics, HoistedSession clones
   what its step reads), and every rewrite is ordered on the stream.
-- Left out, each raising rather than silently doing nothing: `mesh=`
-  (the sharded session) and the what-if planner (`KTPU_WHATIF=1`,
-  `whatif_context`); `gang_feasible` answers None (unknown), as the
-  reference does with the planner off. The reference's AOT-bucket
+- The what-if planner (ops/whatif.py, the device rung of
+  preemption_device.py) is on by default on the card and off on the CPU,
+  as the reference's is on its chip and off on the CPU; its context
+  build, carry clone and launches are enqueued on the backend's stream.
+- Left out, raising rather than silently doing nothing: `mesh=` (the
+  sharded session). The reference's AOT-bucket
   quarantine (`retire_exec`, `warm_buckets`, `_suspect_buckets`) has no
   counterpart: the port has no per-bucket executables, one library is
   loaded once per process; a warm launch at session build, its
@@ -355,6 +357,14 @@ class TPUBackend(CacheListener):
         # for the CPU it runs on the kernels' plain versions
         self.use_kernel = (self.device.type == "cuda" if use_kernel is None
                            else bool(use_kernel))
+        # device-side preemption planning (ops/whatif.py): on where the
+        # launch is a real device dispatch, as the reference's is on its
+        # chip (its default is platform == "tpu"); KTPU_WHATIF=0 is the
+        # kill switch, =1 the CPU opt-in. The what-if context is a SCRATCH
+        # view of the cluster: launches never chain onto or invalidate the
+        # live session.
+        self.whatif = knobs.get_bool("KTPU_WHATIF",
+                                     default=self.device.type == "cuda")
         self._stream = None
         self._d2h = None
         if self.device.type == "cuda":
@@ -362,13 +372,16 @@ class TPUBackend(CacheListener):
             # readbacks: a copy queued on the dispatch stream would wait
             # for every batch enqueued after the one it reads
             self._d2h = torch.cuda.Stream(self.device)
+            # build + load the kernel libraries NOW: a build or load
+            # error must surface here, not at a first launch mid-run
             if self.use_kernel:
-                # build + load the kernel library NOW: a build or load
-                # error must surface here, not as device faults the
-                # ladder would absorb by demoting
                 from ..ops import scan_kernel
 
                 scan_kernel._lib()
+            if self.whatif:
+                from ..ops import whatif_kernel
+
+                whatif_kernel._lib()
         self._lock = threading.RLock()
         # cross-cycle session (ScanSession or HoistedSession): the
         # device-resident carry survives between schedule_many calls as
@@ -410,12 +423,12 @@ class TPUBackend(CacheListener):
         self.speculation = knobs.get_bool("KTPU_SPECULATION")
         self.MAX_SESSION_TEMPLATES = 8
         self.volume_resolver = None  # scheduler/volume_device.py
-        # the what-if planner is not ported: off, and refused when asked
-        self.whatif = knobs.get_bool("KTPU_WHATIF", default=False)
-        if self.whatif:
-            raise NotImplementedError(
-                "KTPU_WHATIF=1: the device-side what-if planner is not "
-                "ported yet")
+        # what-if contexts (a scratch view of the cluster per preemptor
+        # template), valid for one encoding version
+        self._whatif_cache: Dict = {}
+        self._whatif_cache_version = -1
+        self.whatif_builds = 0
+        self.whatif_build_s = 0.0
         # -- device fault tolerance ------------------------------------
         # Optional FaultInjector seam (testing/faults.py, duck-typed)
         self.faults = None
@@ -844,21 +857,141 @@ class TPUBackend(CacheListener):
                 self._invalidate_session("abandon-pending")
             return n
 
-    # -- device-side preemption: not ported --------------------------------
+    # -- device-side preemption: what-if context ---------------------------
 
     def whatif_enabled(self) -> bool:
-        """The what-if planner is not ported: never enabled."""
-        return False
+        """True when the planner's device rung may run: kill switch on
+        and the degradation ladder above oracle."""
+        return self.whatif and self.ladder.rung() > RUNG_ORACLE
 
     def whatif_context(self, pod_arrays: Dict):
-        raise NotImplementedError(
-            "whatif_context: the device-side what-if planner is not "
-            "ported yet")
+        """A WhatifContext for this preemptor template against CURRENT
+        cluster state. Preference order: the live HoistedSession when it
+        knows the template (queued deltas reconciled first, its carry
+        cloned on the backend's stream — zero uploads); otherwise a
+        throwaway hoisted view over an encoding snapshot (the kernel
+        session keeps its carry in kernel-private scaled layouts, and the
+        host encoding is its exact mirror after harvest). Neither path
+        invalidates the live session or counts a session build. Cached per
+        encoding version; `whatif_builds` counts the snapshot views built
+        and `whatif_build_s` their seconds."""
+        from ..ops.whatif import WhatifContext, WhatifUnavailable
+
+        with self._lock:
+            if not self.whatif:
+                raise WhatifUnavailable("KTPU_WHATIF=0", reason="disabled")
+            if self.ladder.rung() <= RUNG_ORACLE:
+                raise WhatifUnavailable("backend demoted to oracle",
+                                        reason="demoted")
+            if self.enc.n_nodes == 0:
+                raise WhatifUnavailable("empty cluster", reason="context")
+            # settle the array epoch BEFORE keying the cache: volume
+            # events flag _rebuild_needed without an object-level
+            # version bump, and rebuild() bumps the version itself
+            if self.enc._rebuild_needed or self.enc._caps_grew():
+                self.enc.rebuild()
+            if self._whatif_cache_version != self.enc.version:
+                self._whatif_cache.clear()
+                self._whatif_cache_version = self.enc.version
+            fp = template_fingerprint(pod_arrays)
+            sess = self._session
+            if isinstance(sess, HoistedSession) and fp in sess._fps:
+                ctx = self._whatif_cache.get(("sess",))
+                if ctx is not None and ctx._sess is sess:
+                    return ctx
+                # reconcile queued cluster-event deltas into the live
+                # carry first (the normal pre-dispatch apply — the
+                # scratch copy must see them); an apply failure falls
+                # through to the encoding path
+                self._apply_session_deltas_locked()
+                sess = self._session
+                if isinstance(sess, HoistedSession) and fp in sess._fps:
+                    # the clone is ordered after every batch and delta
+                    # flush already enqueued on the stream
+                    with self._on_stream():
+                        ctx = WhatifContext.from_session(
+                            sess, self.enc.node_names)
+                    self._whatif_cache[("sess",)] = ctx
+                    return ctx
+            ctx = self._whatif_cache.get(("enc", fp))
+            if ctx is not None:
+                return ctx
+            # the throwaway hoisted view costs an upload + a prologue
+            # build — carry a consistent host copy out and do the
+            # expensive part WITHOUT the lock (dispatch/harvest contend
+            # on it); double-checked insert below
+            host = self.enc.host_snapshot()
+            node_names = list(self.enc.node_names)
+            version = self.enc.version
+        t0 = _time.perf_counter()
+        with self._on_stream():
+            ctx = WhatifContext.from_host_snapshot(
+                host, node_names, pod_arrays, mesh=self.mesh,
+                device=self.device)
+        self.whatif_builds += 1
+        self.whatif_build_s += _time.perf_counter() - t0
+        with self._lock:
+            if (self._whatif_cache_version == version
+                    and self.enc.version == version):
+                self._whatif_cache[("enc", fp)] = ctx
+        return ctx
 
     def gang_feasible(self, pod: v1.Pod, k: int) -> Optional[bool]:
-        """Joint co-placement probe: None (unknown), the reference's answer
-        when its what-if path cannot serve."""
-        return None
+        """Joint co-placement probe for the gang deadlock breaker: can
+        k pods of this pod's template co-place on the current cluster?
+        One pass of reductions on a scratch carry
+        (ops/whatif._gang_fits_run) — False is definitive capacity-wise
+        ("cannot place even ignoring inter-member constraints"), True
+        is optimistic on inter-member couplings. None when the what-if
+        path cannot serve (disabled, demoted, template outside the
+        envelope, encode failure): the probe is advisory, and the
+        caller treats unknown as 'maybe feasible'."""
+        try:
+            enc_pa = self.pe.encode(pod)
+            pa = {n: a for n, a in enc_pa.items() if not n.startswith("_")}
+            ctx = self.whatif_context(pa)
+            tj = ctx.template_index(pa)
+            with self._on_stream():
+                return ctx.gang_fits(tj, int(k))
+        except Exception:  # noqa: BLE001 — advisory probe, never fatal
+            return None
+
+    def check_whatif_fault(self) -> None:
+        """Injector seam for the what-if launch path (testing/faults.py
+        raise-whatif)."""
+        inj = self.faults
+        if inj is not None:
+            inj.on_whatif()
+
+    def record_whatif_fault(self, kind: str) -> None:
+        """A what-if launch faulted: count it and walk the ladder
+        (consecutive faults demote and wake the probe), but DO NOT
+        invalidate the live session — the what-if ran on a scratch
+        snapshot, so there is nothing to rebuild, and tearing the session
+        down would charge planning with a rebuild storm
+        (session_rebuilds_total stays unchanged by planning)."""
+        from .metrics import device_faults, dump_seam
+
+        device_faults.inc(kind=kind)
+        tracing.event("whatif-fault", "fault", kind=kind,
+                      rung=self.ladder.mode())
+        dump_seam("whatif-fault", kind=kind)
+        with self._lock:
+            self._whatif_cache.clear()
+            self._whatif_cache_version = -1
+        if self.ladder.record_fault(kind):
+            logger.warning(
+                "TPU backend demoted to %s after %d consecutive device "
+                "faults (last: what-if %s); background probe will "
+                "re-promote", self.ladder.mode(), self.ladder.threshold,
+                kind,
+            )
+            self._notify_health(
+                "Warning", "BackendDemoted",
+                f"scoring backend demoted to {self.ladder.mode()} after "
+                f"consecutive device faults (last: {kind})",
+            )
+            self._ensure_probe_thread()
 
     # -- ladder probe: background re-promotion -----------------------------
 

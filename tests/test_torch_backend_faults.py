@@ -394,33 +394,48 @@ def test_staging_ring_waits_for_the_set_it_reuses(monkeypatch):
 
 
 def test_cuda_backend_raises_when_the_kernel_library_fails(monkeypatch):
-    """A backend on the card builds and loads the kernel library at
-    construction; a build error raises there instead of surfacing later
-    as device faults the ladder would absorb by demoting."""
-    from kubernetes_tpu_torch.ops import scan_kernel
+    """A backend on the card builds and loads its kernel libraries at
+    construction (the scan's with the kernel rung, the what-if's with the
+    what-if on, its default on the card); a build error raises there
+    instead of surfacing later as device faults the ladder would absorb
+    by demoting, or at a first launch."""
+    from kubernetes_tpu_torch.ops import scan_kernel, whatif_kernel
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: object())
+    monkeypatch.delenv("KTPU_WHATIF", raising=False)
 
-    def broken():
-        raise RuntimeError("nvcc failed on scan_full.cu (1)")
+    def broken(source):
+        def load():
+            raise RuntimeError(f"nvcc failed on {source} (1)")
+        return load
 
-    monkeypatch.setattr(scan_kernel, "_lib", broken)
-    with pytest.raises(RuntimeError, match="nvcc failed"):
+    monkeypatch.setattr(scan_kernel, "_lib", broken("scan_full.cu"))
+    monkeypatch.setattr(whatif_kernel, "_lib", broken("whatif.cu"))
+    with pytest.raises(RuntimeError, match="nvcc failed on scan_full.cu"):
         TPUBackend(device="cuda")
-    # the hoisted rung alone needs no kernel library
+    # the hoisted rung needs no scan library, but the what-if's, which
+    # is on by default on the card
+    with pytest.raises(RuntimeError, match="nvcc failed on whatif.cu"):
+        TPUBackend(device="cuda", use_kernel=False)
+    # the hoisted rung with the what-if off needs no kernel library
+    monkeypatch.setenv("KTPU_WHATIF", "0")
     assert TPUBackend(device="cuda", use_kernel=False).ladder.mode() == \
         "hoisted"
 
 
 def test_left_out_features_raise(monkeypatch):
+    """The mesh alone still raises. The what-if planner is ported: off by
+    default on the CPU, on with KTPU_WHATIF=1, and gang_feasible then
+    answers a bool."""
     with pytest.raises(NotImplementedError):
         TPUBackend(device="cpu", mesh=object())
+    monkeypatch.delenv("KTPU_WHATIF", raising=False)
     b = TPUBackend(device="cpu")
     assert not b.whatif and not b.whatif_enabled()
-    with pytest.raises(NotImplementedError):
-        b.whatif_context({})
     assert b.gang_feasible(_port_obj(make_pod("g", cpu="1")), 2) is None
     monkeypatch.setenv("KTPU_WHATIF", "1")
-    with pytest.raises(NotImplementedError):
-        TPUBackend(device="cpu")
+    b = TPUBackend(device="cpu")
+    assert b.whatif and b.whatif_enabled()
+    b.on_add_node(_port_obj(make_node("n0", cpu="4", pods=10)))
+    assert b.gang_feasible(_port_obj(make_pod("g", cpu="1")), 2) is True

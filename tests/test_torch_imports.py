@@ -102,6 +102,16 @@ def test_port_source_names_no_jax_or_reference_import(rel):
     assert not bad, f"{rel} names {bad}"
 
 
+def test_whatif_modules_are_checked():
+    """The what-if planner's modules are among the sources the two checks
+    above read."""
+    for rel in ("kubernetes_tpu_torch/ops/whatif.py",
+                "kubernetes_tpu_torch/ops/whatif_kernel.py",
+                "kubernetes_tpu_torch/scheduler/preemption_device.py"):
+        assert rel in PORT_SOURCES
+        assert ".".join(Path(rel).with_suffix("").parts) in PORT_MODULES
+
+
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_host_copy_is_verbatim(rel):
     assert (PORT / rel).read_text() == \

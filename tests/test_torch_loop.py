@@ -22,7 +22,10 @@ map:
   the run's APIServer;
 - preemption through the loop: low-priority pods saturate the nodes, then
   high-priority pods arrive: the same victims, the same nominated nodes,
-  the same final bindings;
+  the same final bindings, with the what-if planner off (the numpy
+  planner) and on (KTPU_WHATIF=1 for both: the device rung); and
+  affinity-carrying preemptors (Preemption-IPA's shape at six nodes),
+  which plan on the device rung;
 - the degradation ladder through the live loop (chip_smoke.py phase 13c
   at small size): a dispatch fault from the second measured batch on
   walks the port's backend down to the oracle rung, the framework binds
@@ -268,14 +271,88 @@ def _names(cs, prefix):
             if p.metadata.name.startswith(prefix)}
 
 
-def test_preemption_through_loop_matches_reference():
+def _planner_paths():
+    from kubernetes_tpu_torch.scheduler import metrics
+
+    out = {}
+    for key, val in metrics.preemption_planner.items():
+        out[key[0]] = out.get(key[0], 0) + int(val)
+    return out
+
+
+def _paths_since(before):
+    return {k: v - before.get(k, 0) for k, v in _planner_paths().items()
+            if v - before.get(k, 0)}
+
+
+@pytest.mark.parametrize("whatif", ["0", "1"])
+def test_preemption_through_loop_matches_reference(whatif, monkeypatch):
+    """The wave through each package's loop with the what-if planner off
+    (the numpy planner) and on (KTPU_WHATIF=1 for both: the device rung,
+    the port's plain walk on the CPU)."""
+    monkeypatch.setenv("KTPU_WHATIF", whatif)
     ref = _saturate_then_preempt(False)
+    before = _planner_paths()
     got = _saturate_then_preempt(True)
     victims, nominations, bound = got
     assert len(victims) == 3
     assert got == ref
     # each preemptor binds where it was nominated
     assert all(bound[k] == n for k, n in nominations.items())
+    paths = _paths_since(before)
+    assert paths == ({"device": 3} if whatif == "1" else {"fast": 3})
+
+
+def _affinity_preempt(port):
+    """Preemption-IPA-500n-500hi's shape cut to six nodes: 24 priority-1
+    pods labelled app=victim fill six 4-CPU nodes in three zones; four
+    priority-100 pods carrying a required pod-affinity term toward
+    app=victim (zone topology) then fail and preempt. -> (victims,
+    nominated node per preemptor, final bindings)."""
+    aff = v1.Affinity(pod_affinity=v1.PodAffinity(
+        required_during_scheduling_ignored_during_execution=[
+            v1.PodAffinityTerm(
+                label_selector=v1.LabelSelector(
+                    match_labels={"app": "victim"}),
+                topology_key="zone")]))
+    loop = _Loop(port, n_nodes=6, node_cpu="4")
+    cs = loop.cs
+    try:
+        loop.drive([make_pod(f"low-{i}", cpu="900m", memory="64Mi",
+                             priority=1, labels={"app": "victim"})
+                    for i in range(24)], [12, 12])
+        assert all(_names(cs, "low-").values())
+        loop.drive([make_pod(f"hi-{i}", cpu="900m", memory="64Mi",
+                             priority=100, labels={"app": "victim"},
+                             affinity=aff) for i in range(4)], [4])
+        deadline = time.monotonic() + 30
+        while not all(_names(cs, "hi-").values()) \
+                and time.monotonic() < deadline:
+            loop.drive([], [4])
+        pods, _ = cs.pods.list(namespace="default")
+        victims = {f"low-{i}" for i in range(24)} - set(_names(cs, "low-"))
+        nominations = {p.metadata.name: p.status.nominated_node_name
+                       for p in pods if p.metadata.name.startswith("hi-")}
+        return victims, nominations, {p.metadata.name: p.spec.node_name
+                                      for p in pods}
+    finally:
+        loop.close()
+
+
+def test_affinity_preemption_through_loop_matches_reference(monkeypatch):
+    """Affinity-carrying preemptors are outside the numpy planner's
+    envelope: with the what-if on they plan on the device rung (the port's
+    plain walk on the CPU) and evict, nominate and bind as the reference
+    loop does."""
+    monkeypatch.setenv("KTPU_WHATIF", "1")
+    ref = _affinity_preempt(False)
+    before = _planner_paths()
+    got = _affinity_preempt(True)
+    victims, nominations, bound = got
+    assert len(victims) == 4
+    assert got == ref
+    assert all(bound[k] == n for k, n in nominations.items())
+    assert _paths_since(before) == {"device": 4}
 
 
 def test_ladder_drill_through_loop():
