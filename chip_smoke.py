@@ -210,10 +210,45 @@ Phases (each raises on failure; the script then exits non-zero):
    f. `gang_feasible` on the card against the same reductions on the CPU
       at several k.
 
+15. the rest of the scheduler_perf matrix on the card, after every earlier
+   session is released:
+   a. ops/batch.py `schedule_batch` (eager torch, the reference's
+      sequential batch) on phase 4's cluster at full width over the first
+      512 pods of its first measured batch: decisions == a ScanSession's
+      on the same pods from the same encoding, and new_carry's
+      requested / nz_requested / pod_count and pod rows == the host
+      encoding after them; ms per pod (host window, CUDA events) and
+      kernels per pod (torch.profiler);
+   b. every other single-device row of scripts/bench_configs.py (:55-300;
+      `MATRIX_ROWS`: PTS-heavy, IPA churn, the three gang rows,
+      unschedulable churn, secrets, the in-tree / CSI / migrated PV rows,
+      the pod-affinity and node-affinity rows at 500 and 5000 nodes)
+      through `run_workload` on the card at the sizes that file gives
+      them, but for the 5000-node twins' measured pods (`TWIN_PODS`):
+      every measured pod bound (the two saturating rows: some), no node
+      over its allocatable in any resource, no two anti-affine pods on
+      one hostname, the ladder on its top rung with 0 device faults; the
+      non-saturating rows' bindings == a fresh backend's `schedule_many`
+      replay of the loop's batches (the PV rows with the run's volumes);
+      the 500-node rows' bindings == the port's CPU run of the row (four
+      at a time in worker processes, after every timed run); the gang
+      rows 0 rollbacks, 0 rejections and no torn gang (testing/faults.py
+      GangIntegrityChecker); the PV rows each pod's PV zone its node's
+      zone and no node over its CSINode attach count. Each row prints
+      pods/s (mean, p50, p90), attempts/s, latency p50 / p99, the window,
+      the session builds with their reasons, the rung each batch rode
+      (session class / ladder mode) and the pods scheduled on the oracle
+      path, launches by variant, planner paths and what-if launches;
+   c. SchedulingBasic-500 and Default-5000n-10k (BENCH_WIRE_CONFIGS.json's
+      first two rows) with `wire=True`: the HTTP apiserver
+      (apiserver/http.py) under every client; the bindings == 13a's and
+      13b's in process, pods/s and latency beside theirs.
+
 It prints the kernels' line, a `{"hoisted_session": ...}` line with phase
 11's numbers, a `{"backend": ...}` line with phase 12's, a `{"loop": ...}`
-line with phase 13's, a `{"preemption": ...}` line with phase 14's, then
-`{"ok": true, "device": {...}}` last.
+line with phase 13's, a `{"preemption": ...}` line with phase 14's, a
+`{"matrix": ...}` line with phase 15's, then `{"ok": true, "device":
+{...}}` last.
 It needs a CUDA card and imports nothing of JAX or of the JAX package.
 """
 
@@ -2974,17 +3009,24 @@ class LoopRun:
     on the card each `scan_full` launch of the backend is bracketed with
     CUDA events on the backend's stream, tagged "measured" (a batch of
     measure-* pods), "init" (another loop batch) or "other" (launched
-    outside dispatch_many: the harness's kernel-direct rate)."""
+    outside dispatch_many: the harness's kernel-direct rate). Each batch's
+    rung is kept too (the session class it rode and the ladder's mode), and
+    the pods the loop scheduled pod by pod through the framework (the
+    oracle path) are counted. With `gang`, a GangIntegrityChecker watches
+    the run's pods through an informer of its own."""
 
-    def __init__(self, cuda: bool):
+    def __init__(self, cuda: bool, gang: bool = False):
         import copy
 
         import torch
         from kubernetes_tpu_torch.ops import scan as scan_mod
         from kubernetes_tpu_torch.perf import harness
+        from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
         from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
 
         self.apis, self.batches, self.events, self.backends = [], [], [], []
+        self.rungs, self.oracle_pods = [], 0
+        self.gang_checker, self._factories = None, []
         self._restore = []
         self._tag = "other"
         run = self
@@ -2993,8 +3035,15 @@ class LoopRun:
             def __init__(self, *args, **kwargs):
                 super().__init__(*args, **kwargs)
                 run.apis.append(self)
+                if gang:
+                    run._watch_gangs(self)
 
         orig_dispatch = TPUBackend.dispatch_many
+        orig_oracle = Scheduler._schedule_one_oracle
+
+        def schedule_one_oracle(sched, info):
+            run.oracle_pods += 1
+            return orig_oracle(sched, info)
 
         def dispatch_many(be, pods):
             if be not in run.backends:
@@ -3012,6 +3061,10 @@ class LoopRun:
                 return orig_dispatch(be, pods)
             finally:
                 run._tag = "other"
+                session = be._session
+                run.rungs.append((len(pods), type(session).__name__
+                                  if session is not None else "no session",
+                                  be.ladder.mode()))
 
         orig_scan = scan_mod.scan_full
 
@@ -3028,13 +3081,38 @@ class LoopRun:
 
         for obj, name, new in ((harness, "APIServer", CapturedAPIServer),
                                (TPUBackend, "dispatch_many", dispatch_many),
+                               (Scheduler, "_schedule_one_oracle",
+                                schedule_one_oracle),
                                (scan_mod, "scan_full", scan_full)):
             self._restore.append((obj, name, getattr(obj, name)))
             setattr(obj, name, new)
 
+    def _watch_gangs(self, api):
+        from kubernetes_tpu_torch.client import (
+            Clientset,
+            SharedInformerFactory,
+        )
+        from kubernetes_tpu_torch.testing.faults import GangIntegrityChecker
+
+        factory = SharedInformerFactory(Clientset(api))
+        self.gang_checker = GangIntegrityChecker().attach(factory.pods())
+        factory.start()
+        self._factories.append(factory)
+
+    def rung_summary(self):
+        """{"session class / ladder mode": [batches, pods]} over the run."""
+        out = {}
+        for n, kind, mode in self.rungs:
+            b = out.setdefault(f"{kind}/{mode}", [0, 0])
+            b[0] += 1
+            b[1] += n
+        return out
+
     def close(self):
         for obj, name, orig in reversed(self._restore):
             setattr(obj, name, orig)
+        for factory in self._factories:
+            factory.stop()
 
     def kernel_ms(self, tags=("init", "measured")):
         import torch
@@ -3066,9 +3144,17 @@ def loop_workload(spec, **extra):
 def loop_cell(sk, gpu, label, w, device="cuda", trace=False):
     """`run_workload(w, device=device)` under a LoopRun (with `trace`, the
     flight recorder on at level 1 for the call, so that the harness
-    returns its per-stage span summary). Returns the cell's printed
-    numbers (the launches per kernel variant in the call: counts set to 0
-    just before it, read just after), the bindings and the LoopRun."""
+    returns its per-stage span summary). Checks what holds for every
+    cell: every measured pod bound unless the workload is saturating
+    (then some), every pod bound to one node, no node over its
+    allocatable, and on the card the ladder on its top rung with 0 device
+    faults (a session the kernel refuses is not a fault: the rung each
+    batch rode and the reasons of every session build are printed).
+    Returns the cell's printed numbers (the launches per kernel variant in
+    the call: counts set to 0 just before it, read just after), the
+    bindings, the LoopRun, and the run's pods and nodes."""
+    from kubernetes_tpu_torch.client import Clientset
+    from kubernetes_tpu_torch.ops import whatif_kernel as wk
     from kubernetes_tpu_torch.perf.harness import run_workload
     from kubernetes_tpu_torch.utils import tracing
 
@@ -3076,39 +3162,64 @@ def loop_cell(sk, gpu, label, w, device="cuda", trace=False):
     before = counters()
     if cuda:
         reset_counts(sk)
-    run = LoopRun(cuda)
+        wk.LAUNCHES = 0
+    run = LoopRun(cuda, gang=w.gang_size > 1)
     level = tracing.set_level(1) if trace else None
     t0 = time.perf_counter()
     try:
         r = run_workload(w, device=device)
+        wall_s = time.perf_counter() - t0
+        cs = Clientset(run.apis[-1])
+        pods, _ = cs.pods.list(namespace="default")
+        nodes, _ = cs.nodes.list()
+        gang = run.gang_checker
+        if gang is not None:
+            deadline = time.monotonic() + MATRIX_STALL_GRACE
+            while gang.partial_gangs() and time.monotonic() < deadline:
+                time.sleep(0.1)
+            gang = {"partial": len(gang.partial_gangs()),
+                    "violations": list(gang.violations)}
     finally:
         run.close()
         if trace:
             tracing.set_level(level)
-    wall_s = time.perf_counter() - t0
     launches = {k: v for k, v in sk.VARIANT_LAUNCHES.items() if v} \
         if cuda else {}
+    if cuda and wk.LAUNCHES:
+        launches["whatif"] = wk.LAUNCHES
     cluster = {k: v for k, v in sk.CLUSTER_LAUNCHES.items() if v} \
         if cuda else {}
     delta = counters_delta(before)
-    builds = {}
-    for key, v in delta["session_builds"].items():
-        builds[key[0]] = builds.get(key[0], 0) + int(v)
+    # session builds in this call, by kind and by kind / reason (the
+    # harness's session_build_reasons counts the process's)
+    builds, reasons = {}, {}
+    for k, v in delta["session_builds"].items():
+        builds[k[0]] = builds.get(k[0], 0) + int(v)
+        slug = f"{k[0]}/{k[1] or '-'}"
+        reasons[slug] = reasons.get(slug, 0) + int(v)
     measured_ms = run.kernel_ms(("measured",))
     loop_ms = run.kernel_ms()
     window_ms = r.duration_s * 1e3
+    bindings = {p.metadata.name: p.spec.node_name for p in pods}
     out = {
-        "cell": label, "device": device, "pods_per_s": r.throughput_avg,
+        "cell": label, "row": w.name, "device": device,
+        "nodes": w.num_nodes, "init": w.num_init_pods, "pods": w.num_pods,
+        "max_batch": w.max_batch, "pods_per_s": r.throughput_avg,
         "pods_per_s_p50": r.throughput_p50,
         "pods_per_s_p90": r.throughput_p90,
+        "attempts_per_s": r.attempts_per_sec,
         "latency_p50_s": r.pod_scheduling_p50,
-        "latency_p99_s": r.pod_scheduling_p99,
-        "attempts": r.attempts, "bound": r.num_bound, "pods": w.num_pods,
-        "window_s": r.duration_s, "wall_s": wall_s,
-        "session_kind": r.session_kind,
-        "session_builds": builds,
-        "batches": len(run.batches),
-        "launches": launches, "cluster_launches": cluster,
+        "latency_p99_s": r.pod_scheduling_p99, "attempts": r.attempts,
+        "bound": r.num_bound, "window_s": r.duration_s, "wall_s": wall_s,
+        "session_kind": r.session_kind, "session_builds": builds,
+        "session_build_reasons": reasons,
+        "session_rebuild_reasons": r.session_rebuild_reasons,
+        "rungs": run.rung_summary(), "oracle_pods": run.oracle_pods,
+        "batches": len(run.batches), "launches": launches,
+        "cluster_launches": cluster,
+        "planner_paths": r.preemption_planner_paths,
+        "whatif_launches": r.whatif_launches,
+        "whatif_fallbacks": r.whatif_fallbacks,
         "kernel_ms_per_batch": (statistics.mean(measured_ms)
                                 if measured_ms else None),
         "kernel_ms_measured": sum(measured_ms),
@@ -3121,14 +3232,25 @@ def loop_cell(sk, gpu, label, w, device="cuda", trace=False):
     if trace:
         out["stage_latency"] = r.stage_latency
         out["stage_window_s"] = r.stage_window_s
-    if r.num_bound != w.num_pods:
+    if w.gang_size > 1:
+        out.update(gang_admitted=r.gang_admitted,
+                   gang_rejected=r.gang_rejected,
+                   gang_rollbacks=r.gang_rollbacks,
+                   gang_admission_p50_s=r.gang_admission_p50,
+                   gang_admission_p99_s=r.gang_admission_p99, gang=gang)
+    over = overcommitted(pods, nodes)
+    unbound = sum(1 for v in bindings.values() if not v)
+    if over or len(bindings) != w.num_init_pods + w.num_pods:
+        raise AssertionError(f"{label} on {device}: nodes over their "
+                             f"allocatable {over[:5]}, {len(bindings)} pods")
+    if w.saturating:
+        if not 0 < r.num_bound < w.num_pods:
+            raise AssertionError(f"{label} on {device}: {r.num_bound} of "
+                                 f"{w.num_pods} bound in a saturating row")
+    elif r.num_bound != w.num_pods or unbound:
         raise AssertionError(f"{label} on {device}: {r.num_bound} of "
-                             f"{w.num_pods} measured pods bound")
-    bindings = run.bindings()
-    unbound = [k for k, v in bindings.items() if not v]
-    if unbound or len(bindings) != w.num_init_pods + w.num_pods:
-        raise AssertionError(f"{label} on {device}: {len(unbound)} pods "
-                             f"unbound of {len(bindings)}")
+                             f"{w.num_pods} measured pods bound, {unbound} "
+                             "pods unbound")
     if cuda:
         be = run.backends[-1]
         if be.ladder.rung() != be.ladder.top or be.ladder.demotions \
@@ -3136,40 +3258,63 @@ def loop_cell(sk, gpu, label, w, device="cuda", trace=False):
             raise AssertionError(f"{label}: ladder {be.ladder.mode()}, "
                                  f"{be.ladder.demotions} demotions, faults "
                                  f"{delta['device_faults']}")
-        if r.session_kind != "ScanSession" or not launches.get("scan_full"):
-            raise AssertionError(f"{label}: session {r.session_kind}, "
-                                 f"launches {launches}")
-    log(f"phase {label} on {device}: {r.num_bound} measured pods "
-        f"(+{w.num_init_pods} init) bound over {w.num_nodes} nodes; "
+    log(f"phase {label} {w.name} on {device}: {r.num_bound} of "
+        f"{w.num_pods} measured pods bound (+{w.num_init_pods} init) over "
+        f"{w.num_nodes} nodes, no node over its allocatable; "
         f"{r.throughput_avg} pods/s (p50 {r.throughput_p50}, p90 "
-        f"{r.throughput_p90}); pod scheduling latency p50 "
-        f"{r.pod_scheduling_p50} s, p99 {r.pod_scheduling_p99} s; "
-        f"{r.attempts} attempts; window {r.duration_s} s, wall "
-        f"{wall_s:.2f} s; {len(run.batches)} batches; session "
-        f"{r.session_kind}, builds in the call {builds}; launches "
-        f"{launches} (cluster sizes {cluster}); kernel "
+        f"{r.throughput_p90}), {r.attempts_per_sec} attempts/s; pod "
+        f"scheduling latency p50 {r.pod_scheduling_p50} s, p99 "
+        f"{r.pod_scheduling_p99} s; window {r.duration_s} s, wall "
+        f"{wall_s:.2f} s; session {r.session_kind}, builds in the call "
+        f"{reasons}, rebuilds {r.session_rebuild_reasons}; rungs (batches, "
+        f"pods) {out['rungs']}, {run.oracle_pods} pods on the oracle path; "
+        f"launches {launches} (cluster sizes {cluster}); planner paths "
+        f"{r.preemption_planner_paths}, what-if launches "
+        f"{r.whatif_launches}, fallbacks {r.whatif_fallbacks}; kernel "
         + (f"{out['kernel_ms_per_batch']:.3f} ms per measured batch by CUDA "
            f"events, {out['kernel_share']:.1%} of the window"
            if measured_ms else "not timed (no CUDA events on the CPU)")
-        + f"; kernel-direct {r.kernel_direct_pods_per_sec} pods/s, "
-        f"loop_kernel_ratio {r.loop_kernel_ratio}"
+        + (f"; kernel-direct {r.kernel_direct_pods_per_sec} pods/s, "
+           f"loop_kernel_ratio {r.loop_kernel_ratio}"
+           if w.kernel_direct else "")
         + ("; stages (count, total ms): " + ", ".join(
             f"{k} {int(v['count'])} {v['total_s'] * 1e3:.1f}"
             for k, v in sorted((r.stage_latency or {}).items()))
            + f" over {r.stage_window_s} s of spans" if trace else "")
+        + (f"; gangs admitted {r.gang_admitted}, rejected "
+           f"{r.gang_rejected}, rollbacks {r.gang_rollbacks}, admission "
+           f"p50 {r.gang_admission_p50} s p99 {r.gang_admission_p99} s, "
+           f"checker {gang}" if w.gang_size > 1 else "")
         + f" [{gpu}]")
-    return out, bindings, run
+    return out, bindings, run, pods, nodes
 
 
-def replay_bindings(batches, nodes, device="cuda"):
+def kernel_cell(label, out):
+    """Phase 13's cells ride the kernel session and launch `scan_full`."""
+    if out["device"] == "cuda" and (out["session_kind"] != "ScanSession"
+                                    or not out["launches"].get("scan_full")):
+        raise AssertionError(f"{label}: session {out['session_kind']}, "
+                             f"launches {out['launches']}")
+
+
+def replay_bindings(batches, nodes, device="cuda", volumes=None):
     """The loop's batches, in the order it dispatched them, through a fresh
     TPUBackend's `schedule_many` fed the same nodes through a
     SchedulerCache; each batch's placements assumed back into the cache
-    (the loop's assume), as phase 12 does."""
+    (the loop's assume), as phase 12 does. `volumes`: the run's (PVCs,
+    PVs, CSINodes), read by the backend's volume resolver as the loop's
+    informers feed it."""
     from kubernetes_tpu_torch.scheduler.internal.cache import SchedulerCache
     from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
+    from kubernetes_tpu_torch.scheduler.volume_device import (
+        VolumeDeviceResolver,
+    )
 
     be = TPUBackend(device=device)
+    if volumes is not None:
+        pvcs, pvs, csinodes = volumes
+        be.set_volume_resolver(VolumeDeviceResolver(
+            lambda: pvcs, lambda: pvs, lambda: csinodes))
     be.enc.reserve(pods=int(sum(len(b) for b in batches) * 1.25))
     cache = SchedulerCache()
     cache.add_listener(be)
@@ -3362,7 +3507,8 @@ def loop_drill(device, num_nodes=500, num_init=1000, waves=DRILL_WAVES,
 
 def phase_loop(sk, gpu):
     """Phase 13: the scheduler loop on the card through its entry points.
-    Returns (numbers, launches per kernel variant over the phase)."""
+    Returns (numbers, launches per kernel variant over the phase, 13a's and
+    13b's bindings on the card with their numbers, for phase 15c)."""
     from kubernetes_tpu_torch.client import Clientset
 
     total = dict.fromkeys(sk.VARIANT_LAUNCHES, 0)
@@ -3375,10 +3521,12 @@ def phase_loop(sk, gpu):
     t0 = time.perf_counter()
     # 13a: SchedulingBasic-500 on the card, then on the CPU
     w = loop_workload(LOOP_BASIC, kernel_direct=True)
-    a, card, _ = loop_cell(sk, gpu, "13a", w)
+    a, card, _, _, _ = loop_cell(sk, gpu, "13a", w)
+    kernel_cell("13a", a)
     add(a["launches"])
-    cpu, cpu_bind, _ = loop_cell(sk, gpu, "13a", loop_workload(LOOP_BASIC),
-                                 device="cpu")
+    cpu, cpu_bind, _, _, _ = loop_cell(sk, gpu, "13a",
+                                       loop_workload(LOOP_BASIC),
+                                       device="cpu")
     if card != cpu_bind:
         bad = sum(card.get(k) != v for k, v in cpu_bind.items())
         raise AssertionError(f"13a: {bad} of {len(card)} bindings differ "
@@ -3391,7 +3539,8 @@ def phase_loop(sk, gpu):
     out["13a"] = a
     # 13b: Default-5000n-10k; the bindings against a schedule_many replay
     w = loop_workload(LOOP_DEFAULT, kernel_direct=True)
-    b, bind_b, run_b = loop_cell(sk, gpu, "13b", w)
+    b, bind_b, run_b, _, _ = loop_cell(sk, gpu, "13b", w)
+    kernel_cell("13b", b)
     add(b["launches"])
     if b["launches"].get("scan_full") != b["cluster_launches"].get(
             sk.CLUSTER) or len(b["cluster_launches"]) != 1:
@@ -3417,8 +3566,9 @@ def phase_loop(sk, gpu):
         f"batches ({b['replay_s']:.2f} s) [{gpu}]")
     out["13b"] = b
     # 13d: 13b again with the flight recorder on, for its stage split
-    d, _, _ = loop_cell(sk, gpu, "13d", loop_workload(LOOP_DEFAULT),
-                        trace=True)
+    d, _, _, _, _ = loop_cell(sk, gpu, "13d", loop_workload(LOOP_DEFAULT),
+                              trace=True)
+    kernel_cell("13d", d)
     add(d["launches"])
     out["13d"] = d
     # 13c: the ladder drill through the loop
@@ -3442,7 +3592,10 @@ def phase_loop(sk, gpu):
         f"launches {c['launches']}; wall {c['wall_s']:.2f} s [{gpu}]")
     out["13c"] = c
     out["phase_s"] = time.perf_counter() - t0
-    return out, total
+    keep = ("pods_per_s", "latency_p50_s", "latency_p99_s", "window_s")
+    return out, total, {"13a": card, "13b": bind_b,
+                        "13a_numbers": {k: a[k] for k in keep},
+                        "13b_numbers": {k: b[k] for k in keep}}
 
 
 # phase 14: the preemption rows of scripts/bench_configs.py (:131-137,
@@ -3563,25 +3716,25 @@ def time_whatif(call):
 
 
 def overcommitted(pods, nodes):
-    """Nodes whose bound pods' cpu, memory or count is above their
-    allocatable."""
+    """Nodes whose bound pods' requests of a resource (cpu, memory, an
+    extended resource; a resource the node does not list has 0) or count
+    is above their allocatable."""
     from kubernetes_tpu_torch.api.quantity import parse_quantity
 
     used = {}
     for p in pods:
-        u = used.setdefault(p.spec.node_name, [0, 0, 0])
+        u = used.setdefault(p.spec.node_name, {})
         for c in p.spec.containers:
-            req = c.resources.requests or {}
-            u[0] += parse_quantity(req.get("cpu", "0"))
-            u[1] += parse_quantity(req.get("memory", "0"))
-        u[2] += 1
+            for k, q in (c.resources.requests or {}).items():
+                u[k] = u.get(k, 0) + parse_quantity(q)
+        u["pods"] = u.get("pods", 0) + 1
     over = []
     for node in nodes:
         a = node.status.allocatable
-        cap = (parse_quantity(a["cpu"]), parse_quantity(a["memory"]),
-               int(a["pods"]))
-        if any(x > c for x, c in zip(used.get(node.metadata.name,
-                                              (0, 0, 0)), cap)):
+        u = used.get(node.metadata.name, {})
+        if any(v > (int(a["pods"]) if k == "pods"
+                    else parse_quantity(a.get(k, "0")))
+               for k, v in u.items()):
             over.append(node.metadata.name)
     return over
 
@@ -4071,6 +4224,474 @@ def phase_preemption(sk, gpu):
     return out, kernel, loop_launches
 
 
+# -- phase 15: the rest of the scheduler_perf matrix -------------------------
+
+# scripts/bench_configs.py's single-device rows beyond phases 13 and 14
+# (:55-300), at the sizes it gives them but for the twins' TWIN_PODS;
+# templates as PodTemplate keyword arguments, so that the tests can stamp
+# both packages' harnesses
+_GPU_POD = {"extended": {"example.com/gpu": "1"}}
+_GPU_NODE = {"example.com/gpu": "8"}
+_SPREAD = {"spread_zone": True}
+_AFF = {"labels": {"app": "aff"}}
+# the 5000-node twins' measured pods, cut from the file's 5000 (nodes
+# never): the whole script has to end within 900 s (PERF.md, 4. Cells)
+TWIN_PODS = 2048
+MATRIX_ROWS = {
+    "pts20k": dict(
+        name="PTS-heavy-5000n-20k", num_nodes=5000, num_init_pods=4096,
+        num_pods=20000, max_batch=2048, timeout=1200.0,
+        init_template=dict(_SPREAD, spread_zone_hard=True),
+        template=dict(_SPREAD, spread_zone_hard=True)),
+    "ipachurn": dict(
+        name="IPA-churn-2000n-5000", num_nodes=2000, num_init_pods=1024,
+        num_pods=5000, max_batch=1024, timeout=900.0, stall_stop=15.0,
+        saturating=True,
+        init_template={"anti_affinity_hostname": True,
+                       "labels": {"app": "churn"}},
+        template={"anti_affinity_hostname": True,
+                  "labels": {"app": "churn"}}),
+    "gang": dict(
+        name="Gang-4000n-1000x8", num_nodes=4000, num_init_pods=2048,
+        num_pods=8000, gang_size=8, max_batch=1024, timeout=900.0,
+        init_template=_GPU_POD, template=_GPU_POD, node_extended=_GPU_NODE),
+    "gang64": dict(
+        name="Gang-4000n-64x64", num_nodes=4000, num_init_pods=2048,
+        num_pods=4096, gang_size=64, max_batch=1024, timeout=900.0,
+        init_template=_GPU_POD, template=_GPU_POD, node_extended=_GPU_NODE),
+    "gang256": dict(
+        name="Gang-4000n-8x256", num_nodes=4000, num_init_pods=2048,
+        num_pods=2048, gang_size=256, max_batch=1024, timeout=900.0,
+        init_template=_GPU_POD, template=_GPU_POD, node_extended=_GPU_NODE),
+    "unschedchurn": dict(
+        name="Unschedulable-churn-500n", num_nodes=500, num_init_pods=1000,
+        num_pods=3000, max_batch=512, timeout=900.0, stall_stop=15.0,
+        saturating=True, init_template=_SPREAD, template=_SPREAD,
+        second_template={"cpu": "8", "memory": "64Gi"}, second_every=3),
+    "secrets": dict(
+        name="SchedulingSecrets-500n", num_nodes=500, num_init_pods=1000,
+        num_pods=1000, max_batch=1024, template={"secret_volumes": 2}),
+    "intreepvs": dict(
+        name="SchedulingInTreePVs-500n", num_nodes=500, num_init_pods=1000,
+        num_pods=1000, max_batch=1024, timeout=900.0,
+        init_template={"with_pvc": "zonal"}, template={"with_pvc": "zonal"}),
+    "csipvs": dict(
+        name="SchedulingCSIPVs-500n", num_nodes=500, num_init_pods=1000,
+        num_pods=1000, max_batch=1024, timeout=900.0,
+        init_template={"with_pvc": "csi"}, template={"with_pvc": "csi"}),
+    "migratedpvs": dict(
+        name="SchedulingMigratedInTreePVs-500n", num_nodes=500,
+        num_init_pods=1000, num_pods=1000, max_batch=1024, timeout=900.0,
+        init_template={"with_pvc": "migrated"},
+        template={"with_pvc": "migrated"}),
+    "podaffinity": dict(
+        name="SchedulingPodAffinity-500n", num_nodes=500, num_init_pods=1000,
+        num_pods=1000, max_batch=1024, timeout=900.0, init_template=_AFF,
+        template=dict(_AFF, pod_affinity_zone=True)),
+    "prefaffinity": dict(
+        name="SchedulingPreferredPodAffinity-500n", num_nodes=500,
+        num_init_pods=1000, num_pods=1000, max_batch=1024, timeout=900.0,
+        init_template=_AFF, template=dict(_AFF, preferred_affinity_zone=True)),
+    "prefantiaffinity": dict(
+        name="SchedulingPreferredPodAntiAffinity-500n", num_nodes=500,
+        num_init_pods=1000, num_pods=1000, max_batch=1024, timeout=900.0,
+        init_template=_AFF,
+        template=dict(_AFF, preferred_anti_affinity_zone=True)),
+    "nodeaffinity": dict(
+        name="SchedulingNodeAffinity-500n", num_nodes=500, num_init_pods=1000,
+        num_pods=1000, max_batch=1024,
+        template={"node_affinity_zones": ["zone-0", "zone-1"]}),
+    "intreepvs5000": dict(
+        name="SchedulingInTreePVs-5000n", num_nodes=5000, num_init_pods=2048,
+        num_pods=TWIN_PODS, max_batch=2048, timeout=900.0,
+        init_template={"with_pvc": "zonal"}, template={"with_pvc": "zonal"}),
+    "podaffinity5000": dict(
+        name="SchedulingPodAffinity-5000n", num_nodes=5000,
+        num_init_pods=2048, num_pods=TWIN_PODS, max_batch=2048,
+        timeout=900.0,
+        init_template=_AFF, template=dict(_AFF, pod_affinity_zone=True)),
+    "prefaffinity5000": dict(
+        name="SchedulingPreferredPodAffinity-5000n", num_nodes=5000,
+        num_init_pods=2048, num_pods=TWIN_PODS, max_batch=2048,
+        timeout=900.0,
+        init_template=_AFF, template=dict(_AFF, preferred_affinity_zone=True)),
+    "prefantiaffinity5000": dict(
+        name="SchedulingPreferredPodAntiAffinity-5000n", num_nodes=5000,
+        num_init_pods=2048, num_pods=TWIN_PODS, max_batch=2048,
+        timeout=900.0,
+        init_template=_AFF,
+        template=dict(_AFF, preferred_anti_affinity_zone=True)),
+    "nodeaffinity5000": dict(
+        name="SchedulingNodeAffinity-5000n", num_nodes=5000,
+        num_init_pods=2048, num_pods=TWIN_PODS, max_batch=2048,
+        timeout=900.0,
+        template={"node_affinity_zones": ["zone-0", "zone-1"]}),
+}
+
+
+# 15c: the first two rows of BENCH_WIRE_CONFIGS.json, phase 13a's and
+# 13b's (scripts/bench_configs.py's "basic" and "default5000")
+WIRE_ROWS = {
+    "basic": dict(name="SchedulingBasic-500", num_nodes=500,
+                  num_init_pods=1000, num_pods=1000, max_batch=1024),
+    "default5000": dict(
+        name="Default-5000n-10k", num_nodes=5000, num_init_pods=6144,
+        num_pods=10000, max_batch=2048, timeout=900.0,
+        init_template=_SPREAD, template=_SPREAD),
+}
+
+
+def matrix_workload(harness, spec, **override):
+    """A MATRIX_ROWS spec as `harness`'s Workload (the port's or, in the
+    tests, the reference's), with `override` on top."""
+    kw = dict(spec, **override)
+    for key in ("init_template", "template", "second_template"):
+        if key in kw:
+            kw[key] = harness.PodTemplate(**kw[key])
+    return harness.Workload(**kw)
+
+
+SCHEDULE_BATCH_PODS = 512        # phase 15a's pods (phase 4's batch, cut)
+MATRIX_CPU_NODES = 500           # 15b's rows of this size also run on the CPU
+MATRIX_CPU_WORKERS = 4           # ... in this many worker processes at once
+MATRIX_CPU_THREADS = 2           # torch threads in each
+MATRIX_STALL_GRACE = 30.0        # seconds a gang checker may lag the run
+
+
+def phase_schedule_batch(gpu, zone):
+    """15a: ops/batch.py `schedule_batch` on the card, on phase 4's
+    zone-spread cluster at full width (the encoding phase 4's session
+    started from) over the first SCHEDULE_BATCH_PODS pods of its first
+    measured batch: the decisions equal a ScanSession's on the same pods
+    from the same encoding; new_carry's `requested`, `nz_requested` and
+    `pod_count` equal the host encoding's after those decisions (each
+    placed pod's request added to its node's row, as
+    ClusterEncoding.add_pod adds it), and the pod rows it wrote are the
+    placed pods'. ms per pod by the host window and by CUDA events;
+    kernels per pod under torch.profiler over PROFILED_PODS pods."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.models.encoding import cluster_from_numpy
+    from kubernetes_tpu_torch.ops.batch import schedule_batch
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+
+    snap = zone["snapshot0"]
+    pods = zone["batch"][:SCHEDULE_BATCH_PODS]
+    n = len(pods)
+    cluster = cluster_from_numpy(snap, "cuda")
+    free = np.flatnonzero(~snap["pvalid"])[:n].tolist()
+    ss = ScanSession(cluster, zone["templates"], multipod_k=1,
+                     device="cuda")
+    want = ScanSession.decisions(ss.schedule(pods))
+    del ss
+    gc.collect()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    got, carry = schedule_batch(cluster, pods, free)
+    e1.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    event_ms = e0.elapsed_time(e1)
+    if got != want:
+        bad = sum(a != b for a, b in zip(got, want))
+        raise AssertionError(f"15a: schedule_batch decides {bad} of {n} "
+                             "pods otherwise than ScanSession")
+    exp = {k: snap[k].copy() for k in ("requested", "nz_requested",
+                                       "pod_count")}
+    for pa, d in zip(pods, want):
+        if d >= 0:
+            exp["requested"][d] += pa["req"]
+            exp["nz_requested"][d] += pa["nz_req"]
+            exp["pod_count"][d] += 1
+    diff = [k for k, a in exp.items()
+            if not np.array_equal(carry[k].cpu().numpy(), a)
+            or carry[k].dtype != torch.from_numpy(a).dtype]
+    rows = np.asarray(free)
+    placed = np.asarray(want) >= 0
+    if not np.array_equal(carry["pvalid"].cpu().numpy()[rows], placed) \
+            or not np.array_equal(carry["pnode"].cpu().numpy()[rows],
+                                  np.where(placed, want, 0)):
+        diff.append("pod rows")
+    for k, v in cluster.items():      # the cluster's tensors untouched
+        if k in carry and v.data_ptr() == carry[k].data_ptr():
+            diff.append(f"{k} aliases the cluster")
+    if diff:
+        raise AssertionError(f"15a: new_carry differs from the host "
+                             f"encoding in {diff}")
+    busy = device_busy(lambda: schedule_batch(cluster, pods[:PROFILED_PODS],
+                                              free))
+    out = {"cell": "15a schedule_batch zone spread 5000n", "pods": n,
+           "nodes": int(snap["n_nodes"]),
+           "node_rows": int(snap["valid"].shape[0]),
+           "placed": int(placed.sum()), "ms_per_pod": host_ms / n,
+           "event_ms_per_pod": event_ms / n,
+           "pods_per_s": n / host_ms * 1e3, **busy}
+    log(f"phase 15a schedule_batch: {n} pods of phase 4's batch at "
+        f"{out['nodes']} nodes ({out['node_rows']} rows), decisions == "
+        f"ScanSession's ({out['placed']} placed); new_carry's requested, "
+        f"nz_requested, pod_count and pod rows == the host encoding after "
+        f"them; {host_ms / n:.3f} ms per pod by the host window, "
+        f"{event_ms / n:.3f} ms by CUDA events, {out['pods_per_s']:.1f} "
+        f"pods/s; under the profiler ({PROFILED_PODS} pods) "
+        f"{busy['kernels_per_pod']:.1f} kernels per pod, the card busy "
+        f"{busy['busy_ms']:.3f} of {busy['window_ms']:.3f} ms "
+        f"({busy['busy_share']:.1%}) [{gpu}]")
+    return out
+
+
+def volume_checks(cs, pods, nodes):
+    """The PVC rows' invariants over the run's objects: each bound pod's
+    PV zone (where the PV has one) is its node's zone, and no node holds
+    more distinct CSI volumes of a driver (in-tree sources translated)
+    than its CSINode allows. -> (pods checked, violations)."""
+    from kubernetes_tpu_torch.api import types as v1
+    from kubernetes_tpu_torch.volume.csi_translation import pv_csi_source
+
+    pvs = {pv.metadata.name: pv
+           for pv in cs.resource("persistentvolumes").list()[0]}
+    claims = {c.metadata.name: c for c in cs.resource(
+        "persistentvolumeclaims").list(namespace="default")[0]}
+    limits = {c.metadata.name: {d.name: d.count for d in c.spec.drivers or []}
+              for c in cs.resource("csinodes").list()[0]}
+    zone_of = {n.metadata.name: n.metadata.labels.get(v1.LABEL_ZONE)
+               for n in nodes}
+    attached, bad, checked = {}, [], 0
+    for p in pods:
+        node = p.spec.node_name
+        if not node:
+            continue
+        for vol in p.spec.volumes or []:
+            claim = (vol.source or {}).get("persistentVolumeClaim")
+            if not claim:
+                continue
+            checked += 1
+            pv = pvs[claims[claim["claimName"]].spec.volume_name]
+            zone = (pv.metadata.labels or {}).get(v1.LABEL_ZONE)
+            if zone is not None and zone != zone_of[node]:
+                bad.append(f"{p.metadata.name}: PV zone {zone} on {node} "
+                           f"({zone_of[node]})")
+            src = pv_csi_source(pv)
+            if src:
+                attached.setdefault((node, src["driver"]), set()).add(
+                    src["volumeHandle"])
+    for (node, driver), handles in attached.items():
+        cap = limits.get(node, {}).get(driver)
+        if cap is None or len(handles) > cap:
+            bad.append(f"{node}: {len(handles)} {driver} volumes, CSINode "
+                       f"allows {cap}")
+    return checked, bad
+
+
+def anti_affine_shared(pods):
+    """Nodes holding two pods with a required hostname anti-affinity term
+    that matches the other's labels."""
+    from kubernetes_tpu_torch.api import types as v1
+
+    by_node = {}
+    for p in pods:
+        if p.spec.node_name:
+            by_node.setdefault(p.spec.node_name, []).append(p)
+    shared = []
+    for node, group in by_node.items():
+        for p in group:
+            anti = p.spec.affinity and p.spec.affinity.pod_anti_affinity
+            terms = anti and \
+                anti.required_during_scheduling_ignored_during_execution
+            for term in terms or []:
+                if term.topology_key != v1.LABEL_HOSTNAME:
+                    continue
+                sel = term.label_selector.match_labels or {}
+                if any(q is not p and all((q.metadata.labels or {}).get(k)
+                                          == v for k, v in sel.items())
+                       for q in group):
+                    shared.append(node)
+    return sorted(set(shared))
+
+
+def matrix_cell(sk, gpu, key, spec, device="cuda", **override):
+    """`loop_cell` of one row (`spec`, a MATRIX_ROWS or WIRE_ROWS entry,
+    with `override` on its Workload)."""
+    from kubernetes_tpu_torch.perf import harness
+
+    w = matrix_workload(harness, spec, **override)
+    label = f"15{'c' if w.wire else 'b'} {key}"
+    return loop_cell(sk, gpu, label, w, device=device)
+
+
+def matrix_checks(key, out, run, pods, nodes):
+    """Phase 15b's invariant checks beyond `matrix_cell`'s, right after the
+    row: the gang rows' admissions (0 rollbacks, 0 rejections, no torn
+    gang), the PV rows' zones and attach counts, one anti-affine pod a
+    hostname. Returns what the replay of a non-saturating row needs (the
+    loop's batches, the nodes, the PV rows' volumes), else None."""
+    from kubernetes_tpu_torch.client import Clientset
+
+    spec = MATRIX_ROWS[key]
+    label = out["cell"]
+    held = out["held"] = ["no node over its allocatable"]
+    if spec.get("gang_size", 0) > 1:
+        if sum((out["gang_rollbacks"] or {}).values()) \
+                or sum((out["gang_rejected"] or {}).values()) \
+                or out["gang"]["partial"] or out["gang"]["violations"]:
+            raise AssertionError(f"{label}: gangs {out['gang']}, rollbacks "
+                                 f"{out['gang_rollbacks']}, rejected "
+                                 f"{out['gang_rejected']}")
+        held.append("every gang whole, 0 rollbacks, 0 rejections")
+    cs = Clientset(run.apis[-1])
+    with_pvc = spec.get("template", {}).get("with_pvc")
+    if with_pvc:
+        checked, bad = volume_checks(cs, pods, nodes)
+        out["volumes_checked"] = checked
+        if bad or checked != len(pods):
+            raise AssertionError(f"{label}: {checked} volumes checked, "
+                                 f"{bad[:5]}")
+        held.append(f"{checked} PV zones == node zones, CSI attach counts "
+                    "within CSINode")
+    shared = anti_affine_shared(pods)
+    if shared:
+        raise AssertionError(f"{label}: anti-affine pods share {shared[:5]}")
+    held.append("no anti-affine pods on one hostname")
+    if spec.get("template", {}).get("anti_affinity_hostname"):
+        # one pod a hostname fits every node: each node ends with one
+        bound = sum(1 for p in pods if p.spec.node_name)
+        if bound != min(len(nodes), len(pods)):
+            raise AssertionError(f"{label}: {bound} pods bound over "
+                                 f"{len(nodes)} nodes")
+        held.append(f"every hostname holds one ({bound} bound)")
+    if spec.get("saturating"):
+        return None
+    volumes = None
+    if with_pvc:
+        volumes = tuple(cs.resource(r).list(**kw)[0] for r, kw in (
+            ("persistentvolumeclaims", {"namespace": "default"}),
+            ("persistentvolumes", {}), ("csinodes", {})))
+    return run.batches, nodes, volumes, run.oracle_pods
+
+
+def replay_check(out, bindings, job):
+    """A non-saturating row's bindings against a fresh backend's
+    `schedule_many` replay of the loop's batches (`replay_bindings`)."""
+    batches, nodes, volumes, oracle_pods = job
+    t0 = time.perf_counter()
+    replay = replay_bindings(batches, nodes, volumes=volumes)
+    out["replay_s"] = time.perf_counter() - t0
+    diff = sorted(k for k, v in bindings.items()
+                  if k in replay and replay[k] != v)
+    missing = sum(1 for k in bindings if k not in replay)
+    out["replay_differs"], out["replay_missing"] = len(diff), missing
+    if diff or missing != oracle_pods:
+        raise AssertionError(f"{out['cell']}: {len(diff)} loop bindings "
+                             f"differ from the schedule_many replay (first "
+                             f"{diff[:5]}), {missing} pods not in a batch, "
+                             f"{oracle_pods} on the oracle")
+
+
+def cpu_row(key, spec, gpu):
+    """One row's CPU run (TPUBackend(device="cpu"), its hoisted session),
+    in a worker process of phase 15b. -> (numbers, bindings, the lines it
+    would have printed)."""
+    import torch
+    from kubernetes_tpu_torch.ops import scan_kernel as sk
+
+    torch.set_num_threads(MATRIX_CPU_THREADS)
+    lines = []
+    globals()["log"] = lines.append
+    out, bindings, _, _, _ = matrix_cell(sk, gpu, key, spec, device="cpu")
+    return out, bindings, lines
+
+
+def phase_matrix(sk, gpu, loop_bindings):
+    """Phase 15: 15b, every MATRIX_ROWS row on the card through
+    `run_workload`, then 15c, the first two rows of BENCH_WIRE_CONFIGS.json
+    (13a's and 13b's) over the HTTP apiserver, whose bindings must equal
+    13a's and 13b's in-process ones. The checks that measure nothing run
+    last: the 500-node rows' CPU runs, MATRIX_CPU_WORKERS at a time in
+    worker processes, while this process replays the non-saturating rows'
+    batches (what a row keeps for its replay is frozen out of the
+    collector's reach meanwhile, so that it costs no later window a
+    collection). Returns (numbers, launches per kernel variant over the
+    phase)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    out, jobs = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for key, spec in MATRIX_ROWS.items():
+            cell, bindings, run, pods, nodes = matrix_cell(sk, gpu, key, spec)
+            add(cell["launches"])
+            jobs[key] = bindings, matrix_checks(key, cell, run, pods, nodes)
+            out[key] = cell
+            del run, pods, nodes
+            gc.collect()
+            gc.freeze()
+        for (key, spec), loop_key in zip(WIRE_ROWS.items(), ("13a", "13b")):
+            cell, bindings, _, _, _ = matrix_cell(sk, gpu, key, spec,
+                                                  wire=True)
+            add(cell["launches"])
+            want = loop_bindings[loop_key]
+            diff = sorted(k for k, v in want.items() if bindings.get(k) != v)
+            if diff or len(want) != len(bindings):
+                raise AssertionError(f"15c {key}: {len(diff)} of {len(want)}"
+                                     f" bindings over the wire differ from "
+                                     f"{loop_key}'s in-process run, first "
+                                     f"{diff[:5]}")
+            cell["in_process"] = loop_bindings[f"{loop_key}_numbers"]
+            log(f"phase 15c {key}: all {len(want)} bindings over the wire "
+                f"equal {loop_key}'s in process; {cell['pods_per_s']} pods/s"
+                f" against {cell['in_process']['pods_per_s']}, latency p50 "
+                f"{cell['latency_p50_s']} s against "
+                f"{cell['in_process']['latency_p50_s']}, p99 "
+                f"{cell['latency_p99_s']} s against "
+                f"{cell['in_process']['latency_p99_s']} [{gpu}]")
+            out[f"wire_{key}"] = cell
+    finally:
+        gc.unfreeze()
+    out["measured_s"] = time.perf_counter() - t0
+    cpu_keys = [k for k, v in MATRIX_ROWS.items()
+                if v["num_nodes"] == MATRIX_CPU_NODES]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(MATRIX_CPU_WORKERS, mp_context=ctx) as pool:
+        futures = {k: pool.submit(cpu_row, k, MATRIX_ROWS[k], gpu)
+                   for k in cpu_keys}
+        for key, (bindings, job) in jobs.items():
+            if job is not None:
+                replay_check(out[key], bindings, job)
+        for key, fut in futures.items():
+            cpu_cell, cpu, lines = fut.result()
+            for line in lines:
+                log(line)
+            cell = out[key]
+            cell["cpu"] = {k: cpu_cell[k] for k in (
+                "pods_per_s", "latency_p50_s", "latency_p99_s", "window_s",
+                "wall_s", "session_kind", "bound")}
+            bindings = jobs[key][0]
+            diff = sorted(k for k, v in cpu.items() if bindings.get(k) != v)
+            cell["cpu_differs"] = len(diff)
+            if diff or len(cpu) != len(bindings):
+                raise AssertionError(f"{cell['cell']}: {len(diff)} of "
+                                     f"{len(bindings)} bindings differ "
+                                     f"between the card and the CPU, first "
+                                     f"{diff[:5]}")
+    for key, cell in out.items():
+        if key in MATRIX_ROWS:
+            log(f"phase {cell['cell']}: checks held: " + "; ".join(
+                cell["held"] + [f"{k} {cell[k]}" for k in (
+                    "replay_differs", "replay_missing", "replay_s",
+                    "cpu_differs") if k in cell]) + f" [{gpu}]")
+    out["phase_s"] = time.perf_counter() - t0
+    return out, total
+
+
 def ipa_ops(ipa, t) -> tuple:
     """The IPA branch's operations for one template-t pod, from the
     session's gate matrices: only the nonzero gate entries of the terms
@@ -4260,7 +4881,13 @@ def main() -> int:
     from kubernetes_tpu_torch import probes
     from kubernetes_tpu_torch.ops import build
     from kubernetes_tpu_torch.ops import whatif_kernel as wk
+    from kubernetes_tpu_torch.utils.compilation_cache import (
+        enable_persistent_cache,
+    )
 
+    cache = enable_persistent_cache()
+    log(f"kernel build directory {build.BUILD_DIR}"
+        + ("" if cache else " (KTPU_COMPILATION_CACHE off: no reuse)"))
     t0 = time.perf_counter()
     built = build.build([sk.SOURCE, probes.SOURCE, wk.SOURCE], verbose=True)
     log("phase 2: built " + ", ".join(
@@ -4268,32 +4895,63 @@ def main() -> int:
         + f" (one nvcc each, in parallel; {time.perf_counter() - t0:.2f} s "
         "in all)")
 
+    marks = [("2", time.perf_counter())]
+
+    def mark(label):
+        marks.append((label, time.perf_counter()))
+
     small = small_case()
     small_err = phase_small(small)
+    mark("3")
     zone = phase_zone_spread(sk, gpu)                              # phase 4
     sweep = phase_cluster(sk, gpu, zone, "4b")                     # 4b
     sizes = sweep["sizes"]
     cluster_directed(sk, sizes)
+    mark("4")
     terms = terms_case()
     terms_err = phase_terms_small(sk, gpu, terms, sizes)           # phase 5
+    mark("5")
     aff = [phase_affinity(sk, gpu, kind) for kind in ("pref-aff", "aff")]
     for a in aff:                                                  # 6b
         a.update(phase_cluster(sk, gpu, a, "6b"))
     kcnt_directed(sk, gpu, sizes)
+    mark("6")
     multi_small = [phase_multipod_small(sk, gpu, c)                # 7a
                    for c in (small, terms)]
     tenants = phase_tenants(sk, gpu)                               # 7b
     heavy = [phase_conflict_heavy(sk, gpu, d) for d in (zone, aff[0])]
+    mark("7")
     ev = phase_eval_apply(sk, gpu, (small, terms), zone)           # 8
+    mark("8")
     churn = [phase_churn_zone(sk, gpu, zone),                      # 9
              phase_churn_affinity(sk, gpu, aff[0])]
+    mark("9")
     probe_entries = phase_probes(gpu)                              # 10
+    mark("10")
     hoisted = phase_hoisted(gpu, zone, aff[0], churn[0])           # 11
+    mark("11")
     backend, backend_launches = phase_backend(sk, gpu, zone, aff[0])  # 12
-    loop, loop_launches = phase_loop(sk, gpu)                      # 13
+    mark("12")
+    loop, loop_launches, loop_bindings = phase_loop(sk, gpu)       # 13
+    mark("13")
     preemption, whatif, pre_launches = phase_preemption(sk, gpu)   # 14
-    for k, v in pre_launches.items():
+    mark("14")
+    # phase 15 runs after every earlier session is released
+    for d in (zone, *aff, tenants, *heavy, *churn):
+        for k in [k for k, v in d.items()
+                  if type(v).__name__.endswith("Session")]:
+            del d[k]
+    gc.collect()
+    torch.cuda.empty_cache()
+    matrix = {"15a": phase_schedule_batch(gpu, zone)}             # 15a
+    rows, matrix_launches = phase_matrix(sk, gpu, loop_bindings)   # 15b, c
+    matrix.update(rows)
+    mark("15")
+    for k, v in (*pre_launches.items(), *matrix_launches.items()):
         loop_launches[k] = loop_launches.get(k, 0) + v
+    log("seconds by phase: " + ", ".join(
+        f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:]))
+        + f"; build and phases 3-15 {marks[-1][1] - t0:.1f}")
 
     zone["err"] = max(zone["err"], small_err)
     # scan_full_ipa reports its slower cell; `cells` keeps both cells'
@@ -4371,6 +5029,7 @@ def main() -> int:
     log(json.dumps({"backend": backend}))
     log(json.dumps({"loop": loop}))
     log(json.dumps({"preemption": preemption}, default=str))
+    log(json.dumps({"matrix": matrix}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

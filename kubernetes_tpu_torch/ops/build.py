@@ -2,10 +2,11 @@
 
 Each source under `csrc/` (and `probes/csrc/`) is compiled by `nvcc` into
 its own library with a plain C interface, `build/torch_kernels/lib<stem>.so`
-at the repository root (gitignored), rebuilt when the source or a header it
-may include is newer than the library, and loaded with ctypes. `build`
-starts one `nvcc` per stale source, all at once, and waits for them
-together. Nothing here runs at import: the CPU tests import every module,
+at the repository root (gitignored; utils/compilation_cache.py may point
+`BUILD_DIR` elsewhere), rebuilt when the source or a header it may include
+is newer than the library (with `REUSE` off, once per process whatever its
+age), and loaded with ctypes. `build` starts one `nvcc` per stale source,
+all at once, and waits for them together. Nothing here runs at import: the CPU tests import every module,
 and there is no `nvcc` without the CUDA toolkit.
 """
 
@@ -19,6 +20,9 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+# False: a library from another process is never reused; each process
+# compiles every source it builds anew (KTPU_COMPILATION_CACHE=off)
+REUSE = True
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 
@@ -26,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 HEADER_DIR = Path(__file__).resolve().parent / "csrc"
 
 _LIBS: Dict[Path, ctypes.CDLL] = {}
+_BUILT: set = set()          # libraries this process compiled
 
 
 def _nvcc() -> str:
@@ -39,9 +44,10 @@ def library_path(source: Path) -> Path:
 
 
 def _stale(source: Path) -> bool:
-    """The library is missing, or older than its source or a header."""
+    """The library is missing, or older than its source or a header, or
+    reuse is off and this process did not compile it."""
     out = library_path(source)
-    if not out.exists():
+    if not out.exists() or not REUSE and out not in _BUILT:
         return True
     inputs = [source, *source.parent.glob("*.cuh"),
               *HEADER_DIR.glob("*.cuh")]
@@ -83,6 +89,7 @@ def build(sources: Iterable[Path], verbose: bool = False
         if verbose and log:
             print(log)
         os.replace(tmp, out)
+        _BUILT.add(out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds

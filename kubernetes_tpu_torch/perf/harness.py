@@ -12,11 +12,11 @@ mustSetupScheduler (util.go:61) with a real apiserver+etcd and no kubelet.
 
 Port of kubernetes_tpu/perf/harness.py. `run_workload` takes `device`:
 the TPU backend runs on the card unless the caller names another (the
-tests pass "cpu"). Two of the reference's options raise
-NotImplementedError, since what they need is not ported yet: `wire`
-(the HTTP apiserver, apiserver/http.py) and `mesh_devices` (the sharded
-session; ROADMAP.md, Queue 1, items 9 and 10). Neither falls back to the
-in-process single-device run.
+tests pass "cpu"). `wire` puts the HTTP apiserver (apiserver/http.py)
+between every client and the store, as the reference does. One of the
+reference's options raises NotImplementedError, since what it needs is not
+ported yet: `mesh_devices` (the sharded session; ROADMAP.md, Queue 1,
+item 9). It does not fall back to the single-device run.
 """
 
 from __future__ import annotations
@@ -532,9 +532,6 @@ def _kernel_direct_rate(sched, w: "Workload", reps: int = 3) -> float:
 
 
 def run_workload(w: Workload, quiet: bool = True, device=None) -> Result:
-    if w.wire:
-        raise NotImplementedError(
-            "Workload(wire=True): the HTTP apiserver is not ported yet")
     if w.backend == "tpu" and w.mesh_devices:
         raise NotImplementedError(
             f"Workload(mesh_devices={w.mesh_devices}): the sharded session "
@@ -544,6 +541,20 @@ def run_workload(w: Workload, quiet: bool = True, device=None) -> Result:
     else:
         os.environ.pop("KTPU_COLUMNAR_CACHE", None)
     api = APIServer()
+    http_srv = None
+    if w.wire:
+        from ..apiserver.http import HTTPAPIServer, RemoteAPIServer
+
+        http_srv = HTTPAPIServer(api=api).start()
+        api = RemoteAPIServer(http_srv.address)
+    try:
+        return _run(w, quiet, device, api)
+    finally:
+        if http_srv is not None:
+            http_srv.stop()
+
+
+def _run(w: Workload, quiet: bool, device, api) -> Result:
     cs = Clientset(api)
     csi_mode = "csi" in (w.template.with_pvc, w.init_template.with_pvc)
     migrated_mode = "migrated" in (

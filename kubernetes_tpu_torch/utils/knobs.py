@@ -128,10 +128,13 @@ _declare("KTPU_NODE_HEADROOM", "float", 0.0,
          "node-axis growth headroom fraction: capacity targets "
          "n*(1+headroom) so node adds land in pre-padded lanes")
 
-# -- scheduling session
+# -- scheduling session, kernel builds
 _declare("KTPU_MULTIPOD_K", "int", DERIVED,
          "pods decided per scan step (default 1 on CUDA and CPU, 4 on "
          "TPU; 1 restores one-pod-per-step everywhere)")
+_declare("KTPU_COMPILATION_CACHE", "str", "",
+         "kernel build directory reused across processes (0/off disables "
+         "reuse; unset uses build/torch_kernels)")
 
 # -- backend: dispatch loop, session deltas, fault tolerance
 _declare("KTPU_SPECULATION", "bool", True,
@@ -144,8 +147,8 @@ _declare("KTPU_MAX_QUEUED_DELTAS", "int", 4096,
          "queued-delta backstop: past this a rebuild is cheaper than the "
          "queue and the teardown path absorbs everything")
 _declare("KTPU_WHATIF", "bool", DERIVED,
-         "device-side preemption what-if planning (not ported yet: the "
-         "port's backend resolves it off and refuses 1)")
+         "device-side preemption what-if planning (default on for CUDA, "
+         "off on CPU; 0 is the kill switch, 1 the CPU opt-in)")
 _declare("KTPU_WATCHDOG_TIMEOUT", "float", 30.0,
          "max seconds any device wait (harvest/flush/probe) may take "
          "before the dispatch is declared a fault")
@@ -223,6 +226,20 @@ _declare("KTPU_OVERLOAD_RESTORE_DWELL", "int", 8,
          "consecutive calm ticks before restoring the last-shed lever")
 _declare("KTPU_OVERLOAD_COOLDOWN", "float", 1.0,
          "min seconds between overload-monitor transitions")
+
+# -- apiserver watch wire
+_declare("KTPU_WATCH_BUFFER", "int", 256 * 1024,
+         "bounded per-watcher send buffer bytes (overflow evicts the "
+         "watcher)")
+_declare("KTPU_WATCH_EVICT_AFTER", "float", 10.0,
+         "max seconds a watcher may hold queued frames with zero socket "
+         "progress before eviction")
+_declare("KTPU_WIRE_BINARY", "bool", True,
+         "clients negotiate the ktpu-binary wire encoding for watch/list "
+         "(0 = kill switch: plain JSON, the pre-binary wire bytes)")
+_declare("KTPU_WIRE_BATCH_FRAMES", "int", 512,
+         "max queued watch frames coalesced into one chunked socket "
+         "write (byte-bounded at a quarter of KTPU_WATCH_BUFFER)")
 
 # -- scheduler failover / leader election
 _declare("KTPU_LEASE_FENCE_MARGIN", "float", 2.0,

@@ -53,6 +53,9 @@ VERBATIM = (
     "scheduler/apis/legacy.py", "scheduler/extender.py",
     "scheduler/internal/queue.py", "scheduler/internal/nominator.py",
     "scheduler/preemption.py", "scheduler/scheduler.py",
+    "apiserver/http.py", "apiserver/auth.py", "apiserver/flowcontrol.py",
+    "apiserver/audit.py", "apiserver/webhook.py", "apiserver/crd.py",
+    "apiserver/aggregator.py", "utils/featuregate.py",
 )
 
 
@@ -110,6 +113,55 @@ def test_whatif_modules_are_checked():
                 "kubernetes_tpu_torch/scheduler/preemption_device.py"):
         assert rel in PORT_SOURCES
         assert ".".join(Path(rel).with_suffix("").parts) in PORT_MODULES
+
+
+def test_matrix_slice_modules_are_checked():
+    """The modules the HTTP apiserver, schedule_batch and the kernel build
+    cache brought are among the sources the two checks above read."""
+    for rel in ("apiserver/http.py", "apiserver/auth.py",
+                "apiserver/flowcontrol.py", "apiserver/audit.py",
+                "apiserver/webhook.py", "apiserver/crd.py",
+                "apiserver/aggregator.py", "utils/featuregate.py",
+                "ops/batch.py", "utils/compilation_cache.py"):
+        rel = f"kubernetes_tpu_torch/{rel}"
+        assert rel in PORT_SOURCES
+        assert ".".join(Path(rel).with_suffix("").parts) in PORT_MODULES
+
+
+def test_compilation_cache_moves_the_build_dir(tmp_path, monkeypatch):
+    """enable_persistent_cache points ops/build.py at its directory (the
+    argument, else KTPU_COMPILATION_CACHE, else build/torch_kernels), where
+    a library newer than its source is reused; "off" reuses nothing."""
+    from kubernetes_tpu_torch.ops import build
+    from kubernetes_tpu_torch.utils import compilation_cache as cc
+
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+    monkeypatch.setattr(build, "REUSE", build.REUSE)
+    monkeypatch.delenv("KTPU_COMPILATION_CACHE", raising=False)
+    assert cc.enable_persistent_cache() == cc.DEFAULT_CACHE_DIR
+    assert build.BUILD_DIR == ROOT / "build" / "torch_kernels"
+    src = tmp_path / "k.cu"
+    src.write_text("// kernel\n")
+    for where, args in ((tmp_path / "a", (str(tmp_path / "a"),)),
+                        (tmp_path / "b", ())):
+        if not args:
+            monkeypatch.setenv("KTPU_COMPILATION_CACHE", str(where))
+        assert cc.enable_persistent_cache(*args) == str(where)
+        assert build.BUILD_DIR == where and where.is_dir()
+        lib = build.library_path(src)
+        assert lib.parent == where and build._stale(src)
+        lib.write_bytes(b"")
+        os.utime(lib, (src.stat().st_mtime + 10,) * 2)
+        assert not build._stale(src)          # reused
+    for off in ("0", "off", "disable"):
+        monkeypatch.setenv("KTPU_COMPILATION_CACHE", off)
+        assert cc.enable_persistent_cache(str(tmp_path / "b")) == ""
+        assert build.BUILD_DIR == ROOT / "build" / "torch_kernels"
+        monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "b")
+        assert build._stale(src)              # never reused
+        build._BUILT.add(build.library_path(src))
+        assert not build._stale(src)          # but built once a process
+        build._BUILT.clear()
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

@@ -32,8 +32,8 @@ map:
   the faulted batch, the probe re-promotes to the kernel rung, and a
   foreign pod bound mid-run reaches the live session as a delta.
 
-Alongside: the port's harness and factory raise for the seams that are
-not ported (wire, mesh).
+Alongside: the port's harness and factory raise for the seam that is not
+ported (the mesh); `Workload(wire=True)` runs (tests/test_torch_rows.py).
 
 The reference backend reads its encoding's device state through private
 copies (tests/test_torch_backend.py `_private_device_state`), since the
@@ -59,6 +59,7 @@ from kubernetes_tpu_torch.client import Clientset, SharedInformerFactory
 from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
 from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
 
+from ._rows import run_row
 from .test_pipeline_parity import _bound_map, _pod_stream
 from .test_torch_backend import _private_device_state
 from .test_torch_encoding import _port_obj
@@ -210,20 +211,10 @@ def test_oracle_loop_binds_as_reference(seed):
 
 
 def _harness_bindings(h, monkeypatch, **kw):
-    apis = []
-
-    class Captured(h.APIServer):
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            apis.append(self)
-
-    monkeypatch.setattr(h, "APIServer", Captured)
-    spread = h.PodTemplate(spread_zone=True)
-    w = h.Workload("tiny", num_nodes=12, num_init_pods=24, num_pods=48,
-                   max_batch=16, init_template=spread, template=spread)
-    r = h.run_workload(w, **kw)
-    pods, _ = h.Clientset(apis[0]).pods.list(namespace="default")
-    return r, {p.metadata.name: p.spec.node_name for p in pods}
+    spread = {"spread_zone": True}
+    return run_row(h, dict(name="tiny", num_nodes=12, num_init_pods=24,
+                           num_pods=48, max_batch=16, init_template=spread,
+                           template=spread), monkeypatch, **kw)
 
 
 def test_run_workload_binds_as_reference(monkeypatch):
@@ -384,8 +375,6 @@ def test_unported_seams_raise():
     )
     from kubernetes_tpu_torch.scheduler.factory import create_scheduler
 
-    with pytest.raises(NotImplementedError):
-        run_workload(Workload("wire", num_nodes=2, wire=True), device="cpu")
     with pytest.raises(NotImplementedError):
         run_workload(Workload("mesh", num_nodes=2, mesh_devices=2),
                      device="cpu")
