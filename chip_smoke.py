@@ -55,7 +55,7 @@ Phases (each raises on failure; the script then exits non-zero):
 7. multi-pod steps (mk = 4 pods per step, the conflict-suffix contract):
    a. on the phase-3 and phase-5 clusters, one mk=4 launch against the
       plain version (out rows 0-3 and carries), then `schedule_exact`
-      (the suffix replay) over every batch, whose decisions and final
+      (the backend's suffix replay) over every batch, whose decisions and final
       carries must equal an mk=1 session's;
    b. at full size on a zone-pinned tenant mix: synth_cluster(5000,
       n_zones=4) and 3 x 4096 pods of four tenants, tenant t pinned to
@@ -104,7 +104,7 @@ Phases (each raises on failure; the script then exits non-zero):
    time);
 11. the hoisted session (`HoistedSession`, plain torch: a Python loop of
    per-pod steps, no kernel of its own):
-   a. from the encoding phase 4's session started from, the first 1024
+   a. from the encoding phase 4's session started from, the first 512
       pods of phase 4's first measured batch: `HoistedSession(cuda)`
       decides as `ScanSession(cuda)`; its build s, ms per pod (host window
       and CUDA events), pods/s, ScanSession's ms per pod on the same pods,
@@ -122,7 +122,7 @@ Phases (each raises on failure; the script then exits non-zero):
    e. phase 9's zone-spread flush, as its classified delta dicts, into a
       `HoistedSession(cuda)` built from the encoding before the churn: the
       carries, alloc and allowed_pods then equal a fresh session's from
-      the mutated encoding, and the next 1024 pods decide as it does;
+      the mutated encoding, and the next 512 pods decide as it does;
    f. the f64 PTS weight log(n + 2) on the card: torch.log there against
       the port's table, and the table read on the card equal to the host's;
 12. the backend (`scheduler/tpu_backend.py` TPUBackend, on the card) fed
@@ -130,7 +130,7 @@ Phases (each raises on failure; the script then exits non-zero):
    pods as cache events), batches through `dispatch_many` / `harvest` as
    a scheduler drives them, placements assumed back into the cache:
    a. phase 4's cell (3 x 4096 pods) on fresh backends at max_pending 2
-      and 1, four runs each, alternating which goes first: every run
+      and 1, two runs each, alternating which goes first: every run
       binds every pod as phase 4's ScanSession did; the medians of pods/s
       over the two measured batches, the kernel's CUDA-event time over
       the host window, the host stages, the session build; and the first
@@ -168,9 +168,9 @@ Phases (each raises on failure; the script then exits non-zero):
       cluster, loop_kernel_ratio > 0, and the bindings equal a fresh
       backend's `schedule_many` replay of the batches in the order the
       loop dispatched them, fed the same nodes through a SchedulerCache;
-      (d: the same cell again with the flight recorder on, level 1, for
-      the loop's per-stage span summary: pop, dispatch, wait, harvest,
-      assume, bind, ...);
+      (d: the same cell, at `TRACED_PODS` init and measured pods, with
+      the flight recorder on, level 1, for the loop's per-stage span
+      summary: pop, dispatch, wait, harvest, assume, bind, ...);
    c. the ladder through the loop (13a's cluster, max_batch 64): a
       dispatch raise from the second measured batch on demotes to the
       oracle rung, whose framework chain schedules the faulted batch; the
@@ -189,7 +189,8 @@ Phases (each raises on failure; the script then exits non-zero):
    a-c. Preemption-500n-500hi, Preemption-PDB-500n-500hi and
       Preemption-IPA-500n-500hi (scripts/bench_configs.py:131-137,
       :229-237, :245-255: 500 nodes saturated by 2000 priority-1 pods,
-      500 priority-100 preemptors; PDB-covered victims; preemptors with a
+      `PREEMPTORS` (256 of the rows' 500) priority-100 preemptors;
+      PDB-covered victims; preemptors with a
       required zone affinity toward the victims) through `run_workload`:
       every preemptor bound, no node over its allocatable, every victim of
       priority 1, every preemptor planned on the device rung (no what-if
@@ -224,13 +225,14 @@ Phases (each raises on failure; the script then exits non-zero):
       unschedulable churn, secrets, the in-tree / CSI / migrated PV rows,
       the pod-affinity and node-affinity rows at 500 and 5000 nodes)
       through `run_workload` on the card at the sizes that file gives
-      them, but for the 5000-node twins' measured pods (`TWIN_PODS`):
+      them, but for the measured pods of the 5000-node twins, PTS-heavy
+      and the 8- and 64-pod gangs (`TWIN_PODS`, `PTS_PODS`, `GANG_PODS`):
       every measured pod bound (the two saturating rows: some), no node
       over its allocatable in any resource, no two anti-affine pods on
       one hostname, the ladder on its top rung with 0 device faults; the
       non-saturating rows' bindings == a fresh backend's `schedule_many`
       replay of the loop's batches (the PV rows with the run's volumes);
-      the 500-node rows' bindings == the port's CPU run of the row (four
+      the 500-node rows' bindings == the port's CPU run of the row (six
       at a time in worker processes, after every timed run); the gang
       rows 0 rollbacks, 0 rejections and no torn gang (testing/faults.py
       GangIntegrityChecker); the PV rows each pod's PV zone its node's
@@ -241,14 +243,47 @@ Phases (each raises on failure; the script then exits non-zero):
       path, launches by variant, planner paths and what-if launches;
    c. SchedulingBasic-500 and Default-5000n-10k (BENCH_WIRE_CONFIGS.json's
       first two rows) with `wire=True`: the HTTP apiserver
-      (apiserver/http.py) under every client; the bindings == 13a's and
-      13b's in process, pods/s and latency beside theirs.
+      (apiserver/http.py) under every client, Default-5000n-10k at
+      `WIRE_DEFAULT_PODS` init and measured pods; SchedulingBasic-500's
+      bindings == 13a's in process, pods/s and latency beside them;
+      Default-5000n-10k's == a `schedule_many` replay of its batches.
+
+16. the node-sharded mesh (parallel/, ops/sharded_scan.py
+   ShardedScanSession, TPUBackend(mesh=), Workload(mesh_devices)) on the
+   card: shards share cuda:0, in both layouts — one group of k shards,
+   and k one-shard groups (the cross-group collectives on one card):
+   a. phase 4's zone-spread cell (its first measured 4096-pod batch) and
+      phase 6's preferred-affinity cell (its 2048-pod batch, ur > 0), from
+      the encodings their sessions started from, at 1, 2, 3 and 8 shards
+      in both layouts: best, score and n_feasible == ScanSession's on the
+      same pods, the gathered carries == its carries; ms per pod, and
+      kernels per pod and the card's busy share under torch.profiler;
+   b. phase 9's 4096-event flush into 8-shard sessions in both layouts
+      (one scan_delta launch a group, each == the plain version): carries
+      == ScanSession's after the same flush and a rebuild's, the next
+      batch as both; and on a hostname-only 5000-node cluster 64 node
+      leaves, 64 joins and 512 pod events into a live 8-group session:
+      carries == a rebuild's, the next batch as the rebuild and
+      ScanSession;
+   c. Mesh-20000n-8sh (scripts/bench_configs.py:305) through
+      `run_workload` unreduced: every batch on ShardedScanSession at the
+      kernel rung; the bindings == the same row on the single-device loop
+      and a `schedule_many` replay; pods/s and latency of both runs;
+   d. the three Preemption rows' clusters, their first 64 preemptors
+      planned by the device rung on an 8-shard backend and a
+      single-device one: equal plans; the mesh's what-if launches held to
+      the plain walk;
+   e. an explain build and a ladder-demoted build of the mesh backend:
+      HoistedSessions on the lead device, counted under their reasons,
+      deciding 512 of 16a's pods as 16a did.
+   The kernels' line's scan_delta and whatif entries gain
+   `mesh_launches` (phase 16's own, which must not be 0).
 
 It prints the kernels' line, a `{"hoisted_session": ...}` line with phase
 11's numbers, a `{"backend": ...}` line with phase 12's, a `{"loop": ...}`
 line with phase 13's, a `{"preemption": ...}` line with phase 14's, a
-`{"matrix": ...}` line with phase 15's, then `{"ok": true, "device":
-{...}}` last.
+`{"matrix": ...}` line with phase 15's, a `{"mesh": ...}` line with phase
+16's, then `{"ok": true, "device": {...}}` last.
 It needs a CUDA card and imports nothing of JAX or of the JAX package.
 """
 
@@ -274,7 +309,7 @@ PROBES = "kubernetes_tpu_torch/probes/csrc/probes.cu"
 REPLACES = "kubernetes_tpu/ops/pallas_scan.py"
 CHURN = {"evict": 1024, "spread": 2048, "other": 992, "alloc": 32}
 AFF_FOREIGN = 256
-HOISTED_PODS = 1024              # pods per phase-11 batch (11a, 11c, 11e)
+HOISTED_PODS = 512               # pods per phase-11 batch (11a, 11c, 11e)
 EXPLAIN_PODS = 256               # phase 11d
 PROFILED_PODS = 64               # phases 11a / 11b under torch.profiler
 HOST_PORT = 8080
@@ -1109,7 +1144,8 @@ def phase_multipod_small(sk, gpu, case):
     the initial carry, then `schedule_exact` at mk=4 over every batch,
     whose decisions and final carries must equal an mk=1 session's."""
     import torch
-    from kubernetes_tpu_torch.ops.scan import ScanSession, schedule_exact
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+    from kubernetes_tpu_torch.scheduler.tpu_backend import schedule_exact
 
     arrays, bs = case["arrays"], case["batch"]
     cluster = case["enc"].device_state("cuda")
@@ -1178,7 +1214,8 @@ def phase_tenants(sk, gpu):
     batches, each on an encoding of its own that its harvest binds
     into."""
     import torch
-    from kubernetes_tpu_torch.ops.scan import ScanSession, schedule_exact
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+    from kubernetes_tpu_torch.scheduler.tpu_backend import schedule_exact
     from kubernetes_tpu_torch.testing.synth import synth_cluster
 
     runs = {}
@@ -1690,6 +1727,7 @@ def phase_churn(sk, gpu, d, events, next_pods, label):
     t0 = time.perf_counter()
     deltas, refused = classify(sess, enc, events)
     classify_ms = (time.perf_counter() - t0) * 1e3
+    post_churn = enc.host_snapshot()  # for phase 16b
     if refused or len(deltas) != len(events):
         raise AssertionError(f"9 {label}: {refused} of {len(events)} events "
                              "refused as structural")
@@ -1830,7 +1868,7 @@ def phase_churn(sk, gpu, d, events, next_pods, label):
             **device, "call_ms": call_ms, **prep, "one_call_ms": one_call_ms,
             "build_s": build_s, "events": len(deltas), "refused": refused,
             "case_errs": case_errs, "deltas": deltas, "pre_churn": pre_churn,
-            "next_batch": batch}
+            "post_churn": post_churn, "next_batch": batch}
 
 
 def phase_churn_zone(sk, gpu, zone):
@@ -2092,16 +2130,16 @@ def hoisted_vs_scan(gpu, snapshot, templates, pods, label, dyn_ipa):
             "cluster": cluster}
 
 
-def device_busy(fn):
+def device_busy(fn, pods=PROFILED_PODS):
     """Run fn under torch.profiler: the card's busy time (the sum of its
-    kernels' device time), the host window, and kernels per pod of
-    PROFILED_PODS."""
+    kernels' device time), the host window, and kernels per pod of the
+    `pods` it schedules. The device's activity alone is traced (the host's
+    ops would only slow the trace's processing)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2111,7 +2149,7 @@ def device_busy(fn):
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     return {"busy_ms": busy_ms, "window_ms": window_ms,
             "busy_share": busy_ms / window_ms,
-            "kernels_per_pod": len(kernels) / PROFILED_PODS}
+            "kernels_per_pod": len(kernels) / pods}
 
 
 def phase_host_ports(gpu):
@@ -2308,7 +2346,7 @@ def phase_hoisted(gpu, zone, pref, churn):
 # -- phase 12: the backend (TPUBackend) on the card ---------------------------
 
 BACKEND_HOST_PODS = 512          # phase 12d's pods (11c's shape, cut)
-BACKEND_REPS = 4                 # phase 12a's runs at each depth
+BACKEND_REPS = 2                 # phase 12a's runs at each depth
 DRILL_SMALL = 256                # phase 12e's faulted batches
 
 
@@ -2998,6 +3036,7 @@ LOOP_BASIC = dict(name="SchedulingBasic-500", num_nodes=500,
 LOOP_DEFAULT = dict(name="Default-5000n-10k", num_nodes=5000,
                     num_init_pods=6144, num_pods=10000, max_batch=2048,
                     timeout=900.0, spread=True)
+TRACED_PODS = 2048               # 13d's init and measured pods (cut)
 DRILL_BATCH = 64                 # phase 13c's max_batch
 DRILL_WAVES = (512, 488)         # 13c's measured pods: faulted wave, then clean
 
@@ -3565,9 +3604,11 @@ def phase_loop(sk, gpu):
         f"backend's schedule_many replay of the loop's {len(batches)} "
         f"batches ({b['replay_s']:.2f} s) [{gpu}]")
     out["13b"] = b
-    # 13d: 13b again with the flight recorder on, for its stage split
-    d, _, _, _, _ = loop_cell(sk, gpu, "13d", loop_workload(LOOP_DEFAULT),
-                              trace=True)
+    # 13d: 13b with the flight recorder on, for its stage split, at
+    # TRACED_PODS measured pods (the 900 s budget)
+    d, _, _, _, _ = loop_cell(sk, gpu, "13d", loop_workload(
+        LOOP_DEFAULT, num_init_pods=TRACED_PODS, num_pods=TRACED_PODS),
+        trace=True)
     kernel_cell("13d", d)
     add(d["launches"])
     out["13d"] = d
@@ -3599,18 +3640,20 @@ def phase_loop(sk, gpu):
 
 
 # phase 14: the preemption rows of scripts/bench_configs.py (:131-137,
-# :229-237, :245-255), at their own sizes
+# :229-237, :245-255), at their own sizes but for their preemptors (500,
+# cut: the whole script has to end within 900 s)
+PREEMPTORS = 256
 PREEMPTION_ROWS = (
     ("14a", dict(name="Preemption-500n-500hi", num_nodes=500,
-                 num_init_pods=2000, num_pods=500, max_batch=512,
+                 num_init_pods=2000, num_pods=PREEMPTORS, max_batch=512,
                  timeout=900.0, stall_stop=30.0), {}, {}),
     ("14b", dict(name="Preemption-PDB-500n-500hi", num_nodes=500,
-                 num_init_pods=2000, num_pods=500, max_batch=512,
+                 num_init_pods=2000, num_pods=PREEMPTORS, max_batch=512,
                  timeout=900.0, stall_stop=30.0,
                  pdb_disruptions_allowed=2000),
      {"labels": {"app": "victim"}}, {}),
     ("14c", dict(name="Preemption-IPA-500n-500hi", num_nodes=500,
-                 num_init_pods=2000, num_pods=500, max_batch=512,
+                 num_init_pods=2000, num_pods=PREEMPTORS, max_batch=512,
                  timeout=900.0, stall_stop=30.0),
      {"labels": {"app": "victim"}},
      {"pod_affinity_zone": True, "labels": {"app": "victim"}}),
@@ -3619,7 +3662,7 @@ PREEMPTION_ROWS = (
 WHATIF_POINTS = ("50x2", "200x4", "500x4", "500x8")
 WHATIF_AFF_POINTS = ("50x2", "200x4")
 WHATIF_WAVE = 8
-WHATIF_REPS = 5
+WHATIF_REPS = 3
 WHATIF_KEEP = 64                 # what-if launches kept per 14a-c cell
 WHATIF_SOURCE = "kubernetes_tpu_torch/ops/csrc/whatif.cu"
 
@@ -4234,13 +4277,19 @@ _GPU_POD = {"extended": {"example.com/gpu": "1"}}
 _GPU_NODE = {"example.com/gpu": "8"}
 _SPREAD = {"spread_zone": True}
 _AFF = {"labels": {"app": "aff"}}
-# the 5000-node twins' measured pods, cut from the file's 5000 (nodes
-# never): the whole script has to end within 900 s (PERF.md, 4. Cells)
-TWIN_PODS = 2048
+# measured pods cut from the file's (nodes never), so that the whole
+# script ends within 900 s (PERF.md, 4. Cells): the 5000-node twins' from
+# 5000, PTS-heavy's from 20000, the gang rows' from 8000 and 4096, and
+# over the wire Default-5000n-10k's init and measured pods from 6144 and
+# 10000 (its bindings held to a replay of its batches)
+TWIN_PODS = 512
+PTS_PODS = 2048
+GANG_PODS = 2048
+WIRE_DEFAULT_PODS = 2048
 MATRIX_ROWS = {
     "pts20k": dict(
         name="PTS-heavy-5000n-20k", num_nodes=5000, num_init_pods=4096,
-        num_pods=20000, max_batch=2048, timeout=1200.0,
+        num_pods=PTS_PODS, max_batch=2048, timeout=1200.0,
         init_template=dict(_SPREAD, spread_zone_hard=True),
         template=dict(_SPREAD, spread_zone_hard=True)),
     "ipachurn": dict(
@@ -4253,11 +4302,11 @@ MATRIX_ROWS = {
                   "labels": {"app": "churn"}}),
     "gang": dict(
         name="Gang-4000n-1000x8", num_nodes=4000, num_init_pods=2048,
-        num_pods=8000, gang_size=8, max_batch=1024, timeout=900.0,
+        num_pods=GANG_PODS, gang_size=8, max_batch=1024, timeout=900.0,
         init_template=_GPU_POD, template=_GPU_POD, node_extended=_GPU_NODE),
     "gang64": dict(
         name="Gang-4000n-64x64", num_nodes=4000, num_init_pods=2048,
-        num_pods=4096, gang_size=64, max_batch=1024, timeout=900.0,
+        num_pods=GANG_PODS, gang_size=64, max_batch=1024, timeout=900.0,
         init_template=_GPU_POD, template=_GPU_POD, node_extended=_GPU_NODE),
     "gang256": dict(
         name="Gang-4000n-8x256", num_nodes=4000, num_init_pods=2048,
@@ -4335,8 +4384,9 @@ WIRE_ROWS = {
     "basic": dict(name="SchedulingBasic-500", num_nodes=500,
                   num_init_pods=1000, num_pods=1000, max_batch=1024),
     "default5000": dict(
-        name="Default-5000n-10k", num_nodes=5000, num_init_pods=6144,
-        num_pods=10000, max_batch=2048, timeout=900.0,
+        name="Default-5000n-10k", num_nodes=5000,
+        num_init_pods=WIRE_DEFAULT_PODS, num_pods=WIRE_DEFAULT_PODS,
+        max_batch=2048, timeout=900.0,
         init_template=_SPREAD, template=_SPREAD),
 }
 
@@ -4353,8 +4403,8 @@ def matrix_workload(harness, spec, **override):
 
 SCHEDULE_BATCH_PODS = 512        # phase 15a's pods (phase 4's batch, cut)
 MATRIX_CPU_NODES = 500           # 15b's rows of this size also run on the CPU
-MATRIX_CPU_WORKERS = 4           # ... in this many worker processes at once
-MATRIX_CPU_THREADS = 2           # torch threads in each
+MATRIX_CPU_WORKERS = 6           # ... in this many worker processes at once
+MATRIX_CPU_THREADS = 1           # torch threads in each
 MATRIX_STALL_GRACE = 30.0        # seconds a gang checker may lag the run
 
 
@@ -4634,11 +4684,31 @@ def phase_matrix(sk, gpu, loop_bindings):
             del run, pods, nodes
             gc.collect()
             gc.freeze()
+        loops = {"13a": LOOP_BASIC, "13b": LOOP_DEFAULT}
         for (key, spec), loop_key in zip(WIRE_ROWS.items(), ("13a", "13b")):
-            cell, bindings, _, _, _ = matrix_cell(sk, gpu, key, spec,
-                                                  wire=True)
+            cell, bindings, run, _, nodes = matrix_cell(sk, gpu, key, spec,
+                                                        wire=True)
             add(cell["launches"])
-            want = loop_bindings[loop_key]
+            if spec["num_init_pods"] != loops[loop_key]["num_init_pods"]:
+                # cut below its in-process twin's init pods: held, as
+                # 15b's rows are, to a replay of its own batches
+                replay_check(cell, bindings, (run.batches, nodes, None,
+                                              run.oracle_pods))
+                log(f"phase 15c {key}: all {len(bindings)} bindings over "
+                    f"the wire equal a schedule_many replay of its "
+                    f"batches ({cell['replay_s']:.1f} s); "
+                    f"{cell['pods_per_s']} pods/s, latency p50 "
+                    f"{cell['latency_p50_s']} s, p99 "
+                    f"{cell['latency_p99_s']} s [{gpu}]")
+                out[f"wire_{key}"] = cell
+                del run, nodes
+                continue
+            del run, nodes
+            # the in-process run's bindings of the pods this run has (a
+            # cut row's pods are the first of the in-process row's, and
+            # the session decides pod by pod in creation order)
+            want = {k: v for k, v in loop_bindings[loop_key].items()
+                    if k in bindings}
             diff = sorted(k for k, v in want.items() if bindings.get(k) != v)
             if diff or len(want) != len(bindings):
                 raise AssertionError(f"15c {key}: {len(diff)} of {len(want)}"
@@ -4690,6 +4760,653 @@ def phase_matrix(sk, gpu, loop_bindings):
                     "cpu_differs") if k in cell]) + f" [{gpu}]")
     out["phase_s"] = time.perf_counter() - t0
     return out, total
+
+
+# -- phase 16: the node-sharded mesh on the card -------------------------------
+
+MESH_SHARDS = (1, 2, 3, 8)       # 16a's shard counts, each in both layouts
+MESH_PROFILED_PODS = 16          # 16a's pods under torch.profiler, a layout
+MESH_NODE_CHURN = 64             # 16b's node leaves, and as many joins
+MESH_POD_CHURN = 512             # 16b's pod events between them
+MESH_CHURN_PODS = 1024           # 16b's batches (before, after the churn)
+MESH_PREEMPTORS = 64             # 16d's preemptors a Preemption row
+MESH_LADDER_PODS = 512           # 16e's batches (the hoisted rung)
+MESH_ROWS = {                    # scripts/bench_configs.py:305-316
+    "mesh20k": dict(name="Mesh-20000n-8sh", num_nodes=20000,
+                    num_init_pods=1024, num_pods=4096, mesh_devices=8,
+                    max_batch=1024, timeout=1800.0),
+    "mesh50k": dict(name="Mesh-50000n-8sh", num_nodes=50000,
+                    num_init_pods=512, num_pods=2048, mesh_devices=8,
+                    max_batch=512, timeout=2400.0),
+    "mesh100k": dict(name="Mesh-100000n-8sh", num_nodes=100000,
+                     num_init_pods=256, num_pods=1024, mesh_devices=8,
+                     max_batch=256, timeout=3600.0),
+}
+
+
+def mesh_of(nsh, split, device="cuda:0"):
+    """`nsh` shards on one card: one group of nsh shards, or (`split`)
+    nsh one-shard groups — the cross-group collectives on one card."""
+    from kubernetes_tpu_torch.parallel.sharded import make_mesh
+
+    return make_mesh(devices=[device] * (nsh if split else 1),
+                     n_devices=nsh)
+
+
+def mesh_layouts():
+    return [mesh_of(nsh, split) for nsh in MESH_SHARDS
+            for split in ((False, True) if nsh > 1 else (False,))]
+
+
+def gathered_vs(sh, carry, label):
+    """A sharded session's gathered carries against a ScanSession's carry
+    on its Np lanes (kcnt: the shards' partials sum to its totals), the
+    lanes past Np untouched."""
+    import numpy as np
+
+    got = sh.gathered_carry()
+    for k, v in carry.items():
+        v = v.cpu().numpy()
+        if k == "kcnt":
+            ok = np.array_equal(v[:, 0], got[k].sum(1))
+        else:
+            ok = (np.array_equal(v, got[k][:, :v.shape[1]])
+                  and not got[k][:, v.shape[1]:].any())
+        if not ok:
+            raise AssertionError(f"{label}: gathered carry {k} differs from "
+                                 "ScanSession's")
+
+
+def mesh_session_cell(sk, gpu, label, snapshot, templates, pods,
+                      meshes=None):
+    """16a on one cell: ScanSession and ShardedScanSession at every shard
+    count of MESH_SHARDS in both layouts, each from the encoding
+    `snapshot`, schedule `pods` in one batch: decisions, score and
+    n_feasible equal, the gathered carries equal ScanSession's. ms per
+    pod by the host window (enqueue to the rows read back), and under
+    torch.profiler over MESH_PROFILED_PODS more pods the kernels per pod
+    and the card's busy share."""
+    import torch
+    from kubernetes_tpu_torch.models.encoding import cluster_from_numpy
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+    from kubernetes_tpu_torch.ops.sharded_scan import ShardedScanSession
+
+    n = len(pods)
+    cluster = cluster_from_numpy(snapshot, "cuda")
+    ss = ScanSession(cluster, templates, multipod_k=1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ss.schedule(pods)["rows"][:3, :n].cpu()
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for mesh in meshes or mesh_layouts():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sh = ShardedScanSession(cluster, templates, mesh=mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        reset_counts(sk)
+        t0 = time.perf_counter()
+        got = sh.schedule(pods)["rows"][:3, :n].cpu()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if sk.LAUNCHES:
+            raise AssertionError(f"{label} {mesh.layout}: the step launched "
+                                 f"{sk.VARIANT_LAUNCHES}")
+        if not torch.equal(got, want):
+            bad = int((got != want).any(0).sum())
+            raise AssertionError(f"{label} {mesh.layout}: {bad} of {n} pods' "
+                                 "best / score / n_feasible differ from "
+                                 "ScanSession's")
+        gathered_vs(sh, ss._carry, f"{label} {mesh.layout}")
+        replays = sh.graph_replays
+        busy = device_busy(lambda: sh.schedule(pods[:MESH_PROFILED_PODS]),
+                           MESH_PROFILED_PODS)
+        row = {"layout": mesh.layout, "shards": mesh.nsh,
+               "groups": len(mesh.groups), "devices": mesh.n_devices,
+               "Npl": sh.Npl, "UR": sh.UR, "build_s": build_s,
+               "ms_per_pod": host_ms / n, "pods_per_s": n / host_ms * 1e3,
+               "graph_replays": replays, **busy}
+        rows.append(row)
+        log(f"phase 16a {label} {mesh.layout} ({mesh.nsh} shards in "
+            f"{len(mesh.groups)} groups on {mesh.n_devices} device, Npl "
+            f"{sh.Npl}): {n} pods == ScanSession (best, score, n_feasible; "
+            f"gathered carries); build {build_s:.3f} s; {host_ms / n:.4f} ms "
+            f"per pod ({n / host_ms * 1e3:.1f} pods/s, {replays} graph "
+            f"replays); under the profiler ({MESH_PROFILED_PODS} pods) "
+            f"{busy['kernels_per_pod']:.1f} kernels per pod, the card busy "
+            f"{busy['busy_ms']:.3f} of {busy['window_ms']:.3f} ms "
+            f"({busy['busy_share']:.1%}) [{gpu}]")
+        del sh
+    log(f"phase 16a {label}: ScanSession {scan_ms / n:.4f} ms per pod on the "
+        f"same {n} pods (one launch, wait included) [{gpu}]")
+    return {"cell": label, "pods": n, "scan_session_ms_per_pod": scan_ms / n,
+            "layouts": rows}
+
+
+class DeltaCheck:
+    """ops.sharded_scan's `carry_delta` wrapped for one phase: each launch
+    is held against the plain version on a copy of its carry and the same
+    inputs — `carry_delta_grouped`, the kernel's own order-free
+    formulation in plain torch (tests/test_torch_delta_grid.py holds it to
+    `carry_delta_reference` and the reference's `_carry_delta_scan`), a
+    vectorized plain version where the event-by-event one takes a second
+    a group; the launches are counted by the wrapper as always."""
+
+    def __init__(self):
+        from kubernetes_tpu_torch.ops import sharded_scan
+
+        self.err, self.calls = 0, 0
+        self._mod, self._orig = sharded_scan, sharded_scan.carry_delta
+        check = self
+
+        def launch(node, rows, statics, carry, shapes):
+            from kubernetes_tpu_torch.ops.scan_kernel import (
+                carry_delta_grouped,
+            )
+
+            plain = clone(carry)
+            carry_delta_grouped(node, rows, statics, plain, shapes)
+            check._orig(node, rows, statics, carry, shapes)
+            check.err = max(check.err, carry_err(carry, plain))
+            check.calls += 1
+
+        sharded_scan.carry_delta = launch
+
+    def close(self):
+        self._mod.carry_delta = self._orig
+
+
+def mesh_unscaled(sess, snapshot):
+    """A sharded session's gathered carries and alloc in the encoding's
+    units, on the valid lanes of `snapshot` (its node rows)."""
+    import numpy as np
+
+    valid = np.asarray(snapshot["valid"]).astype(bool)
+    N, g, R = valid.shape[0], sess._gcd, sess.R
+    c = {k: v.astype(np.int64) for k, v in sess.gathered_carry().items()
+         if k in ("requested", "nzpc", "cnt_fn", "cnt_sn")}
+    c["requested"] = c["requested"][:R] * g[:, None]
+    c["nzpc"][:2] *= g[:2, None]
+    c["alloc"] = sess._alloc[:R].astype(np.int64) * g[:, None]
+    return {k: v[:, :N][:, valid] for k, v in c.items()}
+
+
+def mesh_flush(sk, sess, deltas, label):
+    """One apply_deltas on a sharded session under a DeltaCheck: every
+    group's scan_delta launch == plain; -> (launches, ms)."""
+    import torch
+
+    check = DeltaCheck()
+    reset_counts(sk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        sess.apply_deltas(deltas)
+        torch.cuda.synchronize()
+    finally:
+        check.close()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = sk.VARIANT_LAUNCHES["scan_delta"]
+    if check.err or launches != check.calls or sk.LAUNCHES != launches:
+        raise AssertionError(f"{label}: scan_delta max abs err {check.err} "
+                             f"against the plain version, launches "
+                             f"{sk.VARIANT_LAUNCHES}")
+    return launches, ms
+
+
+def mesh_churn_zone(sk, gpu, zone, churn0, meshes=None):
+    """16b (i): phase 9's 4096-event flush into nsh = 8 sessions built
+    from the encoding before the churn, in both layouts (one group: one
+    launch; eight groups: one a group, the other groups' event nodes as
+    extra lanes): each launch == plain; the carries equal ScanSession's
+    after the same flush and a fresh sharded session's from the encoding
+    after it (unscaled, valid lanes); the next batch decides as both."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.models.encoding import cluster_from_numpy
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+    from kubernetes_tpu_torch.ops.sharded_scan import ShardedScanSession
+
+    pre, post = churn0["pre_churn"], churn0["post_churn"]
+    # the next batch: phase 9's first MESH_CHURN_PODS (eight groups take
+    # 2.7 ms a pod)
+    deltas = churn0["deltas"]
+    batch = churn0["next_batch"][:MESH_CHURN_PODS]
+    templates = zone["templates"]
+    ss = ScanSession(cluster_from_numpy(pre, "cuda"), templates,
+                     multipod_k=1, device="cuda")
+    ss._carry = ss._initial_carry()
+    ss.apply_deltas(deltas)
+    want_next = ScanSession.decisions(ss.schedule(batch))
+    out = []
+    for mesh in meshes or (mesh_of(8, False), mesh_of(8, True)):
+        label = f"16b zone flush {mesh.layout}"
+        sh = ShardedScanSession(cluster_from_numpy(pre, "cuda"), templates,
+                                mesh=mesh)
+        launches, ms = mesh_flush(sk, sh, deltas, label)
+        if launches != len(mesh.groups):
+            raise AssertionError(f"{label}: {launches} launches for "
+                                 f"{len(mesh.groups)} groups")
+        fresh = ShardedScanSession(cluster_from_numpy(post, "cuda"),
+                                   templates, mesh=mesh)
+        got, want = mesh_unscaled(sh, post), mesh_unscaled(fresh, post)
+        diff = [k for k in want if not np.array_equal(got[k], want[k])]
+        if diff:
+            raise AssertionError(f"{label}: {diff} differ from a rebuild's")
+        ref = ScanSession(cluster_from_numpy(pre, "cuda"), templates,
+                          multipod_k=1, device="cuda")
+        ref._carry = ref._initial_carry()
+        ref.apply_deltas(deltas)
+        gathered_vs(sh, ref._carry, label)
+        nxt = [ShardedScanSession.decisions(s.schedule(batch))
+               for s in (sh, fresh)]
+        if nxt[0] != want_next or nxt[1] != want_next:
+            raise AssertionError(f"{label}: the next batch decides otherwise "
+                                 "than ScanSession and a rebuild")
+        out.append({"layout": mesh.layout, "events": len(deltas),
+                    "launches": launches, "ms": ms})
+        log(f"phase {label}: {len(deltas)} events in {launches} scan_delta "
+            f"launch(es), each == plain (max abs err 0), apply_deltas "
+            f"{ms:.1f} ms with the plain checks; carries == ScanSession's "
+            f"after the same flush and == a rebuild's (unscaled, valid "
+            f"lanes); the next {len(batch)} pods decide as both [{gpu}]")
+        del sh, fresh, ref
+    return out
+
+
+def mesh_churn_nodes(sk, gpu):
+    """16b (ii): node churn into a live nsh = 8 session (eight one-shard
+    groups) on a hostname-only cluster (the node-delta envelope:
+    synth_cluster(5000, pods_per_node=1), plain pending pods): a batch
+    bound, then MESH_NODE_CHURN pod-free nodes leave, MESH_POD_CHURN pod
+    events, the nodes join again under their names (LIFO: their lanes),
+    MESH_POD_CHURN more pod events — every event a delta, the node ones
+    lane-column writes between the scan_delta runs. The carries then equal
+    a rebuild's (unscaled, valid lanes) and the next batch decides as the
+    rebuild and a fresh ScanSession do."""
+    import random
+
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+    from kubernetes_tpu_torch.ops.sharded_scan import ShardedScanSession
+    from kubernetes_tpu_torch.testing import churn
+    from kubernetes_tpu_torch.testing.synth import (
+        make_pod,
+        synth_cluster,
+        synth_pending_pods,
+    )
+
+    rng = random.Random(16)
+    nodes, init_pods = synth_cluster(5000, pods_per_node=1)
+    pending = synth_pending_pods(2 * MESH_CHURN_PODS)
+    foreign = [make_pod(f"foreign-{i}", cpu="100m", memory="128Mi",
+                        labels={"app": f"init-{i % 8}"})
+               for i in range(MESH_POD_CHURN)]
+    enc, pe = presized_encoding(nodes, init_pods, pending + foreign)
+    batches, templates = encode_templates(pe, pending)
+    mesh = mesh_of(8, True)
+    label = f"16b node churn {mesh.layout}"
+    sh = ShardedScanSession(enc.device_state("cuda"), templates, mesh=mesh)
+    if not sh._node_delta_ok:
+        raise AssertionError(f"{label}: outside the node-delta envelope")
+    first = batches[:MESH_CHURN_PODS]
+    for pod, best in zip(pending, ShardedScanSession.decisions(
+            sh.schedule(first))):
+        if best >= 0:
+            pod.spec.node_name = enc.node_names[best]
+            enc.add_pod(pod, pod.spec.node_name)
+    free = [n.metadata.name for n in nodes
+            if not enc._arrays["pod_count"][enc.node_index[n.metadata.name]]]
+    gone = rng.sample(free, MESH_NODE_CHURN)
+    live = [n for n in (x.metadata.name for x in nodes) if n not in gone]
+    deltas = []
+
+    def pod_events(lo):
+        for i, p in enumerate(foreign[lo:lo + MESH_POD_CHURN // 2]):
+            p.spec.node_name = rng.choice(live)
+            deltas.append(churn.pod_delta(
+                sh, enc, p, p.spec.node_name, 1,
+                lambda p=p: enc.add_pod(p, p.spec.node_name)))
+        placed = [p for p in pending[:MESH_CHURN_PODS] if p.spec.node_name]
+        for p in rng.sample(placed, MESH_POD_CHURN // 2):
+            deltas.append(churn.pod_delta(
+                sh, enc, p, p.spec.node_name, -1,
+                lambda p=p: enc.remove_pod(p)))
+            p.spec.node_name = ""
+
+    for name in gone:
+        deltas.append(sh.node_leave_delta(enc.remove_node(name)))
+    pod_events(0)
+    by_name = {n.metadata.name: n for n in nodes}
+    for name in reversed(gone):
+        lane = enc.add_node(by_name[name])
+        deltas.append(sh.node_join_delta(enc.node_slice_cluster(lane), lane))
+    pod_events(MESH_POD_CHURN // 2)
+    if any(d is None for d in deltas):
+        raise AssertionError(f"{label}: {sum(d is None for d in deltas)} "
+                             "events refused as structural")
+    kinds = {}
+    for d in deltas:
+        kinds[d["kind"]] = kinds.get(d["kind"], 0) + 1
+    launches, ms = mesh_flush(sk, sh, deltas, label)
+    post = enc.host_snapshot()
+    fresh = ShardedScanSession(enc.device_state("cuda"), templates,
+                               mesh=mesh)
+    got, want = mesh_unscaled(sh, post), mesh_unscaled(fresh, post)
+    diff = [k for k in want if not np.array_equal(got[k], want[k])]
+    if diff:
+        raise AssertionError(f"{label}: {diff} differ from a rebuild's")
+    second = batches[MESH_CHURN_PODS:]
+    ss = ScanSession(enc.device_state("cuda"), templates, multipod_k=1,
+                     device="cuda")
+    nxt = [type(s).decisions(s.schedule(second)) for s in (sh, fresh, ss)]
+    if nxt[0] != nxt[1] or nxt[0] != nxt[2]:
+        raise AssertionError(f"{label}: the next batch decides otherwise "
+                             "than a rebuild and ScanSession")
+    placed = sum(d >= 0 for d in nxt[0])
+    torch.cuda.synchronize()
+    log(f"phase {label}: {kinds} into the live session in {launches} "
+        f"scan_delta launches (each == plain, max abs err 0) and the "
+        f"lane-column writes between them, apply_deltas {ms:.1f} ms with the "
+        f"plain checks; carries == a rebuild's (unscaled, valid lanes); the "
+        f"next {len(second)} pods ({placed} placed) decide as the rebuild "
+        f"and ScanSession [{gpu}]")
+    return {"layout": mesh.layout, "events": kinds, "launches": launches,
+            "ms": ms}
+
+
+def mesh_loop(sk, gpu, key="mesh20k"):
+    """16c: a MESH_ROWS row through `run_workload` on the card, unreduced:
+    every batch on ShardedScanSession at the kernel rung; the bindings
+    equal the same row on the single-device loop and a `schedule_many`
+    replay of the loop's batches."""
+    from kubernetes_tpu_torch.perf import harness
+
+    spec = MESH_ROWS[key]
+    out, bindings, run, _, nodes = loop_cell(
+        sk, gpu, f"16c {key}", matrix_workload(harness, spec))
+    rungs = out["rungs"]
+    if set(rungs) != {"ShardedScanSession/kernel"} \
+            or out["session_kind"] != "ShardedScanSession":
+        raise AssertionError(f"16c {key}: batches on {rungs}, session "
+                             f"{out['session_kind']}")
+    # the replay needs the batches alone: the run's apiserver and caches
+    # go before the next run builds its own (at 100000 nodes two worlds
+    # do not fit the host)
+    job = (run.batches, nodes, None, run.oracle_pods)
+    del run
+    gc.collect()
+    single, single_bindings, _, _, _ = loop_cell(
+        sk, gpu, f"16c {key} single-device",
+        matrix_workload(harness, spec, mesh_devices=0))
+    gc.collect()
+    diff = sorted(k for k, v in bindings.items()
+                  if single_bindings.get(k) != v)
+    if diff or len(bindings) != len(single_bindings):
+        raise AssertionError(f"16c {key}: {len(diff)} bindings differ from "
+                             f"the single-device loop's (first {diff[:5]})")
+    replay_check(out, bindings, job)
+    log(f"phase 16c {key}: bindings == the single-device loop's "
+        f"({single['pods_per_s']} pods/s, latency p50 "
+        f"{single['latency_p50_s']} s, p99 {single['latency_p99_s']} s) and "
+        f"== a schedule_many replay ({out['replay_s']:.1f} s) [{gpu}]")
+    return {"mesh": out, "single": single}
+
+
+def mesh_whatif(sk, gpu):
+    """16d: the three Preemption rows' clusters (500 nodes, 2000
+    priority-1 pods four to a node, the rows' victim labels and PDB), the
+    first MESH_PREEMPTORS preemptors of each planned by the device rung on
+    an nsh = 8 backend and on a single-device one: equal plans (node and
+    victims), every preemptor on the device path; the mesh's what-if
+    launches counted, each held to the plain walk."""
+    import torch
+    from kubernetes_tpu_torch.api import types as v1
+    from kubernetes_tpu_torch.ops import whatif_kernel as wk
+    from kubernetes_tpu_torch.perf.harness import PodTemplate
+    from kubernetes_tpu_torch.scheduler.framework.snapshot import Snapshot
+    from kubernetes_tpu_torch.scheduler.internal.nominator import (
+        PodNominator,
+    )
+    from kubernetes_tpu_torch.scheduler.preemption_device import (
+        DevicePreemptionPlanner,
+    )
+    from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
+    from kubernetes_tpu_torch.testing.synth import make_node
+
+    out, launches, checked, errs = [], 0, 0, 0
+    for label, spec, init, template in PREEMPTION_ROWS:
+        n_nodes = spec["num_nodes"]
+        nodes = [make_node(f"node-{i}", labels={
+            v1.LABEL_HOSTNAME: f"node-{i}",
+            v1.LABEL_ZONE: f"zone-{i % 3}",
+            v1.LABEL_REGION: f"region-{i % 3 % 2}"})
+            for i in range(n_nodes)]
+        lo = PodTemplate(cpu="900m", memory="64Mi", priority=1, **init)
+        hi = PodTemplate(cpu="900m", memory="64Mi", priority=100,
+                         **template)
+        victims = []
+        for i in range(spec["num_init_pods"]):
+            p = lo.build(f"init-{i}")
+            p.spec.node_name = f"node-{i % n_nodes}"
+            victims.append(p)
+        wave = [hi.build(f"measure-{i}") for i in range(MESH_PREEMPTORS)]
+        pdbs = None
+        if spec.get("pdb_disruptions_allowed") is not None:
+            pdbs = [v1.PodDisruptionBudget(
+                metadata=v1.ObjectMeta(name="bench-pdb", namespace="default"),
+                spec=v1.PodDisruptionBudgetSpec(selector=v1.LabelSelector(
+                    match_labels=dict(lo.labels or {}))),
+                status=v1.PodDisruptionBudgetStatus(
+                    disruptions_allowed=spec["pdb_disruptions_allowed"]))]
+        fast_ok = not template.get("pod_affinity_zone")
+        elig = {v1.pod_key(p): (True, fast_ok) for p in wave}
+        plans = []
+        for mesh in (mesh_of(8, False), None):
+            be = TPUBackend(mesh=mesh)
+            for n in nodes:
+                be.on_add_node(n)
+            for p in victims:
+                be.on_add_pod(p, p.spec.node_name)
+            snapshot = Snapshot.from_objects(victims, nodes)
+            watch = WhatifWatch(keep=WHATIF_KEEP) if mesh else None
+            k0 = wk.LAUNCHES
+            t0 = time.perf_counter()
+            try:
+                pl = DevicePreemptionPlanner(snapshot, PodNominator(), be,
+                                             pdbs=pdbs, eligibility=elig)
+                cands = pl.plan(list(wave))
+                torch.cuda.synchronize()
+            finally:
+                if watch is not None:
+                    watch.close()
+            ms = (time.perf_counter() - t0) * 1e3 / len(wave)
+            if set(pl.planner_paths) != {"device"}:
+                raise AssertionError(f"16d {label}: planner paths "
+                                     f"{pl.planner_paths}")
+            if mesh is not None:
+                launches += wk.LAUNCHES - k0
+                checked += len(watch.calls)
+                errs = max(errs, walk_errs(watch.calls))
+                mesh_ms, builds = ms, be.whatif_builds
+            plans.append([cand_key(c) for c in cands])
+            be.close()
+        if plans[0] != plans[1]:
+            bad = sum(a != b for a, b in zip(*plans))
+            raise AssertionError(f"16d {label}: {bad} of {len(wave)} plans "
+                                 "differ from the single-device device rung's")
+        found = sum(c is not None for c in plans[0])
+        out.append({"cell": label, "row": spec["name"],
+                    "preemptors": len(wave), "with_victims": found,
+                    "mesh_ms_per_preemptor": mesh_ms,
+                    "single_ms_per_preemptor": ms,
+                    "context_builds": builds})
+        log(f"phase 16d {label} {spec['name']}: {len(wave)} preemptors on an "
+            f"8-shard backend plan as the single-device device rung "
+            f"({found} with victims); {mesh_ms:.3f} ms a preemptor on the "
+            f"mesh, {ms:.3f} single-device; what-if context builds "
+            f"{builds} [{gpu}]")
+    if errs or not launches:
+        raise AssertionError(f"16d: {launches} what-if launches on the mesh, "
+                             f"{errs} differing outputs against the walk")
+    return out, {"launches": launches, "checked": checked, "err": errs}
+
+
+def mesh_ladder(gpu, zone, decisions):
+    """16e: the mesh backend's session ladder off the kernel rung: an
+    explain build and a ladder-demoted build (TPUBackend's own session
+    build over phase 4's encoding before its first batch) are
+    HoistedSessions on the lead device, counted under their reasons;
+    each decides MESH_LADDER_PODS of 16a's pods as 16a did."""
+    import torch
+    from kubernetes_tpu_torch.models.encoding import cluster_from_numpy
+    from kubernetes_tpu_torch.ops.hoisted import (
+        HoistedSession,
+        template_fingerprint,
+    )
+    from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
+
+    pods = zone["batch"][:MESH_LADDER_PODS]
+    want = decisions[:MESH_LADDER_PODS]
+    cluster = cluster_from_numpy(zone["snapshot0"], "cuda")
+    be = TPUBackend(mesh=mesh_of(8, False))
+    be.enc.device_state = lambda device=None: cluster
+    be._known_templates = {template_fingerprint(t): t
+                           for t in zone["templates"]}
+    out = {}
+    for reason in ("explain", "mesh-ladder-demoted"):
+        be.explain = reason == "explain"
+        if reason != "explain":
+            be.ladder.demote()
+        before = counters()
+        t0 = time.perf_counter()
+        with be._on_stream():
+            sess = be._build_session_impl()
+            got = HoistedSession.decisions(sess.schedule(pods))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        builds = {k: v for k, v in counters_delta(before)[
+            "session_builds"].items() if v}
+        if not isinstance(sess, HoistedSession) \
+                or builds != {("hoisted", reason, "8"): 1.0}:
+            raise AssertionError(f"16e {reason}: {type(sess).__name__}, "
+                                 f"builds {builds}")
+        if got != want:
+            raise AssertionError(f"16e {reason}: decisions differ from 16a's")
+        out[reason] = {"pods": len(pods), "ms_per_pod": ms / len(pods),
+                       "builds": {"/".join(k): v for k, v in builds.items()}}
+        log(f"phase 16e {reason}: the mesh backend's session build is a "
+            f"HoistedSession on {sess.device} (builds {builds}); "
+            f"{len(pods)} pods decide as 16a did; {ms / len(pods):.3f} ms "
+            f"per pod, build included [{gpu}]")
+    be.close()
+    return out
+
+
+def mesh_cards(sk, gpu):
+    """16a and 16b's zone flush across every card of the machine (run
+    alone on a multi-card machine; not a phase of `main`): 8 shards in
+    one group a card, and one shard a card, against ScanSession on the
+    first card. The cross-group reductions and the extra lanes of the
+    flush then cross cards."""
+    import random
+
+    import torch
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+    from kubernetes_tpu_torch.parallel.sharded import make_mesh
+    from kubernetes_tpu_torch.testing.synth import (
+        synth_cluster,
+        synth_pending_pods,
+    )
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise AssertionError(f"mesh_cards: {n} card(s)")
+    cards = [f"cuda:{i}" for i in range(n)]
+    meshes = [make_mesh(devices=cards, n_devices=8),
+              make_mesh(devices=cards, n_devices=n)]
+    nodes, init_pods = synth_cluster(5000, pods_per_node=2)
+    pending = synth_pending_pods(2 * BATCH, spread=True)
+    enc, pe = presized_encoding(nodes, init_pods, pending)
+    arrays, templates = encode_templates(pe, pending)
+    snapshot0 = enc.host_snapshot()
+    # a quarter of 16a's batch: across cards the step runs eagerly
+    out = {"16a": mesh_session_cell(sk, gpu, "zone spread 5000n",
+                                    snapshot0, templates,
+                                    arrays[BATCH:BATCH + BATCH // 4],
+                                    meshes=meshes)}
+    sess = ScanSession(enc.device_state("cuda"), templates, multipod_k=1,
+                       device="cuda")
+    for pod, best in zip(pending, ScanSession.decisions(
+            sess.schedule(arrays[:BATCH]))):
+        if best >= 0:
+            pod.spec.node_name = enc.node_names[best]
+            enc.add_pod(pod, pod.spec.node_name)
+    d = {"enc": enc, "sess": sess, "pending": pending}
+    events = churn_events(d, random.Random(9))
+    pre = enc.host_snapshot()
+    deltas, refused = classify(sess, enc, events)
+    if refused:
+        raise AssertionError(f"mesh_cards: {refused} events refused")
+    nxt = synth_pending_pods(BATCH // 4, spread=True)
+    for i, p in enumerate(nxt):
+        p.metadata.name = f"next-{i}"
+    churn0 = {"pre_churn": pre, "post_churn": enc.host_snapshot(),
+              "deltas": deltas, "next_batch": [
+                  {k: v for k, v in pe.encode(p).items()
+                   if not k.startswith("_")} for p in nxt]}
+    out["16b"] = mesh_churn_zone(sk, gpu, {"templates": templates}, churn0,
+                                 meshes=meshes)
+    return out
+
+
+def phase_mesh(sk, gpu, zone, pref, churn0):
+    """Phase 16: the node-sharded mesh (parallel/, ops/sharded_scan.py,
+    TPUBackend(mesh=)) on the card. -> (numbers, scan_delta launches and
+    their check, what-if launches and their check)."""
+    import torch
+    from kubernetes_tpu_torch.models.encoding import cluster_from_numpy
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+
+    # the earlier phases' heap out of the collector's reach (as phase 15
+    # does for its rows): a full collection over it would land in the
+    # windows below
+    gc.collect()
+    gc.freeze()
+    t0 = time.perf_counter()
+    marks = {}
+
+    def mark(label):
+        marks[label] = round(time.perf_counter() - t0 - sum(marks.values()),
+                             1)
+
+    out = {"16a": [
+        mesh_session_cell(sk, gpu, "zone spread 5000n", zone["snapshot0"],
+                          zone["templates"], zone["batch"]),
+        mesh_session_cell(sk, gpu, pref["cell"], pref["snapshot0"],
+                          pref["templates"], pref["batch"])]}
+    mark("16a")
+    out["16b"] = mesh_churn_zone(sk, gpu, zone, churn0)
+    out["16b"].append(mesh_churn_nodes(sk, gpu))
+    delta_launches = sum(c["launches"] for c in out["16b"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("16b")
+    out["16c"] = mesh_loop(sk, gpu)
+    mark("16c")
+    out["16d"], whatif = mesh_whatif(sk, gpu)
+    mark("16d")
+    ss = ScanSession(cluster_from_numpy(zone["snapshot0"], "cuda"),
+                     zone["templates"], multipod_k=1, device="cuda")
+    out["16e"] = mesh_ladder(gpu, zone, ScanSession.decisions(
+        ss.schedule(zone["batch"][:MESH_LADDER_PODS])))
+    mark("16e")
+    out["phase_s"] = time.perf_counter() - t0
+    gc.unfreeze()
+    log(f"phase 16 seconds: {marks}, {out['phase_s']:.1f} in all")
+    out["seconds"] = marks
+    return out, delta_launches, whatif
 
 
 def ipa_ops(ipa, t) -> tuple:
@@ -4947,11 +5664,14 @@ def main() -> int:
     rows, matrix_launches = phase_matrix(sk, gpu, loop_bindings)   # 15b, c
     matrix.update(rows)
     mark("15")
+    mesh, mesh_deltas, mesh_whatif = phase_mesh(sk, gpu, zone, aff[0],
+                                                churn[0])          # 16
+    mark("16")
     for k, v in (*pre_launches.items(), *matrix_launches.items()):
         loop_launches[k] = loop_launches.get(k, 0) + v
     log("seconds by phase: " + ", ".join(
         f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:]))
-        + f"; build and phases 3-15 {marks[-1][1] - t0:.1f}")
+        + f"; build and phases 3-16 {marks[-1][1] - t0:.1f}")
 
     zone["err"] = max(zone["err"], small_err)
     # scan_full_ipa reports its slower cell; `cells` keeps both cells'
@@ -4984,7 +5704,7 @@ def main() -> int:
             err=max(c["err"] for c in churn)), cell=churn[0]["cell"],
             one_event_ms=churn[0]["one_ms"], call_ms=churn[0]["call_ms"],
             prep_ms=churn[0]["prep_ms"], device_ms=churn[0]["device_ms"],
-            rebuild_s=churn[0]["build_s"],
+            rebuild_s=churn[0]["build_s"], mesh_launches=mesh_deltas,
             cells=[{k: c[k] for k in ("cell", "events", "ms", "device_ms",
                                       "one_ms", "one_device_ms",
                                       "same_node_ms", "same_node_device_ms",
@@ -4995,11 +5715,19 @@ def main() -> int:
         *probe_entries,
         entry("whatif", "kubernetes_tpu/ops/whatif.py:119", whatif,
               source=WHATIF_SOURCE, checked_launches=whatif["checked"],
-              shape=whatif["shape"]),
+              shape=whatif["shape"], mesh_launches=mesh_whatif["launches"],
+              mesh_checked_launches=mesh_whatif["checked"]),
     ]
     idle = [e["name"] for e in kernels if not e["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on their path: {idle}")
+    # phase 16: the mesh path's own launches (counts set to 0 before each
+    # of its flushes and planner waves)
+    idle = [e["name"] for e in kernels
+            if e["name"] in ("scan_delta", "whatif")
+            and not e.get("mesh_launches")]
+    if idle:
+        raise AssertionError(f"kernels the mesh never launched: {idle}")
     # phases 12 and 13: each kernel's launches by the backend's calls and
     # by the scheduler loop's
     for e in kernels:
@@ -5030,6 +5758,7 @@ def main() -> int:
     log(json.dumps({"loop": loop}))
     log(json.dumps({"preemption": preemption}, default=str))
     log(json.dumps({"matrix": matrix}, default=str))
+    log(json.dumps({"mesh": mesh}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,11 +9,12 @@ after batch against a device-resident carry: each `schedule()` is ONE
 launch of `scan_full` (ops/scan_kernel.py), which filters, scores, picks
 the node and commits each pod of the batch in turn — one pod per step,
 or `multipod_k` pods per step under the conflict-suffix contract
-(`schedule_exact` replays the suffix). `evaluate` / `apply_decisions` run
-the kernel's "eval" and "apply" modes. `apply_deltas` absorbs cluster churn
-(pods bound or evicted by other actors, allocatable-only node updates) into
-the live carry: one launch of the kernel's delta mode, or a host patch of
-the seed arrays before the first launch.
+(scheduler/tpu_backend.py `schedule_exact` replays the suffix).
+`evaluate` / `apply_decisions` run the kernel's "eval" and "apply" modes.
+`apply_deltas` absorbs cluster churn (pods bound or evicted by other
+actors, allocatable-only node updates) into the live carry: one launch of
+the kernel's delta mode, or a host patch of the seed arrays before the
+first launch.
 
 Layout notes (the same as the reference's, so the two compare directly):
 
@@ -657,6 +658,14 @@ class ScanSession:
         )
 
     def _pack_scalars(self, S) -> np.ndarray:
+        # host mirror of the tables packed below: the sharded session
+        # (ops/sharded_scan.py) reads them as structured tables
+        self._sc_tables = {
+            k: np.asarray(S[k]).copy()
+            for k in ("f_valid", "s_valid", "f_skew", "s_skew",
+                      "f_self_match", "s_first", "f_same_key", "s_same_key",
+                      "ipa_present")
+        }
         per_t = np.concatenate([
             self._req_s, self._req_check_s,
             self._req_has_any_s[:, None], self._nz_req_s,
@@ -933,33 +942,3 @@ class ScanSession:
         payload = np.stack([np.concatenate(r[1:]) for r in rows])
         return node, payload
 
-
-def schedule_exact(session: ScanSession,
-                   pod_arrays_list: List[Dict]) -> List[int]:
-    """Schedule a batch to completion under the conflict-suffix contract:
-    schedule, keep the decisions before the suffix, and replay the suffix
-    through the same live session (whose carry holds the committed
-    prefix) until none is left. The decisions equal one pod per step.
-
-    The suffix loop of the reference's backend
-    (kubernetes_tpu/scheduler/tpu_backend.py:1977-2016), without its
-    metrics and watchdog; it moves into the port's
-    TPUBackend._session_schedule when the backend is ported. Raises
-    RuntimeError on a suffix at the batch head: a step's first pod was
-    evaluated against the carry it commits to, so it cannot conflict,
-    and every round lands at least one pod."""
-    decisions: List[int] = []
-    arrays = list(pod_arrays_list)
-    while arrays:
-        ys = session.schedule(arrays)
-        got = session.decisions(ys)
-        _, suffix = session.conflict_stats(ys)
-        if suffix is None:
-            decisions.extend(got)
-            break
-        if suffix <= 0:
-            raise RuntimeError("conflict suffix at batch head (kernel "
-                               "invariant violation)")
-        decisions.extend(got[:suffix])
-        arrays = arrays[suffix:]
-    return decisions

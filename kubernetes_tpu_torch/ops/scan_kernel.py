@@ -25,7 +25,7 @@ machinery, pallas_scan.py:1552-1592, :1680-1693, :1417-1435), each in
   interference, the fit / balanced / least recheck against the current
   carry). The first conflict starts the suffix: it and every later pod
   of the batch stay uncommitted and are flagged in out row 3, for the
-  host to replay (`scan.schedule_exact`);
+  host to replay (scheduler/tpu_backend.py `schedule_exact`);
 - mode "eval" (`scan_eval`, `scan_eval_ipa`; :1751-1766): out rows 0-2
   per pod, every pod against the same carry, the carries untouched;
 - mode "apply" (`scan_apply`, `scan_apply_ipa`; :1736-1746): the commit

@@ -355,14 +355,21 @@ class WhatifContext:
         consistent copy, so the EXPENSIVE part — the upload and the
         prologue build — can run outside the encoding owner's lock. Never
         touches the encoder's cached device dict and never counts as a
-        session build. `mesh` (a node-sharded view) raises: the sharded
-        session is not ported."""
+        session build. With `mesh` (parallel/sharded.py) the view is built
+        on the mesh's lead device over the snapshot padded to the shard
+        multiple (sharded.shard_cluster), the reference's mesh placement
+        without GSPMD: the what-if walk still takes the whole node axis,
+        and the padded lanes are invalid, so the plans are the
+        single-device plans."""
         if mesh is not None:
-            raise NotImplementedError(
-                "from_host_snapshot(mesh=...): the sharded session is not "
-                "ported")
-        cluster = {k: torch.from_numpy(np.ascontiguousarray(a))
-                   for k, a in host.items()}
+            from ..parallel.sharded import shard_cluster
+
+            cluster = shard_cluster(
+                {k: np.asarray(a) for k, a in host.items()}, mesh)
+            device = mesh.lead
+        else:
+            cluster = {k: torch.from_numpy(np.ascontiguousarray(a))
+                       for k, a in host.items()}
         sess = HoistedSession(cluster, [pod_arrays], multipod_k=1,
                               device=device)
         return cls(sess, sess._carry, node_names)

@@ -13,10 +13,12 @@ mustSetupScheduler (util.go:61) with a real apiserver+etcd and no kubelet.
 Port of kubernetes_tpu/perf/harness.py. `run_workload` takes `device`:
 the TPU backend runs on the card unless the caller names another (the
 tests pass "cpu"). `wire` puts the HTTP apiserver (apiserver/http.py)
-between every client and the store, as the reference does. One of the
-reference's options raises NotImplementedError, since what it needs is not
-ported yet: `mesh_devices` (the sharded session; ROADMAP.md, Queue 1,
-item 9). It does not fall back to the single-device run.
+between every client and the store, as the reference does.
+`mesh_devices` shards the node axis of the TPU backend's session over
+that many shards (parallel/sharded.py make_mesh, ops/sharded_scan.py):
+the shards go on the devices there are (all of them on one card; on the
+CPU when the caller names it), where the reference raises when a host
+has fewer devices than shards.
 """
 
 from __future__ import annotations
@@ -252,9 +254,8 @@ class Workload:
     # per-pod object writeback path for A/B rows (scripts/probe_assume.py
     # and the completion-tax adjudication in bench_configs.py)
     columnar: bool = True
-    # multi-host mesh scale-out: shard the node axis over this many
-    # devices (0 = single-device backend). The sharded session is not
-    # ported: run_workload raises for any other value
+    # mesh scale-out: shard the node axis over this many shards
+    # (parallel/sharded.make_mesh; 0 = single-device backend)
     mesh_devices: int = 0
 
 
@@ -532,10 +533,6 @@ def _kernel_direct_rate(sched, w: "Workload", reps: int = 3) -> float:
 
 
 def run_workload(w: Workload, quiet: bool = True, device=None) -> Result:
-    if w.backend == "tpu" and w.mesh_devices:
-        raise NotImplementedError(
-            f"Workload(mesh_devices={w.mesh_devices}): the sharded session "
-            "is not ported yet")
     if not w.columnar:
         os.environ["KTPU_COLUMNAR_CACHE"] = "0"
     else:
@@ -601,7 +598,13 @@ def _run(w: Workload, quiet: bool, device, api) -> Result:
     if w.backend == "tpu":
         from ..scheduler.tpu_backend import TPUBackend
 
-        tpu_backend = TPUBackend(device=device)
+        if w.mesh_devices:
+            from ..parallel.sharded import make_mesh
+
+            tpu_backend = TPUBackend(mesh=make_mesh(
+                n_devices=w.mesh_devices, device=device))
+        else:
+            tpu_backend = TPUBackend(device=device)
     sched = Scheduler(cs, factory, backend=w.backend, max_batch=w.max_batch,
                       tpu_backend=tpu_backend)
     if w.backend == "tpu":
@@ -1047,7 +1050,7 @@ def _run(w: Workload, quiet: bool, device, api) -> Result:
             shadow_samples=n_shadow,
             shadow_drift=shadow_drift,
             mesh_shards=(
-                int(sched.tpu.mesh.devices.size)
+                int(sched.tpu.mesh.nsh)
                 if sched.tpu is not None and sched.tpu.mesh is not None
                 else 0
             ),

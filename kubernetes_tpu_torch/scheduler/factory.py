@@ -6,8 +6,9 @@ knobs → PriorityQueue; cmd/kube-scheduler/app/server.go:299 Setup.
 
 Port of kubernetes_tpu/scheduler/factory.py. The backend it builds runs
 on `device` (the card unless the caller names another); a profile's
-meshDevices raises NotImplementedError, since the sharded session is not
-ported yet (ROADMAP.md, Queue 1, item 9).
+meshDevices shards its node axis (parallel/sharded.py make_mesh,
+ops/sharded_scan.py), several shards to a device where there are fewer
+devices than shards.
 """
 
 from __future__ import annotations
@@ -78,10 +79,15 @@ def create_scheduler(
                 )
             weights[key] = weight
         if profile.mesh_devices:
-            raise NotImplementedError(
-                f"meshDevices: {profile.mesh_devices}: the sharded session "
-                "is not ported yet (ROADMAP.md, Queue 1, item 9)")
-        tpu_backend = TPUBackend(weights=weights, device=device)
+            # node-axis shards on the devices there are (several on one
+            # device where there are fewer devices than shards; the
+            # reference raises there)
+            from ..parallel.sharded import make_mesh
+
+            tpu_backend = TPUBackend(weights=weights, mesh=make_mesh(
+                n_devices=profile.mesh_devices, device=device))
+        else:
+            tpu_backend = TPUBackend(weights=weights, device=device)
 
     sched = Scheduler(
         clientset,

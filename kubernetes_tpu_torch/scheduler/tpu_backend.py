@@ -42,8 +42,14 @@ What the port changes against the reference, and why:
   preemption_device.py) is on by default on the card and off on the CPU,
   as the reference's is on its chip and off on the CPU; its context
   build, carry clone and launches are enqueued on the backend's stream.
-- Left out, raising rather than silently doing nothing: `mesh=` (the
-  sharded session). The reference's AOT-bucket
+- A mesh (`mesh=`, parallel/sharded.py `Mesh`) is the reference's
+  single-controller mesh without GSPMD: the kernel rung builds
+  ops/sharded_scan.py ShardedScanSession (node-axis groups, exact
+  collectives); the rungs the reference runs as GSPMD programs (the
+  hoisted session, single-pod and re-evaluation dispatches, the what-if
+  view) run on the mesh's lead device over the cluster padded to the
+  shard multiple (sharded.shard_cluster). The backend's device is the
+  mesh's lead device. The reference's AOT-bucket
   quarantine (`retire_exec`, `warm_buckets`, `_suspect_buckets`) has no
   counterpart: the port has no per-bucket executables, one library is
   loaded once per process; a warm launch at session build, its
@@ -83,6 +89,7 @@ from ..ops.hoisted import (
 )
 from ..ops.kernel import DEFAULT_WEIGHTS, schedule_pod, schedule_pods
 from ..ops.scan import ScanSession, SessionUnsupported
+from ..ops.sharded_scan import ShardedScanSession
 from ..utils import devtime, knobs, tracing
 from .core import ScheduleResult
 from .degradation import (
@@ -332,6 +339,50 @@ class _BatchHandle:
         self.event = None
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
+
+
+def schedule_exact(session, arrays: List[Dict], run=None) -> List[int]:
+    """Schedule a batch through `session` to completion under the
+    conflict-suffix contract and return its decisions, which equal one
+    pod per step: schedule, keep the decisions before the suffix, and
+    replay exactly the suffix through the same live session (its carry
+    holds the committed prefix) until none is left. `run(batch)` enqueues
+    one pass and returns its payload read back (default:
+    `session.schedule`); the backend's run waits under the watchdog.
+    Counts scheduler_multipod_conflicts_total and
+    scheduler_conflict_replays_total. A suffix at the batch head raises
+    DeviceFault (kind "invalid"): a step's first pod was evaluated
+    against the carry it commits to, so it cannot conflict, and every
+    pass lands at least one pod."""
+    from .metrics import conflict_replays, multipod_conflicts
+
+    run = run or session.schedule
+    stats = getattr(type(session), "conflict_stats", None)
+    decisions: List[int] = []
+    arrays = list(arrays)
+    while arrays:
+        ys = run(arrays)
+        got = type(session).decisions(ys)
+        n_conf, suffix = stats(ys) if stats is not None else (0, None)
+        if n_conf:
+            multipod_conflicts.inc(n_conf)
+        if suffix is None:
+            if n_conf:
+                conflict_replays.inc(n_conf)
+            decisions.extend(got)
+            break
+        if suffix <= 0:
+            raise DeviceFault(
+                "conflict suffix at batch head (kernel invariant "
+                "violation)", kind="invalid")
+        conflict_replays.inc(len(arrays) - suffix)
+        decisions.extend(got[:suffix])
+        arrays = arrays[suffix:]
+    return decisions
+
+
 class TPUBackend(CacheListener):
     """Owns the dense encoding + kernel dispatch; registered as a cache
     listener so device state tracks the assume-cache at O(changed rows)."""
@@ -345,18 +396,40 @@ class TPUBackend(CacheListener):
         use_kernel: Optional[bool] = None,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the sharded session is not ported yet")
+            from ..parallel.sharded import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError("mesh: a parallel.sharded.Mesh, not "
+                                f"{type(mesh).__name__}")
+            if device is not None and not _same_device(
+                    resolve_device(device), mesh.lead):
+                raise ValueError(
+                    f"device {device} is not the mesh's lead device "
+                    f"{mesh.lead}")
+            device = mesh.lead
         self.device = resolve_device(device)
         self.enc = ClusterEncoding()
         self.pe = PodEncoder(self.enc)
         self.weights = weights or DEFAULT_WEIGHTS
         self.rng = rng or random.Random()
-        self.mesh = None
+        # a mesh shards the NODE axis of the kernel session over its
+        # groups (ops/sharded_scan.py); the other rungs run on its lead
+        # device over the padded cluster
+        self.mesh = mesh
+        if mesh is not None:
+            # rebuild-time node capacity lands on a shard multiple, so
+            # the mesh path never re-pads and node adds stay inside the
+            # session's lanes
+            from ..parallel.sharded import node_capacity_multiple
+
+            self.enc.node_quantum = node_capacity_multiple(mesh)
         # the kernel rung: the CUDA scan session on the card; forced on
         # for the CPU it runs on the kernels' plain versions
-        self.use_kernel = (self.device.type == "cuda" if use_kernel is None
-                           else bool(use_kernel))
+        # on a mesh the kernel rung is the sharded session, on the CPU
+        # too (the reference builds its sharded session on any platform)
+        self.use_kernel = (
+            (self.device.type == "cuda" or mesh is not None)
+            if use_kernel is None else bool(use_kernel))
         # device-side preemption planning (ops/whatif.py): on where the
         # launch is a real device dispatch, as the reference's is on its
         # chip (its default is platform == "tpu"); KTPU_WHATIF=0 is the
@@ -472,11 +545,13 @@ class TPUBackend(CacheListener):
         from ..utils import configz
         from .metrics import mesh_shards
 
-        mesh_shards.set(0.0)
+        mesh_shards.set(float(self.mesh.nsh) if self.mesh is not None
+                        else 0.0)
         configz.install_knobs(
             "ktpu",
             multipod_k=_mk(platform=self.device.type),
-            mesh_devices=0,
+            mesh_devices=self.mesh.nsh if self.mesh is not None else 0,
+            mesh_layout=self.mesh.layout if self.mesh is not None else "",
             node_headroom=_nh(),
             speculation=self.speculation,
             whatif=self.whatif,
@@ -634,13 +709,30 @@ class TPUBackend(CacheListener):
             return True
         return True
 
+    def _shards_label(self) -> str:
+        """`shards` metric label: the mesh's shard count, '' off-mesh."""
+        return str(self.mesh.nsh) if self.mesh is not None else ""
+
+    def _cluster_for_lead(self, cluster: Dict) -> Dict:
+        """The cluster dict a single-device path runs on: as it is, or on
+        a mesh padded to the shard multiple on the lead device (the
+        reference's shard_cluster placement)."""
+        if self.mesh is None:
+            return cluster
+        from ..parallel import sharded
+
+        return sharded.shard_cluster(cluster, self.mesh)
+
     def _devtime_slug(self, session=None) -> str:
         """Device-time slug: the session kind ('kernel', 'hoisted'), '-'
-        with no live session."""
+        with no live session; '@<shards>' on a mesh."""
         s = session if session is not None else self._session
         if s is None:
             return "-"
-        return "kernel" if isinstance(s, ScanSession) else "hoisted"
+        kind = ("kernel" if isinstance(s, (ScanSession, ShardedScanSession))
+                else "hoisted")
+        sh = self._shards_label()
+        return f"{kind}@{sh}" if sh else kind
 
     def _feed_device_time(self, kind: str, seconds: float,
                           session=None) -> None:
@@ -661,7 +753,7 @@ class TPUBackend(CacheListener):
             return
         from .metrics import session_rebuilds
 
-        session_rebuilds.inc(reason=reason, shards="")
+        session_rebuilds.inc(reason=reason, shards=self._shards_label())
         self._last_invalidate = reason
         tracing.event("session-teardown", "session", reason=reason)
         if knobs.get_flag("KTPU_DEBUG_INVALIDATE"):
@@ -1194,13 +1286,39 @@ class TPUBackend(CacheListener):
                 self._invalidate_session("node-remove")
 
     def _queue_node_delta(self, lane: Optional[int], kind: str) -> bool:
-        """A node add/remove as a lane-column delta of the LIVE session.
-        Neither of the port's sessions takes one (the reference's sharded
-        session does): True only when there is nothing device-resident to
-        reconcile."""
+        """Absorb a node add/remove into the LIVE session as a lane-column
+        delta. The encoding has already decided the host half: `lane` is
+        None when the event was structural there (vocab bucket growth,
+        lane space exhausted, node still carrying pods). The session half
+        gates itself (ShardedScanSession's node_join_delta /
+        node_leave_delta return None outside their exactness envelope; the
+        other sessions offer none). True -> the event is fully reconciled;
+        False -> the caller tears the session down (rebuild from the
+        already-mutated encoding is always correct)."""
         if lane is None or not self.delta_patching:
             return False
-        return self._session is None
+        sess = self._session
+        if sess is None:
+            return True  # nothing device-resident; next build sees it
+        if (
+            not hasattr(sess, "node_join_delta")
+            or len(self._deltas) >= self.max_queued_deltas
+        ):
+            return False
+        try:
+            if kind == "node-join":
+                d = sess.node_join_delta(
+                    self.enc.node_slice_cluster(lane), lane)
+            else:
+                d = sess.node_leave_delta(lane)
+        except Exception:  # noqa: BLE001 — rebuild is always correct
+            logger.warning("node delta classification failed; rebuilding",
+                           exc_info=True)
+            return False
+        if d is None:
+            return False
+        self._deltas.append(d)
+        return True
 
     # -- session-delta classification + apply ------------------------------
 
@@ -1298,7 +1416,8 @@ class TPUBackend(CacheListener):
             def attempt(p=p):
                 self._check_dispatch_fault()
                 with self._on_stream():
-                    c = self.enc.device_state(self.device)
+                    c = self._cluster_for_lead(
+                        self.enc.device_state(self.device))
                     out = schedule_pod(c, self._pod_tensors(p), self.weights)
                     ev = self._record_event()
                 if not self._wait_ready(ev, self.watchdog_timeout):
@@ -1338,7 +1457,7 @@ class TPUBackend(CacheListener):
             # same teardown discipline as schedule()
             self._invalidate_session("reevaluate")
             with self._on_stream():
-                c = self.enc.device_state(self.device)
+                c = self._cluster_for_lead(self.enc.device_state(self.device))
             n_nodes = self.enc.n_lanes  # kernel outputs are lane-indexed
             encoded = []
             skipped = set()
@@ -1804,7 +1923,8 @@ class TPUBackend(CacheListener):
             # reference tears the session down first; so does the port)
             self._invalidate_session("template-overflow")
             with self._on_stream():
-                cluster = self.enc.device_state(self.device)
+                cluster = self._cluster_for_lead(
+                    self.enc.device_state(self.device))
                 decisions, _ = schedule_batch_hoisted(
                     cluster, arrays, self.weights
                 )
@@ -1841,12 +1961,11 @@ class TPUBackend(CacheListener):
             self._apply_session_deltas_locked()
             if self._session is None:  # apply failed -> rebuild now
                 self._session = self._build_session()
-        from .metrics import conflict_replays, multipod_conflicts
+        sess = self._session
 
-        decisions: List[int] = []
-        while arrays:
+        def run(batch):
             with self._on_stream():
-                ys = self._session.schedule(arrays)
+                ys = sess.schedule(batch)
                 ev = self._record_event()
             # bound the wait with the watchdog before decoding: the
             # synchronous re-decide path (fault recovery!) must not hang
@@ -1855,29 +1974,9 @@ class TPUBackend(CacheListener):
                 raise DeviceFault(
                     "synchronous dispatch exceeded the watchdog",
                     kind="timeout")
-            ys = self._read_back(ys, ev)
-            got = type(self._session).decisions(ys)
-            stats = getattr(type(self._session), "conflict_stats", None)
-            n_conf, suffix = stats(ys) if stats is not None else (0, None)
-            if n_conf:
-                multipod_conflicts.inc(n_conf)
-            if suffix is None:
-                if n_conf:
-                    conflict_replays.inc(n_conf)
-                decisions.extend(got)
-                break
-            # conflict-SUFFIX contract: keep the prefix and replay exactly
-            # the suffix through the live session (its carry holds the
-            # committed prefix); a batch's first pod never conflicts, so
-            # a suffix of 0 is a kernel invariant violation
-            if suffix <= 0:
-                raise DeviceFault(
-                    "conflict suffix at batch head (kernel invariant "
-                    "violation)", kind="invalid")
-            conflict_replays.inc(len(arrays) - suffix)
-            decisions.extend(got[:suffix])
-            arrays = arrays[suffix:]
-        return decisions
+            return self._read_back(ys, ev)
+
+        return schedule_exact(sess, arrays, run)
 
     def _build_session(self):
         """Span-wrapped _build_session_impl: records the build and pins
@@ -1895,13 +1994,16 @@ class TPUBackend(CacheListener):
             return s
 
     def _build_session_impl(self):
-        """The kernel session (ops/scan.py ScanSession) when the rung and
-        the cluster shape allow it, else the torch hoisted session —
-        identical decisions either way. Every build is counted in
-        scheduler_tpu_session_builds_total{kind, reason}; downgrades are
-        logged."""
+        """The kernel session (ops/scan.py ScanSession; on a mesh
+        ops/sharded_scan.py ShardedScanSession) when the rung and the
+        cluster shape allow it, else the torch hoisted session (on a mesh,
+        on its lead device over the padded cluster) — identical decisions
+        either way. Every build is counted in
+        scheduler_tpu_session_builds_total{kind, reason, shards};
+        downgrades are logged."""
         from .metrics import session_builds
 
+        sh = self._shards_label()
         templates = list(self._known_templates.values())
         with self._on_stream():
             if devtime.enabled():
@@ -1923,21 +2025,24 @@ class TPUBackend(CacheListener):
                         "explain mode: hoisted session instead of the "
                         "kernel session")
                 session_builds.inc(kind="hoisted", reason="explain",
-                                   shards="")
-                return HoistedSession(cluster, templates, self.weights,
+                                   shards=sh)
+                return HoistedSession(self._cluster_for_lead(cluster),
+                                      templates, self.weights,
                                       explain_k=explain_k,
                                       device=self.device)
             # a DEMOTED backend (rung below its top) builds the hoisted
             # session; the probe loop re-promotes and invalidates, so the
             # NEXT build climbs back
             demoted = self.ladder.rung() < self.ladder.top
+            if self.mesh is not None and self.use_kernel:
+                return self._build_mesh_session(cluster, templates, demoted)
             if self.use_kernel and demoted:
                 logger.warning(
                     "ladder-demoted session build: %s instead of the "
                     "kernel session", self.ladder.mode(),
                 )
                 session_builds.inc(kind="hoisted", reason="ladder-demoted",
-                                   shards="")
+                                   shards=sh)
             elif self.use_kernel:
                 try:
                     s = ScanSession(cluster, templates, self.weights,
@@ -1948,19 +2053,56 @@ class TPUBackend(CacheListener):
                         "shape (%s); downgrading to the hoisted session", e,
                     )
                     session_builds.inc(kind="hoisted", reason=e.reason,
-                                       shards="")
+                                       shards=sh)
                 else:
                     s.staging_depth = max(1, self.max_pending)
-                    session_builds.inc(kind="kernel", reason="", shards="")
+                    session_builds.inc(kind="kernel", reason="", shards=sh)
                     return s
             else:
                 session_builds.inc(
                     kind="hoisted",
                     reason=("use_kernel off" if self.device.type == "cuda"
                             else "platform is not cuda"),
-                    shards="")
-            return HoistedSession(cluster, templates, self.weights,
-                                  device=self.device)
+                    shards=sh)
+            return HoistedSession(self._cluster_for_lead(cluster), templates,
+                                  self.weights, device=self.device)
+
+    def _build_mesh_session(self, cluster: Dict, templates: List[Dict],
+                            demoted: bool):
+        """The mesh's session: ShardedScanSession at the kernel rung
+        (session_builds{kind="kernel", reason="mesh-sharded"}), or the
+        hoisted session on the lead device over the padded cluster where
+        the reference takes its GSPMD hoisted session: a demoted ladder
+        ("mesh-ladder-demoted") and a shape the sharded session refuses
+        ("mesh-<reason>"). Called on the backend's stream."""
+        from .metrics import session_builds
+
+        sh = self._shards_label()
+        if demoted:
+            logger.warning("ladder-demoted mesh session build: %s instead "
+                           "of the sharded session", self.ladder.mode())
+            session_builds.inc(kind="hoisted", reason="mesh-ladder-demoted",
+                               shards=sh)
+        else:
+            try:
+                s = ShardedScanSession(cluster, templates, self.weights,
+                                       mesh=self.mesh)
+            except SessionUnsupported as e:
+                logger.warning(
+                    "sharded session unsupported for this workload shape "
+                    "(%s); the mesh rides the hoisted session on its lead "
+                    "device", e)
+                # mesh- prefix: a mesh downgrade is told apart from a
+                # single-device one; slugs stay bounded
+                session_builds.inc(kind="hoisted", reason=f"mesh-{e.reason}",
+                                   shards=sh)
+            else:
+                s.staging_depth = max(1, self.max_pending)
+                session_builds.inc(kind="kernel", reason="mesh-sharded",
+                                   shards=sh)
+                return s
+        return HoistedSession(self._cluster_for_lead(cluster), templates,
+                              self.weights, device=self.device)
 
     # -- helpers -----------------------------------------------------------
 

@@ -124,6 +124,9 @@ def get_flag(name: str) -> bool:
 
 
 # -- mesh / scale-out
+_declare("KTPU_MESH_DEVICES", "int", 0,
+         "local devices to span with the node-axis scoring mesh "
+         "(0/unset = all)")
 _declare("KTPU_NODE_HEADROOM", "float", 0.0,
          "node-axis growth headroom fraction: capacity targets "
          "n*(1+headroom) so node adds land in pre-padded lanes")

@@ -425,11 +425,16 @@ def test_cuda_backend_raises_when_the_kernel_library_fails(monkeypatch):
 
 
 def test_left_out_features_raise(monkeypatch):
-    """The mesh alone still raises. The what-if planner is ported: off by
-    default on the CPU, on with KTPU_WHATIF=1, and gang_feasible then
-    answers a bool."""
-    with pytest.raises(NotImplementedError):
+    """The mesh is ported: a parallel/sharded.py Mesh is taken (its lead
+    device is the backend's), anything else raises TypeError. The what-if
+    planner is ported: off by default on the CPU, on with KTPU_WHATIF=1,
+    and gang_feasible then answers a bool."""
+    from kubernetes_tpu_torch.parallel.sharded import make_mesh
+
+    with pytest.raises(TypeError):
         TPUBackend(device="cpu", mesh=object())
+    mb = TPUBackend(device="cpu", mesh=make_mesh(device="cpu", n_devices=2))
+    assert mb.mesh.nsh == 2 and mb.device.type == "cpu"
     monkeypatch.delenv("KTPU_WHATIF", raising=False)
     b = TPUBackend(device="cpu")
     assert not b.whatif and not b.whatif_enabled()

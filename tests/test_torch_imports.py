@@ -128,6 +128,18 @@ def test_matrix_slice_modules_are_checked():
         assert ".".join(Path(rel).with_suffix("").parts) in PORT_MODULES
 
 
+def test_mesh_slice_modules_are_checked():
+    """The mesh's modules (parallel/, the sharded session) are among the
+    sources the two checks above read, and import with jax blocked."""
+    for rel in ("parallel/__init__.py", "parallel/partition.py",
+                "parallel/sharded.py", "ops/sharded_scan.py"):
+        rel = f"kubernetes_tpu_torch/{rel}"
+        assert rel in PORT_SOURCES
+        mod = ".".join(Path(rel).with_suffix("").parts).removesuffix(
+            ".__init__")
+        assert mod in PORT_MODULES
+
+
 def test_compilation_cache_moves_the_build_dir(tmp_path, monkeypatch):
     """enable_persistent_cache points ops/build.py at its directory (the
     argument, else KTPU_COMPILATION_CACHE, else build/torch_kernels), where

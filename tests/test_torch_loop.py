@@ -32,8 +32,9 @@ map:
   the faulted batch, the probe re-promotes to the kernel rung, and a
   foreign pod bound mid-run reaches the live session as a delta.
 
-Alongside: the port's harness and factory raise for the seam that is not
-ported (the mesh); `Workload(wire=True)` runs (tests/test_torch_rows.py).
+Alongside: the port's harness and factory build the mesh backend where a
+row or profile asks for one (tests/test_torch_mesh_scaleout.py holds its
+bindings); `Workload(wire=True)` runs (tests/test_torch_rows.py).
 
 The reference backend reads its encoding's device state through private
 copies (tests/test_torch_backend.py `_private_device_state`), since the
@@ -375,14 +376,19 @@ def test_unported_seams_raise():
     )
     from kubernetes_tpu_torch.scheduler.factory import create_scheduler
 
-    with pytest.raises(NotImplementedError):
-        run_workload(Workload("mesh", num_nodes=2, mesh_devices=2),
-                     device="cpu")
+    # the seams that raised before the mesh was ported now build it
+    r = run_workload(Workload("mesh", num_nodes=2, num_pods=2,
+                              mesh_devices=2), device="cpu")
+    assert r.mesh_shards == 2 and r.num_bound == 2
     cs = Clientset(APIServer())
     cfg = default_configuration()
     cfg.profiles[0].mesh_devices = 2
-    with pytest.raises(NotImplementedError):
-        create_scheduler(cs, SharedInformerFactory(cs), cfg, device="cpu")
+    sched = create_scheduler(cs, SharedInformerFactory(cs), cfg,
+                             device="cpu")
+    try:
+        assert sched.tpu.mesh.nsh == 2 and sched.tpu.device.type == "cpu"
+    finally:
+        sched.shutdown()
     sched = create_scheduler(cs, SharedInformerFactory(cs), device="cpu")
     try:
         assert sched.tpu.device.type == "cpu"

@@ -2,11 +2,11 @@
 scan_full kernel run here through the plain PyTorch version on the CPU)
 against the reference: out rows [:4, :n] (row 3 the conflict-suffix
 flag) and every carry after every batch equal PallasSession's multipod
-kernel in interpret mode; `schedule_exact` (the suffix replay loop)
-decides exactly as one pod per step; the two directed races of
-tests/test_pipeline_parity.py (last slot, overtake) conflict and replay
-as the reference does; and the host halves (conflict_stats, the
-multipod_k resolution) follow the reference's rules. The affinity-term
+kernel in interpret mode; `schedule_exact` (the backend's suffix replay
+loop, scheduler/tpu_backend.py) decides exactly as one pod per step; the
+two directed races of tests/test_pipeline_parity.py (last slot,
+overtake) conflict and replay as the reference does; and the host halves
+(conflict_stats, the multipod_k resolution) follow the reference's rules. The affinity-term
 cases run the same checks in tests/test_torch_multipod_terms.py (a file
 of its own, so that the two halves of the interpret-mode compiles run on
 two workers)."""
@@ -23,7 +23,9 @@ from kubernetes_tpu.scheduler.tpu_backend import TPUBackend
 from kubernetes_tpu_torch.models.encoding import cluster_from_numpy
 from kubernetes_tpu_torch.ops import scan_kernel
 from kubernetes_tpu_torch.ops.kernel import multipod_k
-from kubernetes_tpu_torch.ops.scan import ScanSession, schedule_exact
+from kubernetes_tpu_torch.ops.scan import ScanSession
+from kubernetes_tpu_torch.scheduler.degradation import DeviceFault
+from kubernetes_tpu_torch.scheduler.tpu_backend import schedule_exact
 
 from .test_torch_prologue import CASES, build_case
 from .util import make_node, make_pod
@@ -117,8 +119,10 @@ def test_schedule_exact_refuses_suffix_at_batch_head():
         def conflict_stats(ys):
             return 1, 0
 
-    with pytest.raises(RuntimeError):
+    # the backend's loop raises its device fault (kind "invalid")
+    with pytest.raises(DeviceFault) as err:
         schedule_exact(HeadConflict(), [{}, {}])
+    assert err.value.kind == "invalid"
 
 
 def _encode(be, pods):
