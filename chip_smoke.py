@@ -101,7 +101,8 @@ Phases (each raises on failure; the script then exits non-zero):
    scripts/probe_pallas.py, probe_pallas2.py and probe_fixed_cost.py):
    each kernel == its plain version, probe_scan's first decisions 0..7,
    the fixed launch cost (first and steady launches, wall and CUDA-event
-   time);
+   time); int64_probe and torch.add(ones, a, alpha=2) each alone, by a
+   CUDA graph of 200 launches replayed 5 times in turns (the medians);
 11. the hoisted session (`HoistedSession`, plain torch: a Python loop of
    per-pod steps, no kernel of its own):
    a. from the encoding phase 4's session started from, the first 512
@@ -183,9 +184,11 @@ Phases (each raises on failure; the script then exits non-zero):
    the backend's launches, the kernel share of the window and
    loop_kernel_ratio; the kernels' line gains `loop_launches`.
 
-14. the device preemption planner (`ops/whatif.py`, its walk the CUDA
-   kernel of `ops/csrc/whatif.cu`, and the device rung of
-   `scheduler/preemption_device.py`), the what-if on by its default:
+14. the device preemption planner (`ops/whatif.py`; the what-if's
+   kernels of `ops/csrc/whatif.cu`: the context kernel once a context and
+   template, the minimum-structure kernel and the walk once a preemptor;
+   the device rung of `scheduler/preemption_device.py`), the what-if on by
+   its default:
    a-c. Preemption-500n-500hi, Preemption-PDB-500n-500hi and
       Preemption-IPA-500n-500hi (scripts/bench_configs.py:131-137,
       :229-237, :245-255: 500 nodes saturated by 2000 priority-1 pods,
@@ -196,20 +199,34 @@ Phases (each raises on failure; the script then exits non-zero):
       priority 1, every preemptor planned on the device rung (no what-if
       fallback but the planner's node-skew guard, a pod re-planned while
       victims' delete echoes move the encoding), the ladder on its top
-      rung with 0 faults; the what-if kernel's launches counted from 0
-      over each call, its first 64 launches held to the plain walk;
+      rung with 0 faults; the what-if and context kernels' launches
+      counted from 0 over each call (the minimum-structure kernel's: 0,
+      no preemptor has a spread constraint), the first 64 of each held to
+      the plain version; 14a's first launches timed (CUDA graph), == plain,
+      against both bounds (what the launches read and write for their
+      dims and data; a walk-only kernel's);
    d. scripts/probe_preemption.py's sweep (50x2, 200x4, 500x4, 500x8 and
       the affinity preemptors at 50x2, 200x4; waves of 8, preemptors
       asking twice the probe's request so that each needs an eviction) on
       fresh backends on the card: the device, fast and oracle plans
-      agree; ms per preemptor of each rung, the kernel alone (CUDA graph)
-      against its bound and the plain walk, CUDA launches per what-if
-      (`torch.profiler`), context builds; every what-if launch of the
-      sweep held to the plain walk on the card;
+      agree; ms per preemptor of each rung, the kernels alone (CUDA graph)
+      against their bounds and the plain version, context builds; CUDA
+      launches and the card's busy ms per what-if at 500x8 and at the
+      affinity preemptors' 200x4 (`torch.profiler`, in a fresh process:
+      the torch-prologue design before the kernels took the prologue in
+      had 54 launches and 0.10-0.17 ms); every what-if and context launch
+      of the sweep held to the plain version on the card;
    e. raise-whatif on a wave's first preemptor: it falls to the fast rung
       on the same books, no victim claimed twice, no session rebuild;
    f. `gang_feasible` on the card against the same reductions on the CPU
-      at several k.
+      at several k;
+   g. directed what-if cases (plain, spread, affinity, first-pod-escape
+      and host-port preemptors over 10- and 600-node clusters; L 4 / 8 /
+      16, gang slots, nominated pods, claimed drains): the context kernel
+      and the what-if == the plain version, the minimum-structure kernel
+      launched exactly for the spread preemptor; at 600 nodes each kind's
+      what-if, and the minimum-structure kernel alone, timed against
+      their bounds.
 
 15. the rest of the scheduler_perf matrix on the card, after every earlier
    session is released:
@@ -271,13 +288,13 @@ Phases (each raises on failure; the script then exits non-zero):
       and a `schedule_many` replay; pods/s and latency of both runs;
    d. the three Preemption rows' clusters, their first 64 preemptors
       planned by the device rung on an 8-shard backend and a
-      single-device one: equal plans; the mesh's what-if launches held to
-      the plain walk;
+      single-device one: equal plans; the mesh's what-if and context
+      launches held to the plain version;
    e. an explain build and a ladder-demoted build of the mesh backend:
       HoistedSessions on the lead device, counted under their reasons,
       deciding 512 of 16a's pods as 16a did.
-   The kernels' line's scan_delta and whatif entries gain
-   `mesh_launches` (phase 16's own, which must not be 0).
+   The kernels' line's scan_delta, whatif and whatif_context entries
+   gain `mesh_launches` (phase 16's own, which must not be 0).
 
 It prints the kernels' line, a `{"hoisted_session": ...}` line with phase
 11's numbers, a `{"backend": ...}` line with phase 12's, a `{"loop": ...}`
@@ -1667,6 +1684,42 @@ def graph_ms(fn, runs=20):
     return e0.elapsed_time(e1) / runs
 
 
+INT64_GRAPH_RUNS = 200
+
+
+def graph_turns(fa, fb, runs, reps=5):
+    """Device ms of one fa() and one fb() launch: each's `runs` calls
+    captured in a CUDA graph, the two graphs replayed `reps` times each in
+    turns (a, b, b, a, ...) between CUDA events -> (a's ms per launch a
+    replay, b's)."""
+    import torch
+
+    graphs = []
+    for fn in (fa, fb):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(runs):
+                fn()
+        graphs.append(g)
+    torch.cuda.synchronize()
+    times = ([], [])
+    for rep in range(reps):
+        for i in ((0, 1) if rep % 2 == 0 else (1, 0)):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            graphs[i].replay()
+            e1.record()
+            torch.cuda.synchronize()
+            times[i].append(e0.elapsed_time(e1) / runs)
+    return times
+
+
 def delta_cases(sk, sess, carry, node, payload, in_order, label):
     """Phase 9's order-free cases on one cell, each a flush by the bare
     kernel and by carry_delta_reference on copies of `carry` (not
@@ -1982,15 +2035,28 @@ def phase_probes(gpu):
     err = int((out - ref).abs().max())
     if err:
         raise AssertionError(f"10: probe_int64 != plain version ({err})")
-    ms = statistics.median(event_ms(lambda: ps.probe_int64(a)))
+    call_ms = statistics.median(event_ms(lambda: ps.probe_int64(a)))
     ones = torch.ones_like(a)
-    library_ms = statistics.median(
+    library_call_ms = statistics.median(
         event_ms(lambda: torch.add(ones, a, alpha=2)))
+    # the kernel and the library call alone: each a CUDA graph of
+    # INT64_GRAPH_RUNS launches, replayed 5 times in turns
+    kernel_runs, library_runs = graph_turns(
+        lambda: ps.probe_int64(a), lambda: torch.add(ones, a, alpha=2),
+        INT64_GRAPH_RUNS)
+    ms, library_ms = (statistics.median(x) for x in (kernel_runs,
+                                                       library_runs))
     nb = add("probe_int64", "scripts/probe_pallas.py:69", n64, err, ms,
              plain_ms, roofline(2 * a.numel() * 8, 2 * a.numel()),
-             library_ms=library_ms)
-    log(f"phase 10: probe_int64 == plain ({out[0, :3].tolist()}); {ms:.4f} "
-        f"ms, torch.add(1, a, alpha=2) {library_ms:.4f} ms, plain version "
+             library_ms=library_ms, runs=kernel_runs,
+             library_runs=library_runs, call_ms=call_ms,
+             library_call_ms=library_call_ms)
+    log(f"phase 10: probe_int64 == plain ({out[0, :3].tolist()}); {ms:.5f} "
+        f"ms, torch.add(1, a, alpha=2) {library_ms:.5f} ms (medians of 5 "
+        f"replays of a {INT64_GRAPH_RUNS}-launch CUDA graph: "
+        f"{[round(x, 5) for x in kernel_runs]}, "
+        f"{[round(x, 5) for x in library_runs]}); one call by CUDA events "
+        f"{call_ms:.4f} / {library_call_ms:.4f} ms; plain version "
         f"{plain_ms:.3f} ms, bound {nb[0]:.7f} ms by {nb[1]} [{gpu}]")
 
     # probe_layouts k1-k3 (scripts/probe_pallas2.py:14)
@@ -3668,94 +3734,619 @@ WHATIF_SOURCE = "kubernetes_tpu_torch/ops/csrc/whatif.cu"
 
 
 class WhatifWatch:
-    """ops.whatif's `whatif_walk` wrapped for one phase: every call
-    counted, the first `keep` calls' inputs and outputs kept (None: all),
-    so that each can be held to the plain walk on the same inputs."""
+    """ops.whatif's `whatif_device` and `whatif_context` wrapped for one
+    phase: every what-if counted, the first `keep` calls of each kept with
+    their inputs and outputs (None: all), so that each can be held to its
+    plain version on the same inputs. A node-alloc delta may patch a live
+    session's alloc rows in place after the call: the kept call keeps a
+    copy of them."""
 
     def __init__(self, keep=None):
         from kubernetes_tpu_torch.ops import whatif as wi
 
-        self.calls, self.n, self.keep = [], 0, keep
-        self._mod, self._orig = wi, wi.whatif_walk
+        self.calls, self.contexts, self.n, self.keep = [], [], 0, keep
+        self._mod = wi
+        self._orig = run, context = wi.whatif_device, wi.whatif_context
         watch = self
 
-        def walk(p, v, nom, has_nom, dyn_ipa):
-            out = watch._orig(p, v, nom, has_nom=has_nom, dyn_ipa=dyn_ipa)
+        def kept(tab):
+            return dict(tab, alloc=tab["alloc"].clone(),
+                        allowed=tab["allowed"].clone())
+
+        def device(tab, buf, d):
+            out = run(tab, buf, d)
             watch.n += 1
             if watch.keep is None or len(watch.calls) < watch.keep:
-                watch.calls.append(((p, v, nom, has_nom, dyn_ipa), out))
+                watch.calls.append(((kept(tab), buf, d), out))
             return out
 
-        wi.whatif_walk = walk
+        def ctx(tab, d):
+            inv = context(tab, d)
+            if watch.keep is None or len(watch.contexts) < watch.keep:
+                watch.contexts.append(((kept(tab), d), inv))
+            return inv
+
+        wi.whatif_device, wi.whatif_context = device, ctx
 
     def close(self):
-        self._mod.whatif_walk = self._orig
+        self._mod.whatif_device, self._mod.whatif_context = self._orig
 
 
-def walk_errs(calls):
-    """Each kept what-if launch's outputs against `whatif_walk_reference`
-    on the same inputs on the card: the count of differing bools."""
+def walk_errs(calls, contexts=()):
+    """Each kept what-if launch's output against `whatif_plain`, and each
+    kept context launch's invariants against `context_reference`, on the
+    same inputs on the card: the count of differing values."""
     import torch
-    from kubernetes_tpu_torch.ops.whatif_kernel import whatif_walk_reference
+    from kubernetes_tpu_torch.ops import whatif_kernel as wk
 
     torch.cuda.synchronize()
     err = 0
-    for args, out in calls:
-        if out["base"].device.type != "cuda":
+    for (tab, buf, d), out in calls:
+        if out.device.type != "cuda":
             raise AssertionError("a what-if launch ran off the card")
-        ref = whatif_walk_reference(*args)
-        err += sum(int((out[k] != ref[k]).sum())
-                   for k in ("fits_now", "base", "victims"))
+        err += int((out != wk.whatif_plain(tab, buf, d)).sum())
+    for (tab, d), inv in contexts:
+        ref = wk.context_reference(tab, d)
+        err += sum(int((inv[k] != ref[k]).sum()) for k in ref)
     return err
 
 
+# the walk-only kernel's inputs (the design in which a torch prologue fed
+# a walk kernel): the prologue's tensors, the victim slots, the nominated
+# aggregates
+WALK_PROLOGUE = ("free0", "cnt0", "allowed", "req", "chk", "gate", "pts_sh",
+                 "pts_mn", "reg_at", "pts_chk", "self_m", "f_skew")
+WALK_PROLOGUE_IPA = ("anti_eff", "anti_chk", "aff_eff", "aff_key_on",
+                     "aff_valid", "aff_total", "aff_keys", "has_aff",
+                     "aff_all_keys", "self_match_all")
+class Reads:
+    """The distinct elements of each tensor a launch reads or writes:
+    `at` adds elements by index (broadcast), `whole` a whole tensor;
+    `nbytes` counts each element once."""
+
+    def __init__(self):
+        self.lin, self.size, self.full = {}, {}, {}
+
+    def at(self, name, t, *idx):
+        import torch
+
+        idx = torch.broadcast_tensors(*(
+            torch.as_tensor(i, device=t.device).long() for i in idx))
+        lin = sum(i * s for i, s in zip(idx, t.stride()))
+        self.lin.setdefault(name, []).append(lin.reshape(-1))
+        self.size[name] = t.element_size()
+
+    def whole(self, name, t):
+        self.full[name] = t.nbytes
+
+    def nbytes(self):
+        import torch
+
+        return sum(self.full.values()) + sum(
+            int(torch.unique(torch.cat(v)).numel()) * self.size[k]
+            for k, v in self.lin.items() if k not in self.full)
+
+
+def whatif_reads(tab, pk, d, p, out):
+    """The bytes one what-if's walk launch reads and writes for this
+    launch's dims and data, each element once (the kernel's own order):
+    every lane reads gate0 and its slots' valid flags and writes its
+    output row; a lane whose invariant gate is open reads its prologue
+    (the pod-count word; the checked resource columns of alloc, requested
+    and the claimed drain; with a valid spread constraint the key flags
+    of the valid constraints and, at each checked one, its pair and the
+    pair's shared count, claimed drain and registration, and the minimum
+    structure; with the IPA terms the key flags of the valid anti terms
+    and, at each checked one, its pair, count and claimed drain; the
+    nominated pods' values only with nominated pods); a lane whose whole
+    gate is open also reads the affinity terms (their key flags, pairs,
+    counts and drains; the totals) and its L slots' rows at the checked
+    words only."""
+    import torch
+
+    rd = Reads()
+    dev = out.device
+    has_nom, dyn_ipa, any_f = (bool(d[k]) for k in ("has_nom", "dyn_ipa",
+                                                    "any_f"))
+    g0, g = tab["gate0"], p["gate"]
+    o0, o1 = g0.nonzero()[:, 0], g.nonzero()[:, 0]
+    n0, n1 = o0[:, None], o1[:, None]
+    ls = torch.arange(d["L"], device=dev)[None, :]
+    nom = has_nom
+    for k, t in (("gate0", g0), ("v_valid", pk["v_valid"]), ("out", out),
+                 ("req_check", tab["req_check"]),
+                 ("req_has_any", tab["req_has_any"])):
+        rd.whole(k, t)
+    ci = p["chk"].nonzero()[:, 0][None, :]
+    rd.at("req", tab["req"], ci)
+    for k, t in (("alloc", tab["alloc"]), ("requested", tab["requested"]),
+                 ("pre_req", pk["pre_req"])) + (
+            (("nom_req", pk["nom_req"]),) if nom else ()):
+        rd.at(k, t, n0, ci)
+    for k, t in (("pod_count", tab["pod_count"]), ("pre_cnt", pk["pre_cnt"]),
+                 ("allowed", tab["allowed"])) + (
+            (("nom_cnt", pk["nom_cnt"]),) if nom else ()):
+        rd.at(k, t, o0)
+    rd.at("v_req", pk["v_req"], n1[:, :, None], ls[:, :, None],
+          ci[:, None, :])
+    rd.at("v_cnt", pk["v_cnt"], n1, ls)
+    if any_f:
+        rd.whole("f_valid", tab["f_valid"])
+        rd.at("f_key_on", tab["f_key_on"], n0,
+              tab["f_valid"].nonzero()[:, 0][None, :])
+        ni, cc = (p["pts_chk"] & g0[:, None]).nonzero(as_tuple=True)
+        pair = tab["f_pair_cn"][ni, cc].long()
+        rd.at("f_pair_cn", tab["f_pair_cn"], ni, cc)
+        for k, t in (("shared0", tab["shared0"]),
+                     ("pre_shared", pk["pre_shared"]),
+                     ("f_reg_real", tab["f_reg_real"])):
+            rd.at(k, t, cc, pair)
+        for k in ("f_self_match", "f_skew"):
+            rd.at(k, tab[k], cc)
+        rd.at("mins", torch.empty((d["C"], 3), dtype=torch.int64,
+                                  device=dev), cc[:, None],
+              torch.arange(3, device=dev)[None, :])
+        if nom:
+            rd.at("nom_mfs", pk["nom_mfs"], ni, cc)
+        ni, cc = (p["pts_chk"] & g[:, None]).nonzero(as_tuple=True)
+        rd.at("v_mfs", pk["v_mfs"], ni[:, None], ls, cc[:, None])
+    if dyn_ipa:
+        rd.whole("anti_valid", tab["anti_valid"])
+        rd.at("anti_key_on", tab["anti_key_on"], n0,
+              tab["anti_valid"].nonzero()[:, 0][None, :])
+        ni, tt = (p["anti_chk"] & g0[:, None]).nonzero(as_tuple=True)
+        key = tab["anti_key"][tt].long()
+        rd.at("anti_key", tab["anti_key"], tt)
+        rd.at("pok", tab["pok"], ni, key)
+        rd.at("anti0", tab["anti0"], ni, tt)
+        rd.at("pre_anti", pk["pre_anti"], tt, tab["pok"][ni, key].long())
+        if nom:
+            rd.at("nom_manti", pk["nom_manti"], ni, tt)
+        ni, tt = (p["anti_chk"] & g[:, None]).nonzero(as_tuple=True)
+        rd.at("v_manti", pk["v_manti"], ni[:, None], ls, tt[:, None])
+        rd.whole("has_aff", tab["has_aff"])
+        if bool(tab["has_aff"]) and len(o1):
+            for k, t in (("aff_valid", tab["aff_valid"]),
+                         ("self_match_all", tab["self_match_all"]),
+                         ("atot0", tab["atot0"]),
+                         ("pre_atot", pk["pre_atot"])):
+                rd.whole(k, t)
+            tv = tab["aff_valid"].nonzero()[:, 0][None, :]
+            key = tab["aff_key"][tv].long()
+            rd.at("aff_key", tab["aff_key"], tv)
+            rd.at("nkey", tab["nkey"], n1, key)
+            rd.at("pok", tab["pok"], n1, key)
+            rd.at("aff0", tab["aff0"], n1, tv)
+            rd.at("pre_aff", pk["pre_aff"], tab["pok"][n1, key].long())
+            rd.at("aff_all_keys", tab["aff_all_keys"], o1)
+            if nom:
+                rd.at("nom_mall", pk["nom_mall"], o1)
+            rd.at("v_mall", pk["v_mall"], n1, ls)
+    return rd.nbytes()
+
+
+def mins_bound(tab, d):
+    """Least time for the minimum-structure kernel: shared0, the claimed
+    drain and the registration flags of every pair read once, [C, 3]
+    written; a few operations per pair of each constraint."""
+    nbytes = sum(tab[k].nbytes for k in ("shared0", "f_reg_real")) \
+        + d["C"] * d["VNP"] * 4 + 24 * d["C"]
+    return roofline(nbytes, 4 * d["C"] * d["VNP"])
+
+
 def whatif_bound(call):
-    """Least time for one what-if launch: each tensor the kernel reads
-    read once, its outputs written once; the operations are the
-    feasibility passes this launch's data needs (fits_now, base and one
-    per valid slot, twice with nominated pods), each a compare per
-    checked resource, a few per PTS constraint and IPA term."""
+    """Least time for one what-if, two ways: (the redesigned launches'
+    bound, the walk-only bound), each (ms, "bytes" or "operations", bytes,
+    ops). The redesign's bytes: what its launches read and write for
+    this launch's dims and data (`whatif_reads`; with a valid spread
+    constraint also `mins_bound`'s). The walk's: a walk-only kernel's
+    inputs (the torch prologue's tensors, the victim slots and nominated
+    aggregates) and outputs. The operations, both: the feasibility passes
+    this launch's data needs (fits_now, base and one per valid slot on a
+    node whose gate is open, twice with nominated pods), each a compare
+    per checked resource, a few per PTS constraint and IPA term; the
+    running eviction's sums; the redesign's also its minimum structure."""
     from kubernetes_tpu_torch.ops import whatif_kernel as wk
 
-    (p, v, nom, has_nom, dyn_ipa), out = call
-    d = wk.shapes(p, v)
-    named = wk._named(p, v, nom)
-    specs = wk._specs(d, dyn_ipa, has_nom)
-    nbytes = sum(named[k].nbytes for k in specs) + sum(
-        t.nbytes for t in out.values())
-    passes = (2 * d["N"] + int(v["valid"].sum())) * (2 if has_nom else 1)
-    per_pass = 3 + 3 * int(p["chk"].sum()) + 8 * d["C"] + (
-        4 * d["TAA"] + 4 * d["TA"] + 4 if dyn_ipa else 0)
-    # the running eviction: the sum over all L slots, and the add-back
-    per_slot = d["R"] + 1 + d["C"] + d["TAA"] + 1
-    ops = passes * per_pass + per_slot * (d["N"] * d["L"]
-                                          + int(v["valid"].sum()))
-    return roofline(nbytes, ops)
+    (tab, buf, d), out = call
+    has_nom = bool(d["has_nom"])
+    pk = wk.unpack(buf, d)
+    dyn_ipa = bool(d["dyn_ipa"])
+    p = wk.lane_prologue(tab, pk, dyn_ipa)
+    n, L, r, c = d["N"], d["L"], d["R"], d["C"]
+    taa, ta = d["TAA"], d["TA"]
+    open_ = p["gate"]
+    n1 = int(open_.sum())
+    valid = int((pk["v_valid"] & open_[:, None]).sum())
+    passes = (2 * n1 + valid) * (2 if has_nom else 1)
+    per_pass = 3 + 3 * int(p["chk"].sum()) + 8 * c + (
+        4 * taa + 4 * ta + 4 if dyn_ipa else 0)
+    per_slot = r + 1 + c + taa + 1
+    ops = passes * per_pass + per_slot * (n1 * L + valid)
+    nom_bytes = sum(pk[f"nom_{k}"].nbytes
+                    for k in ("req", "cnt", "mfs", "manti", "mall"))
+    walk_bytes = sum(p[k].nbytes for k in WALK_PROLOGUE + (
+        WALK_PROLOGUE_IPA if dyn_ipa else ())) + sum(
+        pk[f"v_{k}"].nbytes for k in ("valid", "cnt", "req", "mfs", "manti",
+                                      "mall")) \
+        + (nom_bytes if has_nom else 0) + out.nbytes
+    new_bytes, new_ops = whatif_reads(tab, pk, d, p, out), ops
+    if d["any_f"]:
+        _, _, mb, mo = mins_bound(tab, d)
+        new_bytes, new_ops = new_bytes + mb, new_ops + mo
+    return roofline(new_bytes, new_ops), roofline(walk_bytes, ops)
 
 
 def time_whatif(call):
-    """(kernel ms by a CUDA graph of 20 launches, plain ms by CUDA events
-    over 5 calls, bound) for one kept what-if launch."""
+    """One kept what-if launch, held to the plain version: ms by a CUDA
+    graph of 20 launches (after one graph to warm), the plain version's
+    ms by CUDA events over 5 calls, and both bounds."""
     import torch
     from kubernetes_tpu_torch.ops import whatif_kernel as wk
 
-    (p, v, nom, has_nom, dyn_ipa), _ = call
-    ms = graph_ms(lambda: wk.whatif_walk(p, v, nom, has_nom=has_nom,
-                                          dyn_ipa=dyn_ipa))
-    wk.whatif_walk_reference(p, v, nom, has_nom, dyn_ipa)
+    (tab, buf, d), _ = call
+    # a first graph in the process runs cold (10-30 % over the same graph
+    # again): warm up once
+    graph_ms(lambda: wk.whatif_device(tab, buf, d))
+    if not torch.equal(wk.whatif_device(tab, buf, d),
+                       wk.whatif_plain(tab, buf, d)):
+        raise AssertionError("what-if != the plain version")
+    ms = graph_ms(lambda: wk.whatif_device(tab, buf, d))
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     for _ in range(5):
-        wk.whatif_walk_reference(p, v, nom, has_nom, dyn_ipa)
+        wk.whatif_plain(tab, buf, d)
     e1.record()
     torch.cuda.synchronize()
-    bound_ms, bound_by, nbytes, ops = whatif_bound(call)
-    d = wk.shapes(p, v)
+    (bound_ms, bound_by, nbytes, ops), walk = whatif_bound(call)
+    shape = {k: d[k] for k in ("N", "L", "R", "C", "TAA", "TA", "VNP", "kw",
+                               "any_f")}
     return {"ms": ms, "plain_ms": e0.elapsed_time(e1) / 5,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "ops": ops, "shape": dict(d, has_nom=has_nom,
-                                      dyn_ipa=dyn_ipa)}
+            "ops": ops, "walk_bound_ms": walk[0], "walk_bound_by": walk[1],
+            "walk_bytes": walk[2],
+            "shape": dict(shape, has_nom=bool(d["has_nom"]),
+                          dyn_ipa=bool(d["dyn_ipa"]))}
+
+
+def time_mins(tab, buf, d):
+    """The minimum-structure kernel alone on one preemptor's inputs, held
+    to `mins_reference`: ms by a CUDA graph of 20 launches (after one to
+    warm), the plain version's by CUDA events over 5 calls, its bound."""
+    import torch
+    from kubernetes_tpu_torch.ops import whatif_kernel as wk
+
+    graph_ms(lambda: wk.whatif_mins(tab, buf, d))
+    if not torch.equal(wk.whatif_mins(tab, buf, d),
+                       wk.mins_reference(tab, wk.unpack(buf, d))):
+        raise AssertionError("what-if minimum structure != plain")
+    ms = graph_ms(lambda: wk.whatif_mins(tab, buf, d))
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(5):
+        wk.mins_reference(tab, wk.unpack(buf, d))
+    e1.record()
+    torch.cuda.synchronize()
+    bound_ms, bound_by, nbytes, ops = mins_bound(tab, d)
+    return {"ms": ms, "plain_ms": e0.elapsed_time(e1) / 5,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops, "shape": {k: d[k] for k in ("C", "VNP")}}
+
+
+def context_reads(tab, d, inv):
+    """The bytes the context kernel reads and writes, each element once
+    (the kernel's own order): the same-key flags and the f_cnt rows they
+    select; static_mask; under dyn_ports, for each node still open, each
+    valid wanted port's holders until the first conflict; under dyn_ipa,
+    the existing pods' anti terms of each node still open until the first
+    that fails it, the pairs and the selected count rows of the
+    preemptor's anti and affinity terms, their static counts, the
+    matches-all totals; the invariants written."""
+    import torch
+
+    rd = Reads()
+    dev = tab["alloc"].device
+    vnp, tj = d["VNP"], d["tj"]
+    for k in ("static_mask", "f_same_key"):
+        rd.whole(k, tab[k])
+    for k, t in inv.items():
+        rd.whole(k, t)
+    rows = tab["f_same_key"].any(dim=0).nonzero()[:, 0]
+    rd.at("f_cnt", tab["f_cnt"], rows[:, None],
+          torch.arange(vnp, device=dev)[None, :])
+    g = tab["static_mask"].clone()
+    if d["dyn_ports"]:
+        rd.whole("want_valid", tab["want_valid"])
+        for q in tab["want_valid"].nonzero()[:, 0].tolist():
+            idx = g.nonzero()[:, 0]
+            pr = int(tab["want_pair"][q])
+            rd.at("want_wild", tab["want_wild"], q)
+            rd.at("want_pair", tab["want_pair"], q)
+            if bool(tab["want_wild"][q]):
+                rd.at("cp_any", tab["cp_any"], idx, pr)
+                hit = tab["cp_any"][idx, pr] > 0
+            else:
+                tr = int(tab["want_triple"][q])
+                rd.at("cp_wild", tab["cp_wild"], idx, pr)
+                hit = tab["cp_wild"][idx, pr] > 0
+                rd.at("want_triple", tab["want_triple"], q)
+                rd.at("cp_trip", tab["cp_trip"], idx[~hit], tr)
+                hit = hit | (tab["cp_trip"][idx, tr] > 0)
+            g[idx[hit]] = False
+    if d["dyn_ipa"]:
+        pok, nkey, u_cnt = tab["pok"], tab["nkey"], tab["u_cnt"]
+        idx = g.nonzero()[:, 0]
+        rd.at("fail_existing", tab["fail_existing"], idx)
+        idx = idx[~tab["fail_existing"][idx]]
+        us, ts = tab["m_anti"][:, :, tj].nonzero(as_tuple=True)
+        if len(idx):
+            rd.at("m_anti", tab["m_anti"],
+                  torch.arange(d["U"], device=dev)[:, None],
+                  torch.arange(d["TAA"], device=dev)[None, :], tj)
+        keys = tab["kaa_all"][us, ts].long()[None, :]
+        rd.at("kaa_all", tab["kaa_all"], us, ts)
+        nn = idx[:, None].expand(-1, keys.shape[1])
+        kk = keys.expand(len(idx), -1)
+        on = nkey[nn, kk]
+        pr = pok[nn, kk].long()
+        hit = on & (u_cnt[us[None, :].expand_as(pr), pr] > 0)
+        first = (hit.long().cumsum(dim=1) - hit.long()) == 0
+        rd.at("nkey", nkey, nn[first], kk[first])
+        m = first & on
+        rd.at("pok", pok, nn[m], kk[m])
+        rd.at("u_cnt", u_cnt, us[None, :].expand_as(pr)[m], pr[m])
+        nall = torch.arange(d["N"], device=dev)[:, None]
+        for kind, key_t, cnt_k in (("anti", "anti_key", "anti_cnt_n"),
+                                   ("aff", "aff_key", "aff_cnt_n")):
+            rd.whole(key_t, tab[key_t])
+            rd.whole(cnt_k, tab[cnt_k])
+            key = tab[key_t].long()[None, :]
+            rd.at("pok", pok, nall, key)
+            pair = pok[nall, key].long()                   # [N, T]
+            if kind == "anti":
+                rd.at("m_anti", tab["m_anti"], tj,
+                      torch.arange(d["TAA"], device=dev)[:, None],
+                      torch.arange(d["U"], device=dev)[None, :])
+                sel = tab["m_anti"][tj]                    # [TAA, U]
+                t_, u_ = sel.nonzero(as_tuple=True)
+                rd.at("u_cnt", u_cnt, u_[None, :], pair[:, t_])
+            else:
+                rd.whole("match_all", tab["match_all"])
+                u_ = tab["match_all"].nonzero()[:, 0]
+                rd.at("u_cnt", u_cnt, u_[None, :, None], pair[:, None, :])
+        rd.whole("aff_valid", tab["aff_valid"])
+        rd.whole("aff_total", tab["aff_total"])
+        u_ = tab["match_all"].nonzero()[:, 0]
+        tv = tab["aff_valid"].nonzero()[:, 0]
+        rd.at("k_cnt", tab["k_cnt"], u_[:, None],
+              tab["aff_key"][tv].long()[None, :])
+    return rd.nbytes()
+
+
+def time_context(call):
+    """One kept context launch: ms by a CUDA graph of 20 launches (after
+    one to warm), the plain version's by CUDA events over 5 calls, and its
+    bound (`context_reads`' bytes; a few operations per same-key term,
+    host port, existing anti term and count product)."""
+    import torch
+    from kubernetes_tpu_torch.ops import whatif_kernel as wk
+
+    (tab, d), inv = call
+    graph_ms(lambda: wk.whatif_context(tab, d))  # warm, as time_whatif
+    ms = graph_ms(lambda: wk.whatif_context(tab, d))
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(5):
+        wk.context_reference(tab, d)
+    e1.record()
+    torch.cuda.synchronize()
+    n, c, vnp, u = d["N"], d["C"], d["VNP"], d["U"]
+    ops = 2 * c * c * vnp + n * (3 * d["MP"] + 3 * u * d["TAA"]
+                                 + 2 * u * (d["TAA"] + d["TA"])) \
+        + 2 * u * d["TA"]
+    bound_ms, bound_by, nbytes, ops = roofline(context_reads(tab, d, inv),
+                                               ops)
+    return {"ms": ms, "plain_ms": e0.elapsed_time(e1) / 5,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops, "shape": {k: d[k] for k in (
+                "N", "C", "VNP", "U", "TAA", "TA", "MP", "dyn_ipa",
+                "dyn_ports")}}
+
+
+# 14g: the directed what-if cases (tests/test_torch_whatif.py's clusters)
+WHATIF_KINDS = ("plain", "spread", "ipa", "ipa-self", "ports")
+WHATIF_CASE_NODES = (10, 600)
+
+
+def whatif_case_world(kind, n_nodes, seed):
+    """A zoned cluster saturated by labelled low-priority pods and one
+    preemptor of `kind` (plain; spread: a zone DoNotSchedule constraint;
+    ipa: a zone affinity and a hostname anti-affinity term; ipa-self:
+    affinity toward its own label, which no pod carries; ports: a host
+    port), as the port's objects."""
+    import random
+
+    from kubernetes_tpu_torch.api import types as v1
+    from kubernetes_tpu_torch.testing.synth import make_node, make_pod
+
+    rng = random.Random(seed)
+    nodes = [make_node(f"n{i}", cpu="4", memory="16Gi", pods=8,
+                       labels={"zone": f"z{i % 3}",
+                               v1.LABEL_HOSTNAME: f"n{i}"})
+             for i in range(n_nodes)]
+    pods = [make_pod(f"p{i}-{j}", cpu=f"{rng.choice([500, 900, 1500])}m",
+                     memory="64Mi", node_name=f"n{i}", priority=1,
+                     labels={"app": rng.choice(["x", "y"])})
+            for i in range(n_nodes) for j in range(rng.randint(1, 4))]
+
+    def term(labels, key):
+        return v1.PodAffinityTerm(
+            label_selector=v1.LabelSelector(match_labels=labels),
+            topology_key=key)
+
+    pod = make_pod("hi", cpu="1500m", memory="64Mi", priority=100,
+                   labels={"app": "x"})
+    if kind == "ipa":
+        pod.spec.affinity = v1.Affinity(
+            pod_affinity=v1.PodAffinity(
+                required_during_scheduling_ignored_during_execution=[
+                    term({"app": "x"}, "zone")]),
+            pod_anti_affinity=v1.PodAntiAffinity(
+                required_during_scheduling_ignored_during_execution=[
+                    term({"app": "y"}, v1.LABEL_HOSTNAME)]))
+    elif kind == "ipa-self":
+        pod.metadata.labels = {"app": "z"}
+        pod.spec.affinity = v1.Affinity(pod_affinity=v1.PodAffinity(
+            required_during_scheduling_ignored_during_execution=[
+                term({"app": "z"}, "zone")]))
+    elif kind == "spread":
+        pod.spec.topology_spread_constraints = [v1.TopologySpreadConstraint(
+            max_skew=1, topology_key="zone",
+            when_unsatisfiable="DoNotSchedule",
+            label_selector=v1.LabelSelector(match_labels={"app": "x"}))]
+    elif kind == "ports":
+        pod.spec.containers[0].ports = [v1.ContainerPort(
+            host_port=8080, container_port=8080)]
+    return nodes, pods, pod
+
+
+def whatif_inputs(rng, ctx, nps, alloc, L, gang, has_nom, drain=True):
+    """Seeded victim slots (a padded last slot; gang slots with up to 3
+    members), nominated aggregates and claimed drains (zero without
+    `drain`) in the planner's numpy layout."""
+    import numpy as np
+
+    n = ctx.n_lanes
+    r = alloc.shape[1]
+    c = nps["f_same_key"].shape[0]
+    taa = nps["ipaaa_valid"].shape[0]
+    vnp = ctx.vnp
+    valid = rng.random((n, L)) < 0.75
+    valid[:, -1] = False
+    cnt = np.where(valid, rng.integers(1, 4, (n, L)), 0) if gang \
+        else valid.astype(np.int64)
+    v = {
+        "valid": valid, "cnt": cnt.astype(np.int64),
+        "req": np.where(valid[..., None], rng.integers(
+            0, alloc[:, None, :] // 3 + 1, (n, L, r)), 0).astype(np.int64),
+        "mfs": np.where(valid[..., None], rng.integers(0, 3, (n, L, c)),
+                        0).astype(np.int32),
+        "manti": np.where(valid[..., None], rng.integers(0, 2, (n, L, taa)),
+                          0).astype(np.int32),
+        "mall": np.where(valid, rng.integers(0, 2, (n, L)), 0
+                         ).astype(np.int32),
+    }
+    nom = {
+        "req": (rng.integers(0, alloc // 4 + 1, (n, r))
+                * (rng.random((n, 1)) < 0.3)).astype(np.int64),
+        "cnt": rng.integers(0, 2, n).astype(np.int64),
+        "mfs": rng.integers(0, 3, (n, c)).astype(np.int32),
+        "manti": rng.integers(0, 2, (n, taa)).astype(np.int32),
+        "mall": rng.integers(0, 2, n).astype(np.int32),
+        "has_nom": has_nom,
+    }
+    pre = {
+        "req": (rng.integers(0, alloc // 5 + 1, (n, r))
+                * (rng.random((n, 1)) < 0.3)).astype(np.int64),
+        "cnt": rng.integers(0, 2, n).astype(np.int64),
+        "shared": rng.integers(0, 3, (c, vnp)).astype(np.int32),
+        "anti": rng.integers(0, 2, (taa, vnp)).astype(np.int32),
+        "aff": rng.integers(0, 2, vnp).astype(np.int32),
+    }
+    if not drain:
+        pre = {k: np.zeros_like(a) for k, a in pre.items()}
+    pre["shared"][:, 0] = 0
+    pre["anti"][:, 0] = 0
+    pre["aff"][0] = 0
+    pre["atot"] = np.int32(pre["aff"].sum())
+    return v, nom, pre
+
+
+def whatif_cases(gpu, device="cuda", timed=True):
+    """14g: on each WHATIF_KINDS preemptor over 10- and 600-node clusters,
+    the context kernel == `context_reference`, and the what-if ==
+    `whatif_plain` on seeded slots (L 4 / 8 / 16, gang slots, nominated
+    pods, claimed drains), bit for bit; the minimum-structure kernel
+    launched exactly where a spread constraint is valid. On the larger
+    cluster the first case of each kind timed (CUDA graph; with `timed`),
+    and the minimum-structure kernel alone on the spread preemptor's.
+    Bare-wrapper launches: counted, but not on any path."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops import whatif_kernel as wk
+    from kubernetes_tpu_torch.ops.whatif import WhatifContext
+    from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
+
+    checked = {"contexts": 0, "launches": 0, "mins_launches": 0, "ms": {},
+               "mins": None}
+    for kind in WHATIF_KINDS:
+        for n_nodes in WHATIF_CASE_NODES:
+            nodes, pods, pod = whatif_case_world(kind, n_nodes, n_nodes)
+            be = TPUBackend(device=device)
+            for nd in nodes:
+                be.on_add_node(nd)
+            for p in pods:
+                be.on_add_pod(p, p.spec.node_name)
+            pa = {k: a for k, a in be.pe.encode(pod).items()
+                  if not k.startswith("_")}
+            ctx = WhatifContext.from_encoding(be.enc, pa, device=device)
+            tj = ctx.template_index(pa)
+            tab, d, any_f = ctx.tables(tj)
+            if any_f != (kind == "spread"):
+                raise AssertionError(f"14g {kind}: any_f {any_f}")
+            ref = wk.context_reference(tab, d)
+            bad = [k for k in ref if not torch.equal(tab[k], ref[k])]
+            if bad:
+                raise AssertionError(f"14g {kind} {n_nodes}: context kernel "
+                                     f"!= plain in {bad}")
+            checked["contexts"] += 1
+            nps = ctx.np_slices(tj)
+            alloc = np.asarray(be.enc.host_snapshot()["alloc"])
+            for seed, (L, gang, has_nom) in enumerate(
+                    ((4, False, False), (8, True, True), (16, False, True))):
+                rng = np.random.default_rng(100 * n_nodes + seed)
+                v, nom, pre = whatif_inputs(rng, ctx, nps, alloc, L, gang,
+                                            has_nom, drain=seed > 0)
+                dv = wk.launch_dims(d, L, has_nom, any_f)
+                host = np.zeros(wk.layout(dv)[1], np.uint8)
+                wk.pack(v, nom, pre, dv, host)
+                buf = torch.from_numpy(host).to(device)
+                m0 = wk.MINS_LAUNCHES
+                got = wk.whatif_device(tab, buf, dv)
+                if wk.MINS_LAUNCHES - m0 != int(any_f and buf.is_cuda):
+                    raise AssertionError(f"14g {kind}: {wk.MINS_LAUNCHES - m0}"
+                                         " minimum-structure launches")
+                checked["mins_launches"] += wk.MINS_LAUNCHES - m0
+                want = wk.whatif_plain(tab, buf, dv)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"14g {kind} {n_nodes} L {L}: what-if != plain in "
+                        f"{int((got != want).sum())} bools")
+                checked["launches"] += 1
+                if timed and seed == 0 and n_nodes == max(WHATIF_CASE_NODES):
+                    checked["ms"][kind] = time_whatif(((tab, buf, dv), got))
+                    if any_f:
+                        checked["mins"] = time_mins(tab, buf, dv)
+            be.close()
+    log(f"phase 14g: {checked['contexts']} context launches == plain, "
+        f"{checked['launches']} what-if launches (kinds "
+        f"{', '.join(WHATIF_KINDS)}; {WHATIF_CASE_NODES} nodes; L 4 / 8 / "
+        f"16) == plain, {checked['mins_launches']} of them with the "
+        "minimum-structure kernel (the spread kind's); at "
+        f"{max(WHATIF_CASE_NODES)} nodes, ms (CUDA graph) and bound by kind "
+        + json.dumps({k: {x: r[x] for x in ("ms", "bound_ms", "bound_by",
+                                            "bytes", "shape")}
+                      for k, r in checked["ms"].items()})
+        + (f"; the minimum-structure kernel alone {checked['mins']['ms']:.5f}"
+           f" ms, plain {checked['mins']['plain_ms']:.3f} ms, bound "
+           f"{checked['mins']['bound_ms']:.7f} ms "
+           f"({checked['mins']['bound_by']}, {checked['mins']['bytes']} B) "
+           f"at {checked['mins']['shape']}" if checked["mins"] else "")
+        + f" [{gpu}]")
+    return checked
 
 
 def overcommitted(pods, nodes):
@@ -3819,7 +4410,7 @@ def preemption_cell(sk, gpu, label, spec, init, template):
     before = counters()
     pre0 = preempted()
     reset_counts(sk)
-    wk.LAUNCHES = 0
+    wk.LAUNCHES = wk.MINS_LAUNCHES = wk.CONTEXT_LAUNCHES = 0
     run = LoopRun(True)
     watch = WhatifWatch(keep=WHATIF_KEEP)
     t0 = time.perf_counter()
@@ -3831,6 +4422,8 @@ def preemption_cell(sk, gpu, label, spec, init, template):
     wall_s = time.perf_counter() - t0
     launches = {k: v for k, v in sk.VARIANT_LAUNCHES.items() if v}
     launches["whatif"] = wk.LAUNCHES
+    launches["whatif_mins"] = wk.MINS_LAUNCHES
+    launches["whatif_context"] = wk.CONTEXT_LAUNCHES
     delta = counters_delta(before)
     cs = Clientset(run.apis[-1])
     pods, _ = cs.pods.list(namespace="default")
@@ -3894,11 +4487,12 @@ def preemption_cell(sk, gpu, label, spec, init, template):
     if be.ladder.rung() != be.ladder.top or delta["device_faults"]:
         raise AssertionError(f"{label}: ladder {be.ladder.mode()}, faults "
                              f"{delta['device_faults']}")
-    out["walk_err"] = walk_errs(watch.calls)
+    out["walk_err"] = walk_errs(watch.calls, watch.contexts)
     out["walks_checked"] = len(watch.calls)
+    out["contexts_checked"] = len(watch.contexts)
     if out["walk_err"]:
-        raise AssertionError(f"{label}: the what-if kernel differs from the "
-                             f"plain walk in {out['walk_err']} bools")
+        raise AssertionError(f"{label}: the what-if kernels differ from the "
+                             f"plain version in {out['walk_err']} values")
     log(f"phase {label} {w.name}: {r.num_bound} preemptors bound over "
         f"{w.num_nodes} nodes ({len(victims)} victims evicted, named by "
         f"{attempts} preemptions, all of "
@@ -3910,9 +4504,10 @@ def preemption_cell(sk, gpu, label, spec, init, template):
         f"{r.whatif_fallbacks}; context builds {be.whatif_builds} "
         f"({out['context_build_ms']} ms each); session {r.session_kind}, "
         f"rebuilds {r.session_rebuild_reasons}; launches {launches}; "
-        f"{len(watch.calls)} launches == plain walk; window {r.duration_s}"
-        f" s, wall {wall_s:.2f} s [{gpu}]")
-    return out, watch.calls
+        f"{len(watch.calls)} what-if and {len(watch.contexts)} context "
+        f"launches == plain; window {r.duration_s} s, wall {wall_s:.2f} s "
+        f"[{gpu}]")
+    return out, watch
 
 
 def saturated_cluster(n_nodes, vpn, labels=None, zones=3):
@@ -4004,24 +4599,17 @@ class GcClock:
         gc.callbacks.remove(self)
 
 
-def whatif_point(gpu, point, affinity, watch):
-    """One point of 14d: a saturated cluster on a fresh backend on the
-    card; a wave of WHATIF_WAVE preemptors planned by the device rung,
-    the fast rung (not for the affinity preemptors, outside its envelope)
-    and the oracle (the first preemptor): the plans must agree. Times
-    each rung per preemptor (host clock, the device wave synchronized),
-    the launches per what-if under torch.profiler, and the context
-    builds."""
+def whatif_world(point, affinity):
+    """A 14d point's world: a saturated cluster (`point` is nodes x
+    victims a node) on a fresh backend on the card, and a wave of
+    WHATIF_WAVE preemptors asking twice the probe's request, so that each
+    needs an eviction. -> (backend, snapshot, wave, dev_plan), dev_plan()
+    planning the wave on the device rung, synchronized."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from kubernetes_tpu_torch.api import types as v1
-    from kubernetes_tpu_torch.ops import whatif_kernel as wk
     from kubernetes_tpu_torch.scheduler.framework.snapshot import Snapshot
     from kubernetes_tpu_torch.scheduler.internal.nominator import (
         PodNominator,
-    )
-    from kubernetes_tpu_torch.scheduler.preemption import (
-        FastPreemptionPlanner,
     )
     from kubernetes_tpu_torch.scheduler.preemption_device import (
         DevicePreemptionPlanner,
@@ -4062,6 +4650,24 @@ def whatif_point(gpu, point, affinity, watch):
             raise AssertionError(f"14d {point}: paths {pl.planner_paths}")
         return out
 
+    return be, snapshot, wave, dev_plan
+
+
+def whatif_point(gpu, point, affinity, watch):
+    """One point of 14d (`whatif_world`): the wave planned by the device
+    rung, the fast rung (not for the affinity preemptors, outside its
+    envelope) and the oracle (the first preemptor): the plans must agree.
+    Times each rung per preemptor (host clock, the device wave
+    synchronized), the kernels alone, and the context builds."""
+    from kubernetes_tpu_torch.scheduler.internal.nominator import (
+        PodNominator,
+    )
+    from kubernetes_tpu_torch.scheduler.preemption import (
+        FastPreemptionPlanner,
+    )
+
+    be, snapshot, wave, dev_plan = whatif_world(point, affinity)
+
     def fast_plan():
         return FastPreemptionPlanner(snapshot, PodNominator()).plan(
             list(wave))
@@ -4083,6 +4689,7 @@ def whatif_point(gpu, point, affinity, watch):
     n0 = len(watch.calls)
     builds0 = be.whatif_builds
     dev_ms, dev_reps, dev_gc, dev_out = per_preemptor_ms(dev_plan)
+    n_nodes, vpn = (int(x) for x in point.split("x"))
     row = {"point": point, "profile": "ipa-affinity" if affinity else
            "plain", "nodes": n_nodes, "victims_per_node": vpn,
            "wave": WHATIF_WAVE, "device_ms_per_preemptor": dev_ms,
@@ -4108,22 +4715,6 @@ def whatif_point(gpu, point, affinity, watch):
     if row["candidates"] != WHATIF_WAVE:
         raise AssertionError(f"14d {point}: {row['candidates']} of "
                              f"{WHATIF_WAVE} preemptors found victims")
-    # launches per what-if: every CUDA kernel and copy of one wave
-    k0 = wk.LAUNCHES
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        dev_plan()
-    n_whatif = wk.LAUNCHES - k0
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    row["whatif_kernels_in_wave"] = n_whatif
-    row["cuda_launches_per_whatif"] = len(events) / max(n_whatif, 1)
-    row["device_busy_ms_per_whatif"] = sum(
-        e.device_time_total for e in events) / 1e3 / max(n_whatif, 1)
-    row["whatif_kernel_ms_by_profiler"] = sum(
-        e.device_time_total for e in events
-        if "whatif_kernel" in e.name) / 1e3 / max(n_whatif, 1)
     call = watch.calls[n0]
     row.update({f"kernel_{k}": v for k, v in time_whatif(call).items()})
     log(f"phase 14d {point} {row['profile']}: device "
@@ -4135,14 +4726,83 @@ def whatif_point(gpu, point, affinity, watch):
         + f", oracle {row['oracle_ms_per_preemptor']:.3f} (first "
         f"preemptor, {row['oracle_gc_ms']:.1f} ms in the collector); plans "
         f"agree ({row['candidates']} of {WHATIF_WAVE} "
-        f"with a candidate); kernel {row['kernel_ms']:.4f} ms (CUDA graph),"
-        f" plain walk {row['kernel_plain_ms']:.3f} ms, bound "
-        f"{row['kernel_bound_ms']:.6f} ms ({row['kernel_bound_by']}); "
-        f"{row['cuda_launches_per_whatif']:.1f} CUDA launches per what-if "
-        f"(device busy {row['device_busy_ms_per_whatif']:.3f} ms); context "
-        f"builds {be.whatif_builds} at {row['context_build_ms']:.1f} ms "
-        f"[{gpu}]")
+        f"with a candidate); kernels {row['kernel_ms']:.4f} ms (CUDA graph)"
+        f", plain "
+        f"{row['kernel_plain_ms']:.3f} ms, bound "
+        f"{row['kernel_bound_ms']:.6f} ms ({row['kernel_bound_by']}; the "
+        f"walk's {row['kernel_walk_bound_ms']:.6f}); context builds "
+        f"{be.whatif_builds} at {row['context_build_ms']:.1f} ms [{gpu}]")
     return row
+
+
+def whatif_profile(point, affinity):
+    """One 14d point's CUDA launches and the card's busy ms per what-if:
+    `whatif_world`'s wave planned once to warm (the context built, the
+    library loaded), then again under torch.profiler, the card's activity
+    alone; every kernel and copy of the wave, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kubernetes_tpu_torch.ops import whatif_kernel as wk
+
+    be, _, _, dev_plan = whatif_world(point, affinity)
+    dev_plan()
+    k0 = wk.LAUNCHES
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dev_plan()
+    n = max(wk.LAUNCHES - k0, 1)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = {}
+    for e in events:
+        names[e.name] = names.get(e.name, 0) + 1
+    be.close()
+    return {"whatif_kernels_in_wave": wk.LAUNCHES - k0,
+            "cuda_launches_per_whatif": len(events) / n,
+            "cuda_launches_by_name": names,
+            "device_busy_ms_per_whatif": sum(
+                e.device_time_total for e in events) / 1e3 / n,
+            "whatif_kernel_ms_by_profiler": sum(
+                e.device_time_total for e in events
+                if "whatif" in e.name) / 1e3 / n}
+
+
+# the 14d points traced for launches and busy time: the largest of each
+# profile (a fresh world each, so not every point)
+WHATIF_PROFILED = (("500x8", False), ("200x4", True))
+
+
+def whatif_profile_child() -> None:
+    """A fresh process: `whatif_profile` at the WHATIF_PROFILED points.
+    Prints one JSON line."""
+    rows = {f"{pt} {'ipa-affinity' if aff else 'plain'}":
+            whatif_profile(pt, aff) for pt, aff in WHATIF_PROFILED}
+    print(json.dumps(rows), flush=True)
+
+
+def whatif_profiles(gpu):
+    """14d's launches per what-if at the WHATIF_PROFILED points, traced in
+    a fresh process: in a full pass, after the earlier phases,
+    torch.profiler kept only a wave's last device events (a process that
+    ran only phase 14 traced them all)."""
+    res = subprocess.run(
+        [sys.executable, "-c",
+         f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+         "chip_smoke.whatif_profile_child()"],
+        capture_output=True, text=True, timeout=300, cwd=HERE)
+    if res.returncode != 0:
+        raise AssertionError(f"14d profile child failed:\n"
+                             f"{res.stderr[-3000:]}")
+    rows = json.loads(res.stdout.strip().splitlines()[-1])
+    for key, r in rows.items():
+        if r["whatif_kernels_in_wave"] != WHATIF_WAVE:
+            raise AssertionError(f"14d profile {key}: {r}")
+        log(f"phase 14d profile {key} (a fresh process): "
+            f"{r['cuda_launches_per_whatif']:.1f} CUDA launches per what-if "
+            f"({r['cuda_launches_by_name']} in a wave of {WHATIF_WAVE}), "
+            f"the card busy {r['device_busy_ms_per_whatif']:.4f} ms per "
+            f"what-if, the what-if kernels {r['whatif_kernel_ms_by_profiler']:.4f}"
+            f" ms; with the prologue in torch 54 and 0.10-0.17 ms [{gpu}]")
+    return rows
 
 
 def whatif_fault_drill(gpu):
@@ -4230,22 +4890,37 @@ def gang_check(gpu):
 
 def phase_preemption(sk, gpu):
     """Phase 14: the device preemption planner on the card. Returns (the
-    phase's numbers, the what-if kernel's kernels-line numbers, launches
-    per scan variant over 14a-c)."""
-    from kubernetes_tpu_torch.ops import whatif_kernel as wk
-
+    phase's numbers, the kernels-line numbers of the what-if kernels and
+    of the context kernel, launches per scan variant over 14a-c)."""
     t0 = time.perf_counter()
+    marks = [("", t0)]
+
+    def mark(label):
+        marks.append((label, time.perf_counter()))
+
     out = {}
     loop_launches = {}
-    kept = []
+    kept, kept_ctx = [], []
     for label, spec, init, template in PREEMPTION_ROWS:
-        cell, calls = preemption_cell(sk, gpu, label, spec, init, template)
+        cell, watch = preemption_cell(sk, gpu, label, spec, init, template)
         out[label] = cell
-        kept += calls
+        kept += watch.calls
+        kept_ctx += watch.contexts
         for k, v in cell["launches"].items():
             loop_launches[k] = loop_launches.get(k, 0) + v
-    # the kernel at the main path's shape: 14a's first launch
+        mark(label)
+    # the kernels at the main path's shape: 14a's first launches
     main = time_whatif(kept[0])
+    context = time_context(kept_ctx[0])
+    log(f"phase 14 kernels at 14a's shape {main['shape']}: what-if "
+        f"{main['ms']:.5f} ms (CUDA graph), "
+        f"plain {main['plain_ms']:.3f} ms, bound {main['bound_ms']:.6f} ms "
+        f"({main['bound_by']}, {main['bytes']} B), the walk's "
+        f"{main['walk_bound_ms']:.6f} ms ({main['walk_bytes']} B); context "
+        f"{context['ms']:.5f} ms, plain {context['plain_ms']:.3f} ms, bound "
+        f"{context['bound_ms']:.6f} ms ({context['bound_by']}, "
+        f"{context['bytes']} B) [{gpu}]")
+    mark("kernels")
     watch = WhatifWatch()
     try:
         out["14d"] = [whatif_point(gpu, pt, False, watch)
@@ -4253,18 +4928,42 @@ def phase_preemption(sk, gpu):
             whatif_point(gpu, pt, True, watch) for pt in WHATIF_AFF_POINTS]
     finally:
         watch.close()
-    err = walk_errs(kept) + walk_errs(watch.calls)
+    mark("14d")
+    profiles = whatif_profiles(gpu)
+    mark("14d profile")
+    for row in out["14d"]:
+        row.update(profiles.get(f"{row['point']} {row['profile']}", {}))
+    err = walk_errs(kept, kept_ctx) + walk_errs(watch.calls, watch.contexts)
     if err:
-        raise AssertionError(f"14d: the what-if kernel differs from the "
-                             f"plain walk in {err} bools")
-    log(f"phase 14d: {len(watch.calls)} what-if launches of the sweep and "
-        f"{len(kept)} of 14a-c == plain walk [{gpu}]")
+        raise AssertionError(f"14d: the what-if kernels differ from the "
+                             f"plain version in {err} values")
+    log(f"phase 14d: {len(watch.calls)} what-if and {len(watch.contexts)} "
+        f"context launches of the sweep and {len(kept)} / {len(kept_ctx)} "
+        f"of 14a-c == plain [{gpu}]")
+    mark("14d check")
     out["14e"] = whatif_fault_drill(gpu)
+    mark("14e")
     out["14f"] = gang_check(gpu)
+    mark("14f")
+    out["14g"] = whatif_cases(gpu)
+    mark("14g")
     out["phase_s"] = time.perf_counter() - t0
+    out["seconds"] = {b[0]: round(b[1] - a[1], 1)
+                      for a, b in zip(marks, marks[1:])}
+    log(f"phase 14 seconds: {out['seconds']}, {out['phase_s']:.1f} in all")
+    mins = out["14g"]["mins"]
     kernel = dict(main, launches=loop_launches["whatif"], err=err,
-                  checked=len(kept) + len(watch.calls))
-    return out, kernel, loop_launches
+                  checked=len(kept) + len(watch.calls)
+                  + out["14g"]["launches"],
+                  mins={"launches": loop_launches["whatif_mins"],
+                        "case_launches": out["14g"]["mins_launches"],
+                        **{k: mins[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "bytes",
+                                                "shape")}})
+    context = dict(context, launches=loop_launches["whatif_context"],
+                   err=err, checked=len(kept_ctx) + len(watch.contexts)
+                   + out["14g"]["contexts"])
+    return out, (kernel, context), loop_launches
 
 
 # -- phase 15: the rest of the scheduler_perf matrix -------------------------
@@ -5175,7 +5874,7 @@ def mesh_whatif(sk, gpu):
     from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
     from kubernetes_tpu_torch.testing.synth import make_node
 
-    out, launches, checked, errs = [], 0, 0, 0
+    out, launches, mins, contexts, checked, errs = [], 0, 0, 0, 0, 0
     for label, spec, init, template in PREEMPTION_ROWS:
         n_nodes = spec["num_nodes"]
         nodes = [make_node(f"node-{i}", labels={
@@ -5211,7 +5910,7 @@ def mesh_whatif(sk, gpu):
                 be.on_add_pod(p, p.spec.node_name)
             snapshot = Snapshot.from_objects(victims, nodes)
             watch = WhatifWatch(keep=WHATIF_KEEP) if mesh else None
-            k0 = wk.LAUNCHES
+            k0, m0, c0 = wk.LAUNCHES, wk.MINS_LAUNCHES, wk.CONTEXT_LAUNCHES
             t0 = time.perf_counter()
             try:
                 pl = DevicePreemptionPlanner(snapshot, PodNominator(), be,
@@ -5227,8 +5926,10 @@ def mesh_whatif(sk, gpu):
                                      f"{pl.planner_paths}")
             if mesh is not None:
                 launches += wk.LAUNCHES - k0
-                checked += len(watch.calls)
-                errs = max(errs, walk_errs(watch.calls))
+                mins += wk.MINS_LAUNCHES - m0
+                contexts += wk.CONTEXT_LAUNCHES - c0
+                checked += len(watch.calls) + len(watch.contexts)
+                errs = max(errs, walk_errs(watch.calls, watch.contexts))
                 mesh_ms, builds = ms, be.whatif_builds
             plans.append([cand_key(c) for c in cands])
             be.close()
@@ -5247,10 +5948,13 @@ def mesh_whatif(sk, gpu):
             f"({found} with victims); {mesh_ms:.3f} ms a preemptor on the "
             f"mesh, {ms:.3f} single-device; what-if context builds "
             f"{builds} [{gpu}]")
-    if errs or not launches:
-        raise AssertionError(f"16d: {launches} what-if launches on the mesh, "
-                             f"{errs} differing outputs against the walk")
-    return out, {"launches": launches, "checked": checked, "err": errs}
+    if errs or not launches or not contexts:
+        raise AssertionError(f"16d: {launches} what-if and {contexts} context"
+                             f" launches on the mesh, {errs} differing "
+                             "outputs against the plain version")
+    return out, {"launches": launches, "mins_launches": mins,
+                 "context_launches": contexts, "checked": checked,
+                 "err": errs}
 
 
 def mesh_ladder(gpu, zone, decisions):
@@ -5713,10 +6417,24 @@ def main() -> int:
                                       "case_errs")}
                    for c in churn]),
         *probe_entries,
-        entry("whatif", "kubernetes_tpu/ops/whatif.py:119", whatif,
-              source=WHATIF_SOURCE, checked_launches=whatif["checked"],
-              shape=whatif["shape"], mesh_launches=mesh_whatif["launches"],
-              mesh_checked_launches=mesh_whatif["checked"]),
+        entry("whatif", "kubernetes_tpu/ops/whatif.py:116", whatif[0],
+              source=WHATIF_SOURCE, checked_launches=whatif[0]["checked"],
+              shape=whatif[0]["shape"],
+              walk_bound_ms=whatif[0]["walk_bound_ms"],
+              walk_bound_by=whatif[0]["walk_bound_by"],
+              mesh_launches=mesh_whatif["launches"],
+              mesh_checked_launches=mesh_whatif["checked"],
+              # the minimum-structure kernel, launched by the what-if only
+              # where a spread constraint is valid: 0 times on the main
+              # path, the loop and the mesh (no preemptor there has one);
+              # held to plain and timed in 14g
+              mins=dict(whatif[0]["mins"],
+                        mesh_launches=mesh_whatif["mins_launches"])),
+        entry("whatif_context", "kubernetes_tpu/ops/whatif.py:146",
+              whatif[1], source=WHATIF_SOURCE,
+              checked_launches=whatif[1]["checked"],
+              shape=whatif[1]["shape"],
+              mesh_launches=mesh_whatif["context_launches"]),
     ]
     idle = [e["name"] for e in kernels if not e["launches"]]
     if idle:
@@ -5724,7 +6442,7 @@ def main() -> int:
     # phase 16: the mesh path's own launches (counts set to 0 before each
     # of its flushes and planner waves)
     idle = [e["name"] for e in kernels
-            if e["name"] in ("scan_delta", "whatif")
+            if e["name"] in ("scan_delta", "whatif", "whatif_context")
             and not e.get("mesh_launches")]
     if idle:
         raise AssertionError(f"kernels the mesh never launched: {idle}")
@@ -5737,7 +6455,8 @@ def main() -> int:
                     "scan_eval": ("scan_eval", "scan_eval_ipa"),
                     "scan_apply": ("scan_apply", "scan_apply_ipa"),
                     "scan_delta": ("scan_delta",),
-                    "whatif": ("whatif",)}.get(e["name"], ())
+                    "whatif": ("whatif",),
+                    "whatif_context": ("whatif_context",)}.get(e["name"], ())
         e["backend_launches"] = sum(backend_launches.get(v, 0)
                                     for v in variants)
         e["loop_launches"] = sum(loop_launches.get(v, 0) for v in variants)
@@ -5747,7 +6466,7 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels the backend never launched: {idle}")
     idle = [n for n in ("scan_full", "scan_full_ipa", "scan_delta",
-                        "whatif")
+                        "whatif", "whatif_context")
             if not next(e for e in kernels if e["name"] == n)[
                 "loop_launches"]]
     if idle:

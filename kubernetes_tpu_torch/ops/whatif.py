@@ -1,4 +1,4 @@
-"""What-if preemption: one preemptor's victim search as one device launch.
+"""What-if preemption: one preemptor's victim search as one device program.
 
 Port of kubernetes_tpu/ops/whatif.py. The oracle dry run
 (plugins/defaultpreemption.py selectVictimsOnNode, reference
@@ -19,14 +19,16 @@ node lane against a SCRATCH copy of the session carry:
   * nominated pods ride as POSITIVE deltas with the framework's two-pass
     semantics (framework.go:610: pass with them added AND without).
 
-The reference's `_whatif_run` is one jitted jnp program. The port splits
-it in two: `whatif_prologue`, plain PyTorch run once per launch (free
-capacity and pod count with the claimed-victim drains, the static gate,
-the IPA effective counts of the session's D1-D3 composition, the PTS
-minimum structure), per node lane; and the walk (fits_now, base
-and the reprieve over the L victim slots), the hand-written CUDA kernel
-of ops/whatif_kernel.py on the card and its plain twin on the CPU.
-`_gang_fits_run` is a handful of reductions and stays plain PyTorch.
+The reference's `_whatif_run` is one jitted jnp program. On the card the
+port runs it as hand-written kernels (ops/whatif_kernel.py,
+ops/csrc/whatif.cu): the values that depend only on the context's carry
+and the preemptor's template are computed once per (context, template)
+(`WhatifContext.tables`, the context kernel); each preemptor is one packed
+upload, the walk's launch (with the PTS minimum structure before it) and
+one readback of an [N, L + 2] bool output. On the CPU the same entry
+points run the plain version (the torch prologue and the reference's walk
+as a loop over the slots). `_gang_fits_run` is a handful of reductions
+and stays plain PyTorch.
 
 Exactness domain, as the reference's: the preemptor may carry pod
 (anti-)affinity terms and topology-spread constraints; the planner
@@ -35,23 +37,22 @@ Exactness domain, as the reference's: the preemptor may carry pod
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import kernel as K
+from . import whatif_kernel as wk
 from .hoisted import (
     HoistedSession,
     _PORT_STEP_KEYS,
-    _count_matmul,
     _eval_reqs_batch_np,
-    _gather_rows,
     batch_bucket,
     template_fingerprint,
 )
-from .kernel import _CNT, _I64
-from .whatif_kernel import BIG, whatif_walk
+from .kernel import _I64
+from .whatif_kernel import whatif_context, whatif_device
 
 # IPA term-table keys of ONE template the host victim-matcher reads
 _TERM_SLICE_KEYS = tuple(
@@ -100,161 +101,6 @@ def ipa_victim_matches_np(tt: Dict, rows_list: List[Dict]):
             np.where(aff_valid[None, :], m_aff, True), axis=1
         ).astype(np.int32)
     return manti, mall
-
-
-# ---------------------------------------------------------------------------
-# the what-if program: the prologue, then the walk
-
-
-def whatif_prologue(S: Dict, c_static: Dict, carry: Dict,
-                    pre_req, pre_cnt, pre_shared, pre_anti, pre_aff,
-                    pre_atot, tj: int = 0, dyn_ipa: bool = False,
-                    dyn_ports: bool = False) -> Dict[str, torch.Tensor]:
-    """Everything of the reference's `_whatif_run` before `feas_one`
-    (whatif.py:146-243), in its dtypes and under its names, per node
-    lane for the walk (ops/whatif_kernel.py lists each tensor):
-
-      free0 [N, R], cnt0 [N], allowed [N]: capacity and pod count with the
-        claimed victims drained; req [R], chk [R] (req_check AND
-        req_has_any); gate [N]: the eviction-invariant static gate (ports,
-        existing anti terms) AND NOT (a constraint's key missing);
-      pts_sh [N, C] (the shared count at the node's pair), pts_mn [N, C]
-        (the global min with that pair excluded where it is registered,
-        else the min), reg_at [N, C] (the pair is registered), pts_chk
-        [N, C] (the constraint is checked at the node), self_m [C],
-        f_skew [C];
-      with dyn_ipa: anti_eff / aff_eff [N, TAA] / [N, Ta] (effective term
-        counts), anti_chk [N, TAA] (the term is valid and its key on the
-        node), aff_key_on [N, Ta], aff_valid [Ta], aff_total [1], aff_keys
-        [N] (the node's scattered term entries), has_aff [1],
-        aff_all_keys [N], self_match_all [1].
-
-    The claimed drains (pre_*) are applied to every state; pre_shared /
-    pre_anti / pre_aff at topology-PAIR granularity."""
-
-    def sel(key):
-        return S[key][tj]
-
-    out = {}
-    alloc = c_static["alloc"]
-    out["free0"] = alloc - carry["requested"] + pre_req        # [N, R]
-    out["cnt0"] = carry["pod_count"].to(_I64) - pre_cnt        # [N]
-    out["allowed"] = c_static["allowed_pods"].to(_I64)
-    out["req"] = sel("req").contiguous()
-    out["chk"] = (sel("req_check") & sel("req_has_any")).contiguous()
-
-    # -- eviction-invariant gate -------------------------------------------
-    static_gate = sel("static_mask")
-    if dyn_ports:
-        static_gate = static_gate & K.ports_mask(
-            carry["cp_any"], carry["cp_wild"], carry["cp_trip"],
-            {k: sel(k) for k in _PORT_STEP_KEYS},
-        )
-
-    # -- IPA effective counts: prologue statics + session-assumed dynamics
-    #    (the D1-D3 composition of ops/hoisted._eval_pod) + claimed-victim
-    #    pair-level drains ---------------------------------------------------
-    if dyn_ipa:
-        u_cnt, k_cnt = carry["u_cnt"], carry["k_cnt"]
-        pok, nk = c_static["pair_of_key"], c_static["nkey"]
-        kaa = S["ipaaa_key"].long()                   # [U, TAA]
-        cnt1 = _gather_rows(u_cnt, pok[:, kaa].permute(1, 0, 2))  # [U,N,TAA]
-        g1 = S["M_anti"][:, :, tj]                    # [U, TAA]
-        nk1 = nk[:, kaa].permute(1, 0, 2)             # [U, N, TAA]
-        fail_existing_dyn = (g1[:, None, :] & nk1 & (cnt1 > 0)).any(
-            dim=2).any(dim=0)                         # [N]
-        w2 = _count_matmul(S["M_anti"][tj].to(_CNT), u_cnt)  # [TAA, Vnp]
-        pair_nt = pok[:, sel("ipaaa_key").long()].long()     # [N, TAA]
-        anti_dyn = torch.gather(w2.T, 0, pair_nt)     # [N, TAA]
-        g3 = S["match_all"][tj].to(_CNT)              # [U]
-        w3 = _count_matmul(g3[None, :], u_cnt)[0]     # [Vnp]
-        aff_key = sel("ipaa_key").long()
-        pair_na = pok[:, aff_key].long()              # [N, Ta]
-        aff_dyn = w3[pair_na]                         # [N, Ta]
-        aff_total_dyn = (sel("ipaa_valid")[None, :].to(_CNT) * g3[:, None]
-                         * k_cnt[:, aff_key]).sum(dtype=_I64)
-        anti_pre = torch.gather(pre_anti.T, 0, pair_nt)  # [N, TAA]
-        aff_pre = pre_aff[pair_na]                    # [N, Ta]
-        anti_key_on = sel("ipa_anti_key_on_node")     # [N, TAA]
-        aff_valid = sel("ipaa_valid")
-        aff_key_on = nk[:, aff_key]                   # [N, Ta]
-        out["anti_eff"] = sel("ipa_anti_cnt_n") + anti_dyn - anti_pre
-        out["anti_chk"] = anti_key_on & sel("ipaaa_valid")[None, :]
-        out["aff_eff"] = sel("ipa_aff_cnt_n") + aff_dyn - aff_pre
-        out["aff_key_on"] = aff_key_on
-        out["aff_valid"] = aff_valid
-        out["aff_total"] = (sel("ipa_aff_total") + aff_total_dyn
-                            - pre_atot).reshape(1)
-        # one evicted matches-all victim on node n drains aff_total by
-        # the number of its node's scattered term entries
-        out["aff_keys"] = (aff_valid[None, :] & aff_key_on).sum(
-            dim=1).to(_CNT)                           # [N]
-        out["has_aff"] = sel("ipa_has_aff").reshape(1)
-        out["aff_all_keys"] = sel("ipa_aff_all_keys")
-        out["self_match_all"] = sel("ipa_self_match_all").reshape(1)
-        static_gate = static_gate & ~(sel("ipa_fail_existing")
-                                      | fail_existing_dyn)
-
-    # -- PTS base: shared counts (claimed drains applied), min structure ----
-    f_valid = sel("f_valid")
-    any_f = f_valid.any()
-    shared = torch.where(
-        sel("f_same_key")[:, :, None], carry["f_cnt"][tj][None, :, :], 0
-    ).sum(dim=1, dtype=_I64) - pre_shared             # [C, Vnp]
-    reg_real = sel("f_reg_real")                      # [C, Vnp]
-    pair_cn = sel("f_pair_cn").long()                 # [N, C]
-    key_on_f = sel("f_key_on_node")                   # [N, C]
-    fail_missing = (f_valid[None, :] & ~key_on_f).any(dim=1)
-    masked = torch.where(reg_real, shared, BIG)
-    min1 = masked.min(dim=1).values                   # [C]
-    at_min = masked == min1[:, None]
-    cnt_min1 = at_min.sum(dim=1)
-    min2 = torch.where(at_min, BIG, masked).min(dim=1).values
-    shared_at = torch.gather(shared.T, 0, pair_cn)    # [N, C]
-    reg_at = torch.gather(reg_real.T, 0, pair_cn)     # [N, C]
-    # global min with this node's own pair EXCLUDED: re-enters adjusted
-    min_excl = torch.where(
-        reg_at & (shared_at == min1[None, :]) & (cnt_min1[None, :] == 1),
-        min2[None, :], min1[None, :],
-    )                                                 # [N, C]
-    out["pts_sh"] = shared_at
-    out["pts_mn"] = torch.where(reg_at, min_excl, min1[None, :])
-    out["reg_at"] = reg_at
-    out["pts_chk"] = any_f & f_valid[None, :] & key_on_f
-    out["self_m"] = sel("f_self_match").to(torch.int32).contiguous()
-    out["f_skew"] = sel("f_skew").to(torch.int32).contiguous()
-    out["gate"] = static_gate & ~(any_f & fail_missing)
-    return {k: t.contiguous() for k, t in out.items()}
-
-
-def _whatif_run(
-    S: Dict, c_static: Dict, carry: Dict,
-    v_valid, v_cnt, v_req, v_mfs, v_manti, v_mall,
-    nom_req, nom_cnt, nom_mfs, nom_manti, nom_mall,
-    pre_req, pre_cnt, pre_shared, pre_anti, pre_aff, pre_atot,
-    tj: int = 0, dyn_ipa: bool = False, dyn_ports: bool = False,
-    has_nom: bool = False,
-):
-    """One preemptor's whole dry run: fits_now [N], base feasibility with
-    every victim evicted, and the reprieve walk (victims [N, L]).
-
-    Victim tensors are [N, L] slot-ordered PER NODE in the oracle's
-    reprieve order (PDB-violating group first, then the rest, each by
-    MoreImportantPod); pre_* are the already-claimed-victim aggregates
-    applied to EVERY state. A slot may hold a whole same-node GANG UNIT:
-    its req/mfs/manti/mall are the members' sums and v_cnt [N, L] the
-    member count; singleton slots pass v_cnt == v_valid. The prologue runs
-    here; the walk is `whatif_walk` (the kernel on the card, the plain
-    version on the CPU), enqueued on the current stream."""
-    with torch.no_grad():
-        p = whatif_prologue(S, c_static, carry, pre_req, pre_cnt,
-                            pre_shared, pre_anti, pre_aff, pre_atot, tj=tj,
-                            dyn_ipa=dyn_ipa, dyn_ports=dyn_ports)
-        v = {"valid": v_valid, "cnt": v_cnt, "req": v_req, "mfs": v_mfs,
-             "manti": v_manti, "mall": v_mall}
-        nom = {"req": nom_req, "cnt": nom_cnt, "mfs": nom_mfs,
-               "manti": nom_manti, "mall": nom_mall}
-        return whatif_walk(p, v, nom, has_nom=has_nom, dyn_ipa=dyn_ipa)
 
 
 def _gang_fits_run(S: Dict, c_static: Dict, carry: Dict, k,
@@ -337,6 +183,9 @@ class WhatifContext:
         self.dyn_ports = sess._dyn_ports
         self.tp_np = sess._tp_np  # match_matrices_np tables
         self._np_cache: Dict[int, Dict] = {}  # tj -> host-side slices
+        # tj -> (the kernels' tables with the context's invariants, their
+        # dims, any PTS constraint valid): the carry is never written
+        self._tabs: Dict[int, Tuple[Dict, Dict, bool]] = {}
         self.vnp = int(sess._S["f_reg_real"].shape[2])
         self._pok_np: Optional[np.ndarray] = None
 
@@ -422,11 +271,28 @@ class WhatifContext:
         self._np_cache[tj] = out
         return out
 
+    def tables(self, tj: int) -> Tuple[Dict, Dict, bool]:
+        """(tables, dims, any PTS constraint valid) of template tj: the
+        session's tables at tj and this context's carry, with the
+        invariants of the context kernel (`whatif_context`; on the CPU its
+        plain version) computed on the first call and kept."""
+        got = self._tabs.get(tj)
+        if got is None:
+            sess = self._sess
+            tab = wk.tables(sess._S, sess._c_static, self.carry, tj,
+                            self.dyn_ipa, self.dyn_ports)
+            d = wk.table_dims(tab, tj, self.dyn_ipa, self.dyn_ports)
+            tab.update(whatif_context(tab, d))
+            any_f = bool(tab["f_valid"].cpu().any())
+            got = self._tabs[tj] = (tab, d, any_f)
+        return got
+
     def run(self, tj: int, v, nom, pre):
-        """Enqueue the what-if program on the current stream; returns its
-        outputs as device tensors (the caller bounds the wait and reads
-        them back). v/nom/pre are dicts of numpy tensors shaped as
-        _whatif_run documents."""
+        """Enqueue one preemptor's what-if on the current stream; returns
+        its [N, L + 2] bool output on the device (fits_now, base, victims:
+        `whatif_kernel.outputs` splits it; the caller bounds the wait and
+        reads it back once). v/nom/pre are dicts of numpy arrays in the
+        layout the reference's _whatif_run documents."""
         from ..utils import devtime
 
         if devtime.enabled():
@@ -444,28 +310,19 @@ class WhatifContext:
         return self._run_impl(tj, v, nom, pre)
 
     def _run_impl(self, tj: int, v, nom, pre):
-        sess = self._sess
-
-        def up(a, dtype=None):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            return t.to(device=self.device, dtype=dtype or t.dtype)
-
-        # singleton slots: count == validity (one member per slot)
-        v_cnt = v.get("cnt")
-        if v_cnt is None:
-            v_cnt = np.asarray(v["valid"]).astype(np.int64)
-        return _whatif_run(
-            sess._S, sess._c_static, self.carry,
-            up(v["valid"]), up(v_cnt), up(v["req"]), up(v["mfs"]),
-            up(v["manti"]), up(v["mall"]),
-            up(nom["req"]), up(nom["cnt"]), up(nom["mfs"]),
-            up(nom["manti"]), up(nom["mall"]),
-            up(pre["req"]), up(pre["cnt"]), up(pre["shared"]),
-            up(pre["anti"]), up(pre["aff"]),
-            torch.tensor(int(pre["atot"]), dtype=_CNT, device=self.device),
-            tj=tj, dyn_ipa=self.dyn_ipa, dyn_ports=self.dyn_ports,
-            has_nom=bool(nom["has_nom"]),
-        )
+        tab, d, any_f = self.tables(tj)
+        if v.get("cnt") is None:
+            # singleton slots: count == validity (one member per slot)
+            v = dict(v, cnt=np.asarray(v["valid"]).astype(np.int64))
+        dims = wk.launch_dims(d, np.asarray(v["valid"]).shape[1],
+                              bool(nom["has_nom"]), any_f)
+        # one pinned staging buffer, one copy in; the caching host
+        # allocator keeps it until the copy has run
+        host = torch.empty(wk.layout(dims)[1], dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        wk.pack(v, nom, pre, dims, host.numpy())
+        buf = host.to(self.device, non_blocking=True)
+        return whatif_device(tab, buf, dims)
 
     def gang_fits(self, tj: int, k: int) -> bool:
         """Can k members of template tj co-place right now? One pass of

@@ -31,10 +31,11 @@ ran on a scratch snapshot; `scheduler_session_rebuilds_total` must not
 move from planning).
 
 Port of kubernetes_tpu/scheduler/preemption_device.py, the same code but
-for the launch's wait: the what-if program (ops/whatif.py, its walk the
-CUDA kernel of ops/whatif_kernel.py on the card) is enqueued on the
+for the launch's wait: the what-if program (ops/whatif.py; on the card
+the hand-written kernels of ops/whatif_kernel.py) is enqueued on the
 backend's stream, a CUDA event is recorded after it, the watchdog waits on
-that event, and the three outputs are read back once after it.
+that event, and its one output tensor (fits_now, base, victims) is read
+back once after it.
 """
 
 from __future__ import annotations
@@ -284,7 +285,7 @@ class DevicePreemptionPlanner(FastPreemptionPlanner):
         (fits_now, Candidate | None). Raises WhatifUnavailable /
         DeviceFault to fall a rung, WhatifKernelError to stop."""
         from ..ops.whatif import WhatifUnavailable, slot_bucket
-        from ..ops.whatif_kernel import WhatifKernelError
+        from ..ops.whatif_kernel import WhatifKernelError, outputs
         from .volume_device import VolumeResolutionChanged
 
         backend = self.backend
@@ -411,6 +412,7 @@ class DevicePreemptionPlanner(FastPreemptionPlanner):
         except Exception as e:  # noqa: BLE001 — a CUDA error surfaces
             # at whichever call meets it first
             raise WhatifKernelError(f"what-if launch raised: {e}") from e
+        ys = outputs(ys)
         fits_now = ys["fits_now"].numpy()
         base = ys["base"].numpy()
         victims_dev = ys["victims"].numpy()

@@ -1,10 +1,11 @@
 """The port's what-if preemption planner (kubernetes_tpu_torch/ops/whatif.py,
-ops/whatif_kernel.py's plain walk, scheduler/preemption_device.py) against
-the reference's, on the CPU. The path is integer and bool throughout, so
-every comparison is exact equality.
+ops/whatif_kernel.py's plain version, scheduler/preemption_device.py)
+against the reference's, on the CPU. The path is integer and bool
+throughout, so every comparison is exact equality.
 
-- The program: the port's `_whatif_run` (the torch prologue, then
-  `whatif_walk_reference`) against the reference's jitted `_whatif_run`, on
+- The program: the port's `WhatifContext.run` (on the CPU the plain
+  version: the torch prologue, then `whatif_walk_reference`) against the
+  reference's jitted `_whatif_run`, on
   what-if contexts built from the same real clusters in each package, with
   seeded random victim slots (padded slots, gang slots with v_cnt > 1),
   nominated aggregates and claimed-victim drains: plain, affinity-term
@@ -47,7 +48,8 @@ from kubernetes_tpu.testing.synth import make_node, make_pod
 from kubernetes_tpu_torch.api import types as port_v1
 from kubernetes_tpu_torch.ops import whatif
 from kubernetes_tpu_torch.ops.whatif_kernel import (
-    whatif_walk,
+    outputs,
+    whatif_device,
     whatif_walk_reference,
 )
 from kubernetes_tpu_torch.scheduler.framework.snapshot import Snapshot
@@ -234,7 +236,7 @@ def test_whatif_run_matches_reference(kind, has_nom, gang):
         v, nom, pre = _random_inputs(rng, rctx, nps, host, 8, gang, has_nom,
                                      drain=seed % 2 == 1)
         want = rctx.run(tj, v, nom, pre)
-        got = pctx.run(tj, v, nom, pre)
+        got = outputs(pctx.run(tj, v, nom, pre))
         for key in ("fits_now", "base", "victims"):
             w = np.asarray(want[key])
             g = got[key].numpy()
@@ -251,7 +253,7 @@ def test_whatif_run_matches_reference(kind, has_nom, gang):
 
 def _assert_same_run(rctx, pctx, tj, v, nom, pre):
     want = rctx.run(tj, v, nom, pre)
-    got = pctx.run(tj, v, nom, pre)
+    got = outputs(pctx.run(tj, v, nom, pre))
     for key in ("fits_now", "base", "victims"):
         assert np.array_equal(got[key].numpy(), np.asarray(want[key])), key
     return {k: np.asarray(a) for k, a in want.items()}
@@ -331,13 +333,14 @@ def test_whatif_run_singleton_slots_default_count():
                                  rb.enc.host_snapshot(), 4, False, False)
     del v["cnt"]
     want = rctx.run(tj, v, nom, pre)
-    got = pctx.run(tj, v, nom, pre)
+    got = outputs(pctx.run(tj, v, nom, pre))
     for key in ("fits_now", "base", "victims"):
         assert np.array_equal(got[key].numpy(), np.asarray(want[key])), key
 
 
 def test_walk_wrapper_routes_cpu_to_plain():
-    """whatif_walk on CPU tensors is its plain version (no launch)."""
+    """whatif_device on CPU tensors is its plain version (no launch): the
+    torch prologue, then the reference's walk, on the packed inputs."""
     from kubernetes_tpu_torch.ops import whatif_kernel
 
     rb, pb, rctx, pctx, rpa, ppa = _contexts("spread", seed=2)
@@ -346,17 +349,25 @@ def test_walk_wrapper_routes_cpu_to_plain():
     rng = np.random.default_rng(3)
     v, nom, pre = _random_inputs(rng, rctx, rctx.np_slices(tj),
                                  rb.enc.host_snapshot(), 4, True, True)
-    t = {k: torch.from_numpy(np.asarray(a)) for k, a in pre.items()}
-    p = whatif.whatif_prologue(
-        sess._S, sess._c_static, pctx.carry, t["req"], t["cnt"],
-        t["shared"], t["anti"], t["aff"], t["atot"], tj=tj)
+    tab, d, any_f = pctx.tables(tj)
+    dims = whatif_kernel.launch_dims(d, 4, True, any_f)
+    buf = np.zeros(whatif_kernel.layout(dims)[1], np.uint8)
+    whatif_kernel.pack(v, nom, pre, dims, buf)
+    before = whatif_kernel.LAUNCHES, whatif_kernel.CONTEXT_LAUNCHES
+    got = outputs(whatif_device(tab, torch.from_numpy(buf), dims))
+    assert (whatif_kernel.LAUNCHES, whatif_kernel.CONTEXT_LAUNCHES) == before
+    # the torch prologue from the session's tables, nothing cached
+    tab0 = whatif_kernel.tables(sess._S, sess._c_static, pctx.carry, tj,
+                                False, False)
+    tab0.update(whatif_kernel.context_reference(tab0, d))
+    p = whatif_kernel.lane_prologue(tab0, {
+        f"pre_{k}": torch.from_numpy(np.asarray(a)).reshape(
+            (1,) if k == "atot" else np.shape(a))
+        for k, a in pre.items()}, False)
     vt = {k: torch.from_numpy(a) for k, a in v.items()}
     nt = {k: torch.from_numpy(np.asarray(a)) for k, a in nom.items()
           if k != "has_nom"}
-    before = whatif_kernel.LAUNCHES
-    got = whatif_walk(p, vt, nt, has_nom=True, dyn_ipa=False)
     plain = whatif_walk_reference(p, vt, nt, has_nom=True, dyn_ipa=False)
-    assert whatif_kernel.LAUNCHES == before
     for key in ("fits_now", "base", "victims"):
         assert torch.equal(got[key], plain[key]), key
 
@@ -366,9 +377,11 @@ def test_walk_wrapper_routes_cpu_to_plain():
     ("ports", False),
 ])
 def test_walk_inputs_match_kernel_specs(kind, has_nom, monkeypatch):
-    """What the planner's launch hands the walk is what the CUDA kernel
-    reads: every tensor of `_specs` present, of its dtype and shape, and
-    contiguous (the wrapper raises on anything else on the card)."""
+    """What the planner's launch hands `whatif_device` is what the CUDA
+    kernels read: every table and invariant of the specs present, of its
+    dtype and shape, and contiguous, the packed buffer of the layout's
+    size, and every dim the kernels take (the wrapper raises on anything
+    else on the card)."""
     from kubernetes_tpu_torch.ops import whatif_kernel
 
     rb, pb, rctx, pctx, rpa, ppa = _contexts(kind, seed=3)
@@ -378,22 +391,25 @@ def test_walk_inputs_match_kernel_specs(kind, has_nom, monkeypatch):
                                  rb.enc.host_snapshot(), 8, True, has_nom)
     seen = []
 
-    def capture(p, v, nom, has_nom, dyn_ipa):
-        seen.append((p, v, nom, has_nom, dyn_ipa))
-        return whatif_walk(p, v, nom, has_nom=has_nom, dyn_ipa=dyn_ipa)
+    def capture(tab, buf, d):
+        seen.append((tab, buf, d))
+        return whatif_device(tab, buf, d)
 
-    monkeypatch.setattr(whatif, "whatif_walk", capture)
+    monkeypatch.setattr(whatif, "whatif_device", capture)
     pctx.run(tj, v, nom, pre)
-    ((p, vt, nt, hn, dyn_ipa),) = seen
-    assert hn == has_nom and dyn_ipa == kind.startswith("ipa")
-    d = whatif_kernel.shapes(p, vt)
-    named = whatif_kernel._named(p, vt, nt)
-    specs = whatif_kernel._specs(d, dyn_ipa, has_nom)
+    ((tab, buf, d),) = seen
+    assert d["dyn_ipa"] == kind.startswith("ipa")
+    assert d["has_nom"] == has_nom and set(whatif_kernel.DIMS) <= set(d)
+    specs = dict(whatif_kernel._table_specs(d), **whatif_kernel._inv_specs(d))
     assert set(specs) <= set(whatif_kernel.PTRS)
     for name, (dtype, shape) in specs.items():
-        t = named[name]
+        t = tab[name]
         assert (t.dtype, tuple(t.shape)) == (dtype, shape), name
         assert t.is_contiguous(), name
+    assert buf.dtype == torch.uint8
+    assert tuple(buf.shape) == (whatif_kernel.layout(d)[1],)
+    whatif_kernel.check(dict(tab, inp=buf), dict(
+        specs, inp=(torch.uint8, (whatif_kernel.layout(d)[1],))), "cpu")
 
 
 @pytest.mark.parametrize("kind", ["plain", "ports"])
@@ -759,7 +775,7 @@ class TestLadder:
                 raise WhatifKernelError("what-if kernel launch failed")
             raise RuntimeError("CUDA error: an illegal memory access")
 
-        monkeypatch.setattr(whatif, "whatif_walk", fail)
+        monkeypatch.setattr(whatif, "whatif_device", fail)
         f0 = sum(v for _, v in whatif_fallbacks.items())
         d0 = sum(v for _, v in device_faults.items())
         mode = pb.ladder.mode()
