@@ -296,11 +296,51 @@ Phases (each raises on failure; the script then exits non-zero):
    The kernels' line's scan_delta, whatif and whatif_context entries
    gain `mesh_launches` (phase 16's own, which must not be 0).
 
+17. the workload controllers and admission (controllers/, apiserver/
+   admission.py) driving the card's scheduler, after every earlier
+   session is released: the port's APIServer with the default admission
+   chain, informers, `scheduler.factory.create_scheduler` (TPUBackend on
+   the card, max_batch 2048), the ReplicaSet, Deployment, DaemonSet,
+   StatefulSet, Job, Namespace, Endpoints, volume-protection,
+   node-lifecycle and garbage-collector controllers started by hand, over
+   Default-5000n-10k's 5000 nodes (registered Ready, the not-ready taint
+   admission gives them lifted by the node lifecycle controller). Until
+   the kubelets are ported, `StatusWriter` stands in for them: it marks
+   every bound pod Running and Ready (a Job's pod Succeeded) and renews
+   the nodes' leases. Pods are cut by 4 (`CTRL_*`):
+   a. a Deployment of 512 zone-spread replicas (DoNotSchedule, maxSkew 1
+      per version), then a new template rolled out at maxSurge and
+      maxUnavailable 25 %: every replica bound once, zone skew <= 1 for
+      each ReplicaSet, no node over its allocatable, the first rollout's
+      bindings equal a fresh backend's `schedule_many` replay of its
+      batches, the rollout's deletions applied as deltas (scan_delta);
+   b. a Deployment of 256 replicas with a weight-100 preferred hostname
+      anti-affinity (ur > 0): every replica bound, scan_full_ipa on the
+      `CLUSTER`-block cluster, bindings equal a replay;
+   c. 32 nodes holding 17a's pods stop heartbeating (grace 8 s): the node
+      lifecycle controller taints them unreachable:NoExecute and evicts
+      17a's pods (`fast_failover`), the ReplicaSet re-creates them, each
+      re-bound, none created after a taint bound to a tainted node;
+      eviction-to-rebind latency, and the session teardowns and builds
+      the taints caused, by reason;
+   d. Deployment 17a deleted with background propagation: the garbage
+      collector removes its ReplicaSets and pods; the deletes flushed
+      into the live ScanSession leave carries equal to a fresh session's
+      built from the encoding; a Job of 128 pods binds as a fresh backend
+      fed that cluster decides, then completes; a DaemonSet over a 64-node
+      pool puts one pod on each pool node and none elsewhere, the rung of
+      each of its batches and every session refusal printed.
+   Every batch of a-c on the kernel session at the ladder's top rung, 0
+   device faults, 0 controller sync errors (`SyncErrors`); the kernels'
+   line gains `controllers_launches` (phase 17's own; scan_full,
+   scan_full_ipa and scan_delta must have some).
+
 It prints the kernels' line, a `{"hoisted_session": ...}` line with phase
 11's numbers, a `{"backend": ...}` line with phase 12's, a `{"loop": ...}`
 line with phase 13's, a `{"preemption": ...}` line with phase 14's, a
 `{"matrix": ...}` line with phase 15's, a `{"mesh": ...}` line with phase
-16's, then `{"ok": true, "device": {...}}` last.
+16's, a `{"controllers": ...}` line with phase 17's, then `{"ok": true,
+"device": {...}}` last.
 It needs a CUDA card and imports nothing of JAX or of the JAX package.
 """
 
@@ -3402,29 +3442,34 @@ def kernel_cell(label, out):
                              f"launches {out['launches']}")
 
 
-def replay_bindings(batches, nodes, device="cuda", volumes=None):
+def replay_bindings(batches, nodes, device="cuda", volumes=None, bound=(),
+                    weights=None):
     """The loop's batches, in the order it dispatched them, through a fresh
-    TPUBackend's `schedule_many` fed the same nodes through a
-    SchedulerCache; each batch's placements assumed back into the cache
-    (the loop's assume), as phase 12 does. `volumes`: the run's (PVCs,
-    PVs, CSINodes), read by the backend's volume resolver as the loop's
-    informers feed it."""
+    TPUBackend's `schedule_many` fed the same nodes (and the pods `bound`
+    to them before the first batch) through a SchedulerCache; each batch's
+    placements assumed back into the cache (the loop's assume), as phase
+    12 does. `volumes`: the run's (PVCs, PVs, CSINodes), read by the
+    backend's volume resolver as the loop's informers feed it; `weights`:
+    the loop backend's score weights (its profile's)."""
     from kubernetes_tpu_torch.scheduler.internal.cache import SchedulerCache
     from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
     from kubernetes_tpu_torch.scheduler.volume_device import (
         VolumeDeviceResolver,
     )
 
-    be = TPUBackend(device=device)
+    be = TPUBackend(device=device, weights=weights)
     if volumes is not None:
         pvcs, pvs, csinodes = volumes
         be.set_volume_resolver(VolumeDeviceResolver(
             lambda: pvcs, lambda: pvs, lambda: csinodes))
-    be.enc.reserve(pods=int(sum(len(b) for b in batches) * 1.25))
+    be.enc.reserve(pods=int((sum(len(b) for b in batches) + len(bound))
+                            * 1.25))
     cache = SchedulerCache()
     cache.add_listener(be)
     for node in nodes:
         cache.add_node(node)
+    for pod in bound:
+        cache.add_pod(pod)
     out = {}
     try:
         for batch in batches:
@@ -6113,6 +6158,935 @@ def phase_mesh(sk, gpu, zone, pref, churn0):
     return out, delta_launches, whatif
 
 
+# phase 17: the workload controllers and admission feeding
+# the card's scheduler, on Default-5000n-10k's nodes
+# (scripts/bench_configs.py:64-69, synth_cluster(5000), 3 zones; never
+# cut). Its pods are cut by 4 for the 900 s budget: the controllers' host
+# work grows faster than their pods (a ReplicaSet sync walks every pod, on
+# every pod event), and 2048 / 1024 / 512 took 129 s.
+CTRL_NODES = 5000
+CTRL_REPLICAS = 512              # 17a's Deployment (cut from 2048)
+CTRL_ANTI_REPLICAS = 256         # 17b's Deployment (cut from 1024)
+CTRL_STALE = 32                  # 17c's nodes that stop heartbeating
+CTRL_GRACE = 8.0                 # 17c's node_monitor_grace_period, s
+CTRL_MONITOR = 0.2               # 17c's node_monitor_period, s
+CTRL_JOB_PODS = 128              # 17d's Job, parallelism (cut from 512)
+CTRL_POOL = 64                   # 17d's DaemonSet pool (the last nodes)
+CTRL_MAX_BATCH = 2048            # the Default-5000n-10k row's max_batch
+CTRL_WAIT = 240.0                # the longest any wait of the phase may take
+
+
+def fast_failover(v1):
+    """A toleration that names node.kubernetes.io/unreachable:NoExecute
+    with a value the node lifecycle controller's taint does not carry.
+    Naming the key and effect keeps DefaultTolerationSeconds admission
+    from adding its 300 s toleration; not matching the taint makes the pod
+    leave an unreachable node at once (tolerationSeconds 0 says so too)
+    and keeps the scheduler from placing its replacement there: that
+    controller adds no unreachable:NoSchedule taint (upstream's
+    doNoScheduleTaintingPass does)."""
+    return v1.Toleration(key=v1.TAINT_NODE_UNREACHABLE, operator="Equal",
+                         value="partitioned", effect="NoExecute",
+                         toleration_seconds=0)
+
+
+def ctrl_template(v1, labels, image="app:1", spread=False, anti=False,
+                  failover=False):
+    """A controller's pod template with the Default-5000n-10k row's
+    requests (100m, 128Mi): `spread` a zone spread (DoNotSchedule, maxSkew
+    1) over pods with these labels; `anti` a weight-100 preferred pod
+    anti-affinity on the hostname against them; `failover` fast_failover's
+    toleration."""
+    spec = v1.PodSpec(containers=[v1.Container(
+        name="c", image=image, resources=v1.ResourceRequirements(
+            requests={"cpu": "100m", "memory": "128Mi"}))])
+    if spread:
+        spec.topology_spread_constraints = [v1.TopologySpreadConstraint(
+            max_skew=1, topology_key=v1.LABEL_ZONE,
+            when_unsatisfiable="DoNotSchedule",
+            label_selector=v1.LabelSelector(match_labels=dict(labels)))]
+    if anti:
+        spec.affinity = affinity(v1, "pref-anti", labels, v1.LABEL_HOSTNAME)
+    if failover:
+        spec.tolerations = [fast_failover(v1)]
+    return v1.PodTemplateSpec(metadata=v1.ObjectMeta(labels=dict(labels)),
+                              spec=spec)
+
+
+def web_deployment(v1, apps, name, replicas, version, image):
+    """A stateless service's Deployment (maxSurge and maxUnavailable 25 %):
+    its pods spread over the zones per version, so that each ReplicaSet
+    spreads on its own (as matchLabelKeys: [pod-template-hash] does
+    upstream), and leave an unreachable node at once."""
+    return apps.Deployment(
+        metadata=v1.ObjectMeta(name=name, namespace="default"),
+        spec=apps.DeploymentSpec(
+            replicas=replicas,
+            selector=v1.LabelSelector(match_labels={"app": name}),
+            template=ctrl_template(v1, {"app": name, "version": version},
+                                   image, spread=True, failover=True),
+            strategy=apps.DeploymentStrategy(
+                type="RollingUpdate",
+                rolling_update=apps.RollingUpdateDeployment(
+                    max_surge="25%", max_unavailable="25%"))))
+
+
+class StatusWriter:
+    """Stand-in for the kubelets, which the port does not have yet, as
+    tests/test_controllers.py `mark_running_ready` is: every pod bound to a
+    node is marked Running and Ready through the apiserver, a Job's pod
+    Succeeded (held while `hold_jobs` is set); and each node's lease
+    renewed on `heartbeat`. Records when each pod was added, bound and
+    deleted (the phase's clock), and how often a pod was bound."""
+
+    def __init__(self, cs, factory):
+        import queue
+        import threading
+
+        from kubernetes_tpu_torch.client.informer import EventHandler
+
+        self.cs = cs
+        self.q = queue.Queue()
+        self._lock = threading.Lock()
+        self.added, self.bound, self.deleted = {}, {}, {}
+        self.bind_counts = {}
+        self.hold_jobs, self.held = True, []
+        self._thread = None
+        factory.pods().add_event_handler(EventHandler(
+            on_add=self._on_add, on_update=self._on_update,
+            on_delete=self._on_delete))
+
+    @staticmethod
+    def key(pod):
+        return f"{pod.metadata.namespace}/{pod.metadata.name}"
+
+    def _on_add(self, pod):
+        self.added.setdefault(self.key(pod), time.perf_counter())
+        if pod.spec.node_name:
+            self._on_bind(pod)
+
+    def _on_update(self, old, new):
+        if new.spec.node_name and not old.spec.node_name:
+            self._on_bind(new)
+
+    def _on_bind(self, pod):
+        key = self.key(pod)
+        self.bound[key] = (pod.spec.node_name, time.perf_counter())
+        self.bind_counts[key] = self.bind_counts.get(key, 0) + 1
+        self.q.put(key)
+
+    def _on_delete(self, pod):
+        self.deleted[self.key(pod)] = time.perf_counter()
+
+    def start(self):
+        import threading
+
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="status-writer")
+        self._thread.start()
+
+    def stop(self):
+        self.q.put(None)
+        self._thread.join(timeout=10)
+
+    def release_jobs(self):
+        with self._lock:
+            self.hold_jobs = False
+            held, self.held = self.held, []
+        for key in held:
+            self.q.put(key)
+
+    def _loop(self):
+        from kubernetes_tpu_torch.apiserver.server import Conflict, NotFound
+
+        while True:
+            key = self.q.get()
+            if key is None:
+                return
+            ns, name = key.split("/", 1)
+            for _ in range(8):
+                try:
+                    pod = self.cs.pods.get(name, ns)
+                except NotFound:
+                    break
+                job = any(r.kind == "Job"
+                          for r in pod.metadata.owner_references or [])
+                with self._lock:
+                    hold = job and self.hold_jobs
+                    if hold:
+                        self.held.append(key)
+                if hold:
+                    break
+                self._mark(pod, job)
+                try:
+                    self.cs.pods.update_status(pod)
+                    break
+                except NotFound:
+                    break
+                except Conflict:
+                    continue
+
+    @staticmethod
+    def _mark(pod, job):
+        from kubernetes_tpu_torch.api import types as v1
+
+        if job:
+            pod.status.phase = "Succeeded"
+            return
+        pod.status.phase = "Running"
+        pod.status.start_time = time.time()
+        pod.status.conditions = [v1.PodCondition(type="Ready",
+                                                 status="True")]
+
+    def heartbeat(self, names):
+        """The kubelets' lease renewals (kube-node-lease/<node>)."""
+        from kubernetes_tpu_torch.api import types as v1
+        from kubernetes_tpu_torch.apiserver.server import NotFound
+
+        leases = self.cs.resource("leases")
+        now = time.time()
+        for name in names:
+            try:
+                lease = leases.get(name, "kube-node-lease")
+            except NotFound:
+                leases.create(v1.Lease(
+                    metadata=v1.ObjectMeta(name=name,
+                                           namespace="kube-node-lease"),
+                    spec=v1.LeaseSpec(holder_identity=name, renew_time=now)))
+                continue
+            lease.spec.renew_time = now
+            leases.update(lease)
+
+
+class SyncErrors:
+    """Counts the controllers' failed syncs by wrapping each controller's
+    sync entry points on the instance (the modules stay as they are):
+    a Conflict or AlreadyExists is the informer-lag retry the workers
+    expect and is counted apart; anything else is an error."""
+
+    def __init__(self):
+        import threading
+
+        self.errors, self.retries = {}, {}
+        self._lock = threading.Lock()
+
+    def count(self, counts, label):
+        with self._lock:
+            counts[label] = counts.get(label, 0) + 1
+
+    def wrap(self, ctrl, *names):
+        from kubernetes_tpu_torch.apiserver.server import (
+            AlreadyExists,
+            Conflict,
+        )
+
+        for name in names:
+            fn = getattr(ctrl, name)
+            label = f"{ctrl.name}.{name}"
+
+            def wrapped(*args, _fn=fn, _label=label, **kwargs):
+                try:
+                    return _fn(*args, **kwargs)
+                except (AlreadyExists, Conflict):
+                    self.count(self.retries, _label)
+                    raise
+                except Exception:
+                    self.count(self.errors, _label)
+                    raise
+
+            setattr(ctrl, name, wrapped)
+        return ctrl
+
+
+def wait_for(cond, label, timeout=CTRL_WAIT, interval=0.05):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{label}: not within {timeout:.0f} s")
+        time.sleep(interval)
+
+
+def zone_skew(pods, zone_of):
+    zones = {z: 0 for z in set(zone_of.values())}
+    for p in pods:
+        zones[zone_of[p.spec.node_name]] += 1
+    return max(zones.values()) - min(zones.values())
+
+
+def quantiles(xs):
+    if not xs:
+        return None, None
+    xs = sorted(xs)
+    return (statistics.median(xs),
+            xs[min(len(xs) - 1, int(round(0.99 * (len(xs) - 1))))])
+
+
+class ControllerWorld:
+    """Phase 17's cluster: the port's APIServer with the default admission
+    chain, one SharedInformerFactory, the Scheduler of
+    `scheduler.factory.create_scheduler` (the default profile, max_batch
+    2048, TPUBackend on `device`), the controllers started by hand, and
+    the StatusWriter; `CTRL_NODES` nodes of synth_cluster (the last
+    `CTRL_POOL` labelled pool=agents) registered Ready with their leases. A
+    NodeLifecycleController with a long grace period lifts the not-ready
+    taint admission puts on each new node; 17c swaps it for a short one."""
+
+    def __init__(self, sk, device="cuda"):
+        from kubernetes_tpu_torch.api import types as v1
+        from kubernetes_tpu_torch.apiserver import APIServer
+        from kubernetes_tpu_torch.apiserver.admission import (
+            install_default_admission,
+        )
+        from kubernetes_tpu_torch.client import (
+            Clientset,
+            SharedInformerFactory,
+        )
+        from kubernetes_tpu_torch.client.informer import EventHandler
+        from kubernetes_tpu_torch.controllers.daemonset import (
+            DaemonSetController,
+        )
+        from kubernetes_tpu_torch.controllers.deployment import (
+            DeploymentController,
+        )
+        from kubernetes_tpu_torch.controllers.endpoints import (
+            EndpointsController,
+        )
+        from kubernetes_tpu_torch.controllers.job import JobController
+        from kubernetes_tpu_torch.controllers.namespace import (
+            NamespaceController,
+        )
+        from kubernetes_tpu_torch.controllers.replicaset import (
+            ReplicaSetController,
+        )
+        from kubernetes_tpu_torch.controllers.statefulset import (
+            StatefulSetController,
+        )
+        from kubernetes_tpu_torch.controllers.volumeprotection import (
+            PVCProtectionController,
+            PVProtectionController,
+        )
+        from kubernetes_tpu_torch.scheduler.apis.config import (
+            default_configuration,
+        )
+        from kubernetes_tpu_torch.scheduler.factory import create_scheduler
+        from kubernetes_tpu_torch.testing.synth import synth_cluster
+
+        t0 = time.perf_counter()
+        self.sk, self.device, self.v1 = sk, device, v1
+        self.api = APIServer()
+        install_default_admission(self.api)
+        self.cs = Clientset(self.api)
+        nodes, _ = synth_cluster(CTRL_NODES)
+        now = time.time()
+        for i, node in enumerate(nodes):
+            if i >= CTRL_NODES - CTRL_POOL:
+                node.metadata.labels["pool"] = "agents"
+            node.status.conditions = [v1.NodeCondition(
+                type="Ready", status="True", last_heartbeat_time=now)]
+            self.cs.nodes.create(node)
+        self.names = [n.metadata.name for n in nodes]
+        self.pool = set(self.names[CTRL_NODES - CTRL_POOL:])
+        self.zone_of = {n.metadata.name: n.metadata.labels[v1.LABEL_ZONE]
+                        for n in nodes}
+        self.factory = SharedInformerFactory(self.cs)
+        cfg = default_configuration()
+        cfg.max_batch = CTRL_MAX_BATCH
+        self.run = LoopRun(device == "cuda")
+        self.sched = create_scheduler(self.cs, self.factory, cfg,
+                                      device=device)
+        self.be = self.sched.tpu
+        self._watch_sessions()
+        pods = 2 * CTRL_REPLICAS + CTRL_ANTI_REPLICAS + CTRL_JOB_PODS \
+            + CTRL_POOL
+        self.be.enc.reserve(pods=int(pods * 1.25),
+                            score_terms=int(CTRL_ANTI_REPLICAS * 1.25))
+        self.writer = StatusWriter(self.cs, self.factory)
+        self.writer.heartbeat(self.names)
+        self.heartbeat_t = time.time()
+        self.tainted = {}
+        self.factory.nodes().add_event_handler(EventHandler(
+            on_update=self._on_node))
+        self.errors = SyncErrors()
+        self.controllers = [self.errors.wrap(c, "sync") for c in (
+            ReplicaSetController(self.cs, self.factory),
+            DeploymentController(self.cs, self.factory),
+            DaemonSetController(self.cs, self.factory),
+            StatefulSetController(self.cs, self.factory),
+            JobController(self.cs, self.factory),
+            NamespaceController(self.cs, self.factory),
+            EndpointsController(self.cs, self.factory),
+            PVCProtectionController(self.cs, self.factory),
+            PVProtectionController(self.cs, self.factory))]
+        self.nlc = self.lifecycle(period=1.0, grace=3600.0)
+        self.gc = None
+        self.factory.start()
+        if not self.factory.wait_for_cache_sync(timeout=180.0):
+            raise AssertionError("17: informer sync failed")
+        for c in self.controllers:
+            c.run()
+        self.nlc.run()
+        self.writer.start()
+        self.sched.start()
+        not_ready = v1.TAINT_NODE_NOT_READY
+        wait_for(lambda: not any(
+            t.key == not_ready for n in self.factory.nodes().list()
+            for t in n.spec.taints or []), "17: the not-ready taints")
+        self.setup_s = time.perf_counter() - t0
+
+    def _watch_sessions(self):
+        """Record each teardown request of the backend's session (its
+        reason, and whether a session was live) and each build (the
+        reason of the teardown before it, the session class)."""
+        be = self.be
+        self.invalidations, self.builds = [], []
+        invalidate, build = be._invalidate_session, be._build_session
+
+        def invalidate_session(reason="unspecified"):
+            self.invalidations.append((reason, be._session is not None))
+            invalidate(reason)
+
+        def build_session():
+            s = build()
+            self.builds.append(f"{type(s).__name__}/"
+                               f"{be._last_invalidate or 'initial'}")
+            return s
+
+        be._invalidate_session = invalidate_session
+        be._build_session = build_session
+
+    def lifecycle(self, period, grace):
+        from kubernetes_tpu_torch.controllers.nodelifecycle import (
+            NodeLifecycleController,
+        )
+
+        return self.errors.wrap(NodeLifecycleController(
+            self.cs, self.factory, node_monitor_period=period,
+            node_monitor_grace_period=grace),
+            "monitor_node_health", "process_evictions")
+
+    def _on_node(self, old, new):
+        key = self.v1.TAINT_NODE_UNREACHABLE
+        if any(t.key == key and t.effect == "NoExecute"
+               for t in new.spec.taints or []):
+            self.tainted.setdefault(new.metadata.name, time.perf_counter())
+
+    def close(self):
+        for c in self.controllers:
+            c.stop()
+        for c in (self.nlc, self.gc):
+            if c is not None:
+                c.stop()
+        self.writer.stop()
+        self.sched.shutdown()
+        self.factory.stop()
+        self.be.close()
+        self.run.close()
+
+    # -- reading the world (through the informers: a list from the
+    # apiserver decodes every object, and polling it would hold the
+    # interpreter that the controllers and the scheduler share) ----------
+
+    def pods(self, **labels):
+        return [p for p in self.factory.pods().list() if all(
+            (p.metadata.labels or {}).get(k) == v for k, v in labels.items())]
+
+    def nodes(self):
+        return self.factory.nodes().list()
+
+    def replicasets(self):
+        return self.factory.informer_for("replicasets").list()
+
+    def rs_of(self, app, version):
+        for rs in self.replicasets():
+            if rs.metadata.labels.get("app") == app and \
+                    rs.metadata.labels.get("version") == version:
+                return rs
+        return None
+
+    def available(self, app, version, want):
+        rs = self.rs_of(app, version)
+        return rs is not None and rs.status.available_replicas == want \
+            and len(self.pods(app=app, version=version)) == want
+
+    def idle(self):
+        """The scheduler has nothing queued or in flight."""
+        with self.sched._inflight_lock:
+            busy = self.sched._inflight
+        return not busy and self.sched.queue.num_active() == 0
+
+    def checks(self, label, pods):
+        """Every pod bound once, to one node; no node over its
+        allocatable."""
+        nodes = self.nodes()
+        unbound = [p.metadata.name for p in pods if not p.spec.node_name]
+        twice = {k: n for k, n in self.writer.bind_counts.items() if n > 1}
+        over = overcommitted(self.pods(), nodes)
+        if unbound or twice or over:
+            raise AssertionError(f"{label}: unbound {unbound[:5]}, bound "
+                                 f"twice {list(twice)[:5]}, nodes over "
+                                 f"their allocatable {over[:5]}")
+
+    def mark(self):
+        """(batches, kernel events, counters, launches, session
+        teardowns and builds) so far."""
+        return (len(self.run.batches), len(self.run.events), counters(),
+                dict(self.sk.VARIANT_LAUNCHES),
+                dict(self.sk.CLUSTER_LAUNCHES), len(self.invalidations),
+                len(self.builds))
+
+    def since(self, mark, label, top=True):
+        """What the case from `mark` on did: batches, their rungs, kernel
+        ms (CUDA events), launches by variant and cluster size, session
+        builds by kind (a kernel refusal's reason shows there) and by the
+        teardown before them, teardown requests by reason ([calls, of a
+        live session]), delta applies by kind; with `top`,
+        every batch on the kernel session at the ladder's top rung and 0
+        device faults."""
+        b0, e0, c0, l0, k0, i0, s0 = mark
+        delta = counters_delta(c0)
+        events = [(a, b) for tag, a, b in self.run.events[e0:]
+                  if tag != "replay"]
+        if events:
+            import torch
+
+            torch.cuda.synchronize()
+        rungs = {}
+        for n, kind, mode in self.run.rungs[b0:]:
+            r = rungs.setdefault(f"{kind}/{mode}", [0, 0])
+            r[0] += 1
+            r[1] += n
+        ms = [a.elapsed_time(b) for a, b in events]
+        out = {
+            "batches": len(self.run.batches) - b0, "rungs": rungs,
+            "launches": launched(self.sk, l0),
+            "cluster_launches": {k: v - k0[k] for k, v in
+                                 self.sk.CLUSTER_LAUNCHES.items()
+                                 if v != k0[k]},
+            "session_builds": {"/".join(k[:2]): v for k, v in
+                               delta["session_builds"].items()},
+            "builds_after": {},
+            "teardowns": {},
+            "delta_applies": {k[0]: v for k, v in
+                              delta["session_delta_applies"].items()},
+            "device_faults": sum(delta["device_faults"].values()),
+            "kernel_ms": sum(ms),
+        }
+        for b in self.builds[s0:]:
+            out["builds_after"][b] = out["builds_after"].get(b, 0) + 1
+        for reason, live in self.invalidations[i0:]:
+            t = out["teardowns"].setdefault(reason, [0, 0])
+            t[0] += 1
+            t[1] += live
+        if top:
+            top_mode = self.be.ladder.mode() if \
+                self.be.ladder.rung() == self.be.ladder.top else None
+            off = [k for k in rungs if k != f"ScanSession/{top_mode}"]
+            if off or self.be.ladder.demotions or out["device_faults"]:
+                raise AssertionError(
+                    f"{label}: batches off the kernel rung {rungs}, "
+                    f"{self.be.ladder.demotions} demotions, "
+                    f"{out['device_faults']} device faults")
+        return out
+
+    def replay(self, label, b0, b1, bound):
+        """The loop's batches b0:b1 through a fresh backend fed the nodes
+        and the pods bound before them: the same bindings. Its launches
+        are a comparison's: they are taken out of the counts again, and
+        its CUDA events are tagged "replay"."""
+        sk = self.sk
+        nodes = self.nodes()
+        counts = (dict(sk.VARIANT_LAUNCHES), dict(sk.CLUSTER_LAUNCHES),
+                  sk.LAUNCHES)
+        t0 = time.perf_counter()
+        self.run._tag = "replay"
+        try:
+            want = replay_bindings(self.run.batches[b0:b1], nodes,
+                                   device=self.device, bound=bound,
+                                   weights=self.be.weights)
+        finally:
+            self.run._tag = "other"
+            sk.VARIANT_LAUNCHES.update(counts[0])
+            sk.CLUSTER_LAUNCHES.update(counts[1])
+            sk.LAUNCHES = counts[2]
+        got = {p.metadata.name: p.spec.node_name for p in self.pods()}
+        diff = sorted(k for k in want if got.get(k) != want[k])
+        if diff or not want:
+            raise AssertionError(f"{label}: {len(diff)} of {len(want)} "
+                                 f"bindings differ from the replay, first "
+                                 f"{diff[:5]}")
+        return {"replayed": len(want), "batches": b1 - b0,
+                "replay_s": time.perf_counter() - t0}
+
+
+def ctrl_rollout(w, gpu):
+    """17a: a Deployment's first rollout, then a rolling update."""
+    from kubernetes_tpu_torch.api import apps
+
+    v1, cs = w.v1, w.cs
+    m0 = w.mark()
+    t0 = time.perf_counter()
+    cs.deployments.create(web_deployment(v1, apps, "web", CTRL_REPLICAS,
+                                         "v1", "web:1"))
+    wait_for(lambda: w.available("web", "v1", CTRL_REPLICAS) and w.idle(),
+             "17a: the first rollout")
+    first = w.pods(app="web", version="v1")
+    w.checks("17a", first)
+    skew1 = zone_skew(first, w.zone_of)
+    keys = [StatusWriter.key(p) for p in first]
+    t_create = min(w.writer.added[k] for k in keys)
+    t_bind = max(w.writer.bound[k][1] for k in keys)
+    a = {"first": w.since(m0, "17a first rollout"),
+         "pods_per_s": len(first) / (t_bind - t_create),
+         "first_create_to_last_bind_s": t_bind - t_create,
+         "first_wall_s": time.perf_counter() - t0}
+    a["first"].update(w.replay("17a", m0[0], len(w.run.batches), ()))
+    m1 = w.mark()
+    # the rolling update: a new template (image and version label)
+    t1 = time.perf_counter()
+    live = cs.deployments.get("web", "default")
+    live.spec.template = web_deployment(v1, apps, "web", CTRL_REPLICAS,
+                                        "v2", "web:2").spec.template
+    cs.deployments.update(live)
+
+    def rolled():
+        old = w.rs_of("web", "v1")
+        return (old is not None and old.spec.replicas == 0
+                and old.status.replicas == 0
+                and not w.pods(app="web", version="v1")
+                and w.available("web", "v2", CTRL_REPLICAS) and w.idle())
+
+    wait_for(rolled, "17a: the rolling update")
+    a["rollout_wall_s"] = time.perf_counter() - t1
+    new = w.pods(app="web", version="v2")
+    w.checks("17a update", new)
+    skew2 = zone_skew(new, w.zone_of)
+    a["update"] = w.since(m1, "17a rolling update")
+    a["zone_skew"] = {"v1": skew1, "v2": skew2}
+    removes = a["update"]["delta_applies"].get("pod-remove", 0)
+    if skew1 > 1 or skew2 > 1 or not a["update"]["launches"].get(
+            "scan_delta") or not removes:
+        raise AssertionError(f"17a: zone skew {a['zone_skew']}, launches "
+                             f"{a['update']['launches']}, delta applies "
+                             f"{a['update']['delta_applies']}")
+    log(f"phase 17a Deployment web, {CTRL_REPLICAS} zone-spread replicas "
+        f"over {CTRL_NODES} nodes: the first rollout bound every replica "
+        f"once ({a['pods_per_s']:.1f} pods/s from the controller's first "
+        f"create to the last bind, {a['first_create_to_last_bind_s']:.2f} "
+        f"s; zone skew {skew1}), equal to a fresh backend's replay of its "
+        f"{a['first']['batches']} batches; the rolling update (maxSurge "
+        f"25 %, maxUnavailable 25 %) took {a['rollout_wall_s']:.2f} s to "
+        f"the old ReplicaSet at 0 and {CTRL_REPLICAS} new Ready (zone skew "
+        f"{skew2}), no node over its allocatable; first rollout "
+        f"{a['first']}; update {a['update']} [{gpu}]")
+    return a
+
+
+def ctrl_anti(w, gpu):
+    """17b: a second Deployment whose pods prefer other hostnames than
+    their own (ur > 0)."""
+    from kubernetes_tpu_torch.api import apps
+
+    v1, cs = w.v1, w.cs
+    bound = w.pods()
+    m0 = w.mark()
+    t0 = time.perf_counter()
+    cs.deployments.create(apps.Deployment(
+        metadata=v1.ObjectMeta(name="api", namespace="default"),
+        spec=apps.DeploymentSpec(
+            replicas=CTRL_ANTI_REPLICAS,
+            selector=v1.LabelSelector(match_labels={"app": "api"}),
+            template=ctrl_template(v1, {"app": "api", "version": "v1"},
+                                   "api:1", anti=True))))
+    wait_for(lambda: w.available("api", "v1", CTRL_ANTI_REPLICAS)
+             and w.idle(), "17b: the rollout")
+    pods = w.pods(app="api")
+    w.checks("17b", pods)
+    b1 = len(w.run.batches)
+    b = w.since(m0, "17b")
+    b["wall_s"] = time.perf_counter() - t0
+    ipa = b["launches"].get("scan_full_ipa", 0)
+    on_cluster = b["cluster_launches"].get(w.sk.CLUSTER, 0)
+    if not ipa or on_cluster != ipa + b["launches"].get("scan_full", 0):
+        raise AssertionError(f"17b: launches {b['launches']}, cluster "
+                             f"sizes {b['cluster_launches']}")
+    b.update(w.replay("17b", m0[0], b1, bound))
+    log(f"phase 17b Deployment api, {CTRL_ANTI_REPLICAS} replicas with a "
+        f"weight-100 preferred hostname anti-affinity: every replica bound "
+        f"once in {b['wall_s']:.2f} s, scan_full_ipa launched {ipa} times, "
+        f"all on the {w.sk.CLUSTER}-block cluster; bindings equal a fresh "
+        f"backend's replay of its {b['batches']} batches; {b} [{gpu}]")
+    return b
+
+
+def ctrl_lifecycle(w, gpu):
+    """17c: nodes that stop heartbeating are tainted and drained; the
+    ReplicaSet re-creates the evicted pods."""
+    import threading
+
+    holding = sorted({p.spec.node_name for p in w.pods(app="web")} - w.pool,
+                     key=lambda n: int(n.split("-")[1]))
+    stale = set(holding[:CTRL_STALE])
+    healthy = [n for n in w.names if n not in stale]
+    on_stale = {StatusWriter.key(p) for p in w.pods(app="web")
+                if p.spec.node_name in stale}
+    m0 = w.mark()
+    t0 = time.perf_counter()
+    # the long-grace controller steps down; every node but the stale ones
+    # renews its lease, and keeps renewing while 17c runs
+    w.nlc.stop()
+    w.writer.heartbeat(healthy)
+    age = time.time() - w.heartbeat_t
+    if age <= CTRL_GRACE:
+        time.sleep(CTRL_GRACE - age + 0.1)
+    stop = threading.Event()
+
+    def renew():
+        while not stop.wait(CTRL_GRACE / 3):
+            w.writer.heartbeat(healthy)
+
+    renewer = threading.Thread(target=renew, daemon=True)
+    renewer.start()
+    w.nlc = w.lifecycle(period=CTRL_MONITOR, grace=CTRL_GRACE)
+    t_start = time.perf_counter()
+    w.nlc.run()
+    try:
+        wait_for(lambda: stale <= set(w.tainted), "17c: the taints")
+        wait_for(lambda: all(k in w.writer.deleted for k in on_stale),
+                 "17c: the evictions")
+        wait_for(lambda: w.available("web", "v2", CTRL_REPLICAS)
+                 and w.idle(), "17c: the re-binds")
+    finally:
+        stop.set()
+        renewer.join(timeout=10)
+        w.nlc.stop()
+    w.nlc = None
+    t_taint = min(w.tainted[n] for n in stale)
+    extra = set(w.tainted) - stale
+    pods = w.pods()
+    web = [p for p in pods if p.metadata.labels.get("app") == "web"]
+    w.checks("17c", web)
+    # replicas created after the first taint, and any pod (deleted since
+    # or not) created after its node's taint that was bound there
+    fresh = [StatusWriter.key(p) for p in web
+             if w.writer.added[StatusWriter.key(p)] > t_taint]
+    landed = [k for k, (node, _) in w.writer.bound.items()
+              if node in w.tainted
+              and w.writer.added.get(k, 0.0) > w.tainted[node]]
+    evicted = sorted(w.writer.deleted[k] for k in on_stale)
+    rebinds = sorted(w.writer.bound[k][1] for k in fresh)
+    lat = [b - e for e, b in zip(evicted, rebinds)]
+    c = w.since(m0, "17c")
+    c.update({
+        "stale_nodes": len(stale), "tainted_other_nodes": len(extra),
+        "evicted": len(on_stale), "recreated": len(fresh),
+        "landed_on_tainted": landed,
+        "web_left_on_tainted": sum(p.spec.node_name in stale for p in web),
+        "api_left_on_tainted": sum(p.spec.node_name in stale for p in pods
+                                   if p.metadata.labels.get("app") == "api"),
+        "taint_after_s": t_taint - t_start,
+        "evict_to_rebind_p50_s": quantiles(lat)[0],
+        "evict_to_rebind_p99_s": quantiles(lat)[1],
+        "wall_s": time.perf_counter() - t0})
+    if extra or landed or c["web_left_on_tainted"] or \
+            len(fresh) != len(on_stale) or not on_stale:
+        raise AssertionError(f"17c: {c}")
+    log(f"phase 17c node lifecycle: {len(stale)} nodes holding web pods "
+        f"stopped heartbeating (grace {CTRL_GRACE} s, monitor "
+        f"{CTRL_MONITOR} s), tainted unreachable:NoExecute "
+        f"{c['taint_after_s']:.2f} s after the controller started; "
+        f"{len(on_stale)} web pods evicted and re-created, each re-bound "
+        f"(eviction to re-bind p50 {c['evict_to_rebind_p50_s']:.3f} s, p99 "
+        f"{c['evict_to_rebind_p99_s']:.3f} s), none on a tainted node; "
+        f"{c['api_left_on_tainted']} api pods stay there (DefaultToleration"
+        f"Seconds' 300 s); session teardowns by reason [calls, of a live "
+        f"session] {c['teardowns']}, builds after them {c['builds_after']};"
+        f" {c} [{gpu}]")
+    return c
+
+
+def ctrl_cascade(w, gpu):
+    """17d: the garbage collector's cascade into the live session, then a
+    Job and a DaemonSet."""
+    import numpy as np
+    from kubernetes_tpu_torch.api import apps, batch
+    from kubernetes_tpu_torch.controllers.garbagecollector import (
+        GarbageCollector,
+    )
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+
+    v1, cs, be = w.v1, w.cs, w.be
+    d = {}
+    m0 = w.mark()
+    t0 = time.perf_counter()
+    w.gc = w.errors.wrap(GarbageCollector(cs, scan_interval=0.5),
+                         "collect_once")
+    w.gc.run()
+    keys = [StatusWriter.key(p) for p in w.pods(app="web")]
+    web = len(keys)
+    cs.deployments.delete("web", "default", propagation_policy="Background")
+
+    def collected():
+        return not w.pods(app="web") and not any(
+            rs.metadata.labels.get("app") == "web"
+            for rs in w.replicasets())
+
+    wait_for(collected, "17d: the cascade")
+    wait_for(lambda: not any(w.sched.cache.has_pod(k) for k in keys),
+             "17d: the scheduler's cache")
+    w.gc.stop()
+    w.gc = None
+    d["cascade_s"] = time.perf_counter() - t0
+    d["collected_pods"] = web
+    # the live session absorbed the deletes as deltas: flushed, its
+    # carries equal a fresh session's from the encoding at this moment
+    with be._lock:
+        sess = be._session
+        if not isinstance(sess, ScanSession):
+            raise AssertionError(f"17d: no live kernel session after the "
+                                 f"cascade ({type(sess).__name__})")
+        queued = len(be._deltas)
+        be._apply_session_deltas_locked()
+        be._sync_stream()
+        if be._session is not sess:
+            raise AssertionError("17d: the flush rebuilt the session")
+        state = {k: v.clone() for k, v in
+                 be.enc.device_state(w.device).items()}
+        fresh = ScanSession(state, list(be._known_templates.values()),
+                            be.weights, device=w.device)
+        if sess._carry is None:
+            sess._carry = sess._initial_carry()
+        a = unscaled(sess, sess._carry)
+        b = unscaled(fresh, fresh._initial_carry())
+    diff = [k for k in b if not np.array_equal(a[k], b[k])]
+    if diff or queued < web:
+        raise AssertionError(f"17d: carries {diff} differ from a fresh "
+                             f"session's ({queued} deltas queued for {web} "
+                             "deletes)")
+    d["queued_deltas"] = queued
+    del fresh
+    d["cascade"] = w.since(m0, "17d cascade", top=False)
+    # the Job, held to a fresh backend fed the cluster at this moment
+    bound = w.pods()
+    m1 = w.mark()
+    t1 = time.perf_counter()
+    cs.jobs.create(batch.Job(
+        metadata=v1.ObjectMeta(name="batch", namespace="default"),
+        spec=batch.JobSpec(
+            parallelism=CTRL_JOB_PODS, completions=CTRL_JOB_PODS,
+            template=ctrl_template(v1, {"app": "batch"}, "batch:1",
+                                   failover=True))))
+    wait_for(lambda: len(w.writer.held) == CTRL_JOB_PODS and w.idle(),
+             "17d: the Job's binds")
+    b2 = len(w.run.batches)
+    job = w.pods(app="batch")
+    w.checks("17d Job", job)
+    d["job"] = w.since(m1, "17d Job", top=False)
+    d["job"].update(w.replay("17d Job", m1[0], b2, bound))
+    w.writer.release_jobs()
+
+    def complete():
+        j = cs.jobs.get("batch", "default")
+        return any(c.type == "Complete" and c.status == "True"
+                   for c in j.status.conditions or [])
+
+    wait_for(complete, "17d: the Job's completion")
+    d["job"]["wall_s"] = time.perf_counter() - t1
+    # the DaemonSet over the pool
+    m2 = w.mark()
+    t2 = time.perf_counter()
+    tmpl = ctrl_template(v1, {"app": "agent"}, "agent:1")
+    tmpl.spec.node_selector = {"pool": "agents"}
+    cs.daemonsets.create(apps.DaemonSet(
+        metadata=v1.ObjectMeta(name="agent", namespace="kube-system"),
+        spec=apps.DaemonSetSpec(
+            selector=v1.LabelSelector(match_labels={"app": "agent"}),
+            template=tmpl)))
+
+    def daemons():
+        pods = w.pods(app="agent")
+        return len(pods) == CTRL_POOL and all(
+            p.spec.node_name for p in pods) and w.idle()
+
+    wait_for(daemons, "17d: the DaemonSet")
+    agents = w.pods(app="agent")
+    w.checks("17d DaemonSet", agents)
+    on = sorted(p.spec.node_name for p in agents)
+    if on != sorted(w.pool):
+        raise AssertionError(f"17d: DaemonSet pods on {on[:5]}..., not one "
+                             f"on each of the {CTRL_POOL} pool nodes")
+    d["daemonset"] = w.since(m2, "17d DaemonSet", top=False)
+    d["daemonset"]["wall_s"] = time.perf_counter() - t2
+    log(f"phase 17d garbage collection: deleting Deployment web "
+        f"(background) collected its ReplicaSets and {web} pods in "
+        f"{d['cascade_s']:.2f} s; {queued} queued deltas flushed into the "
+        f"live ScanSession, whose carries then equal a fresh session's "
+        f"from the encoding (unscaled, valid lanes); Job batch "
+        f"({CTRL_JOB_PODS} pods, parallelism {CTRL_JOB_PODS}) bound as a "
+        f"fresh backend fed that cluster decides ({d['job']['replayed']} "
+        f"pods, {d['job']['batches']} batches) and completed; DaemonSet "
+        f"agent one pod on each of the {CTRL_POOL} pool nodes, none "
+        f"elsewhere, its batches on {d['daemonset']['rungs']}, session "
+        f"builds {d['daemonset']['session_builds']} (a kernel refusal shows "
+        f"as a hoisted build's reason); cascade {d['cascade']}; Job "
+        f"{d['job']}; DaemonSet {d['daemonset']} [{gpu}]")
+    return d
+
+
+def phase_controllers(sk, gpu, device="cuda"):
+    """Phase 17: the workload controllers and admission driving the card's
+    scheduler (ControllerWorld; its StatusWriter stands in for the
+    kubelets until they are ported). Returns (numbers, launches per kernel
+    variant over the phase: counts set to 0 just before it)."""
+    t0 = time.perf_counter()
+    reset_counts(sk)
+    w = ControllerWorld(sk, device)
+    out = {"nodes": CTRL_NODES, "setup_s": w.setup_s}
+    try:
+        out["17a"] = ctrl_rollout(w, gpu)
+        out["17b"] = ctrl_anti(w, gpu)
+        out["17c"] = ctrl_lifecycle(w, gpu)
+        out["17d"] = ctrl_cascade(w, gpu)
+        window_s = time.perf_counter() - t0
+        kernel_ms = sum(w.run.kernel_ms(("init", "measured", "other")))
+    finally:
+        w.close()
+    launches = {k: v for k, v in sk.VARIANT_LAUNCHES.items() if v}
+    # the cases' sums (a replay's builds fall between their marks)
+    totals = {"session_builds": {}, "builds_after": {}, "delta_applies": {}}
+    for case in (out["17a"]["first"], out["17a"]["update"], out["17b"],
+                 out["17c"], out["17d"]["cascade"], out["17d"]["job"],
+                 out["17d"]["daemonset"]):
+        for key, acc in totals.items():
+            for k, v in case[key].items():
+                acc[k] = acc.get(k, 0) + v
+    out.update(totals)
+    out.update({
+        "launches": launches,
+        "sync_errors": w.errors.errors, "sync_retries": w.errors.retries,
+        "kernel_ms": kernel_ms,
+        "kernel_share": kernel_ms / 1e3 / window_s if window_s else None,
+        "phase_s": time.perf_counter() - t0})
+    if w.errors.errors:
+        raise AssertionError(f"17: controller sync errors {w.errors.errors}")
+    idle = [k for k in ("scan_full", "scan_full_ipa", "scan_delta")
+            if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"17: kernels the controllers' path never "
+                             f"launched: {idle}")
+    log(f"phase 17 the controllers: {out['17a']['pods_per_s']:.1f} pods/s "
+        f"from the first create to the last bind of 17a, rollout "
+        f"{out['17a']['rollout_wall_s']:.2f} s, eviction to re-bind p50 "
+        f"{out['17c']['evict_to_rebind_p50_s']:.3f} s p99 "
+        f"{out['17c']['evict_to_rebind_p99_s']:.3f} s; session builds by "
+        f"kind {out['session_builds']}, by the teardown before them "
+        f"{out['builds_after']}; launches {launches}; delta applies "
+        f"{out['delta_applies']}; kernel {kernel_ms:.1f} ms, "
+        f"{out['kernel_share']:.2%} of the phase's window; 0 sync errors "
+        f"({w.errors.retries} conflict retries); setup {w.setup_s:.1f} s, "
+        f"phase {out['phase_s']:.1f} s [{gpu}]")
+    return out, launches
+
+
 def ipa_ops(ipa, t) -> tuple:
     """The IPA branch's operations for one template-t pod, from the
     session's gate matrices: only the nonzero gate entries of the terms
@@ -6371,11 +7345,15 @@ def main() -> int:
     mesh, mesh_deltas, mesh_whatif = phase_mesh(sk, gpu, zone, aff[0],
                                                 churn[0])          # 16
     mark("16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    controllers, ctrl_launches = phase_controllers(sk, gpu)        # 17
+    mark("17")
     for k, v in (*pre_launches.items(), *matrix_launches.items()):
         loop_launches[k] = loop_launches.get(k, 0) + v
     log("seconds by phase: " + ", ".join(
         f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:]))
-        + f"; build and phases 3-16 {marks[-1][1] - t0:.1f}")
+        + f"; build and phases 3-17 {marks[-1][1] - t0:.1f}")
 
     zone["err"] = max(zone["err"], small_err)
     # scan_full_ipa reports its slower cell; `cells` keeps both cells'
@@ -6460,6 +7438,8 @@ def main() -> int:
         e["backend_launches"] = sum(backend_launches.get(v, 0)
                                     for v in variants)
         e["loop_launches"] = sum(loop_launches.get(v, 0) for v in variants)
+        e["controllers_launches"] = sum(ctrl_launches.get(v, 0)
+                                        for v in variants)
     idle = [n for n in ("scan_full", "scan_full_ipa", "scan_delta")
             if not next(e for e in kernels if e["name"] == n)[
                 "backend_launches"]]
@@ -6471,6 +7451,13 @@ def main() -> int:
                 "loop_launches"]]
     if idle:
         raise AssertionError(f"kernels the loop never launched: {idle}")
+    # phase 17: the controllers' path
+    idle = [n for n in ("scan_full", "scan_full_ipa", "scan_delta")
+            if not next(e for e in kernels if e["name"] == n)[
+                "controllers_launches"]]
+    if idle:
+        raise AssertionError(f"kernels the controllers never launched: "
+                             f"{idle}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"hoisted_session": hoisted}))
     log(json.dumps({"backend": backend}))
@@ -6478,6 +7465,7 @@ def main() -> int:
     log(json.dumps({"preemption": preemption}, default=str))
     log(json.dumps({"matrix": matrix}, default=str))
     log(json.dumps({"mesh": mesh}, default=str))
+    log(json.dumps({"controllers": controllers}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
