@@ -105,8 +105,8 @@ Phases (each raises on failure; the script then exits non-zero):
    CUDA graph of 200 launches replayed 5 times in turns (the medians);
 11. the hoisted session (`HoistedSession`, plain torch: a Python loop of
    per-pod steps, no kernel of its own):
-   a. from the encoding phase 4's session started from, the first 512
-      pods of phase 4's first measured batch: `HoistedSession(cuda)`
+   a. from the encoding phase 4's session started from, the first
+      `HOISTED_PODS` pods of phase 4's first measured batch: `HoistedSession(cuda)`
       decides as `ScanSession(cuda)`; its build s, ms per pod (host window
       and CUDA events), pods/s, ScanSession's ms per pod on the same pods,
       and, under `torch.profiler` over 64 pods, kernels per pod and the
@@ -123,7 +123,8 @@ Phases (each raises on failure; the script then exits non-zero):
    e. phase 9's zone-spread flush, as its classified delta dicts, into a
       `HoistedSession(cuda)` built from the encoding before the churn: the
       carries, alloc and allowed_pods then equal a fresh session's from
-      the mutated encoding, and the next 512 pods decide as it does;
+      the mutated encoding, and the next `HOISTED_PODS` pods decide as
+      it does;
    f. the f64 PTS weight log(n + 2) on the card: torch.log there against
       the port's table, and the table read on the card equal to the host's;
 12. the backend (`scheduler/tpu_backend.py` TPUBackend, on the card) fed
@@ -232,7 +233,7 @@ Phases (each raises on failure; the script then exits non-zero):
    session is released:
    a. ops/batch.py `schedule_batch` (eager torch, the reference's
       sequential batch) on phase 4's cluster at full width over the first
-      512 pods of its first measured batch: decisions == a ScanSession's
+      `SCHEDULE_BATCH_PODS` pods of its first measured batch: decisions == a ScanSession's
       on the same pods from the same encoding, and new_carry's
       requested / nz_requested / pod_count and pod rows == the host
       encoding after them; ms per pod (host window, CUDA events) and
@@ -242,8 +243,9 @@ Phases (each raises on failure; the script then exits non-zero):
       unschedulable churn, secrets, the in-tree / CSI / migrated PV rows,
       the pod-affinity and node-affinity rows at 500 and 5000 nodes)
       through `run_workload` on the card at the sizes that file gives
-      them, but for the measured pods of the 5000-node twins, PTS-heavy
-      and the 8- and 64-pod gangs (`TWIN_PODS`, `PTS_PODS`, `GANG_PODS`):
+      them, but for pods cut to fit the budget (`TWIN_PODS`, `PTS_PODS`,
+      `PTS_INIT_PODS`, `GANG_PODS`, `IPA_CHURN_PODS`,
+      `UNSCHED_CHURN_PODS`, `ROW500_PODS`):
       every measured pod bound (the two saturating rows: some), no node
       over its allocatable in any resource, no two anti-affine pods on
       one hostname, the ladder on its top rung with 0 device faults; the
@@ -269,8 +271,9 @@ Phases (each raises on failure; the script then exits non-zero):
    ShardedScanSession, TPUBackend(mesh=), Workload(mesh_devices)) on the
    card: shards share cuda:0, in both layouts — one group of k shards,
    and k one-shard groups (the cross-group collectives on one card):
-   a. phase 4's zone-spread cell (its first measured 4096-pod batch) and
-      phase 6's preferred-affinity cell (its 2048-pod batch, ur > 0), from
+   a. phase 4's zone-spread cell (its first measured batch) and phase
+      6's preferred-affinity cell (its 2048-pod batch, ur > 0), the first
+      `MESH_CELL_PODS` pods of each, from
       the encodings their sessions started from, at 1, 2, 3 and 8 shards
       in both layouts: best, score and n_feasible == ScanSession's on the
       same pods, the gathered carries == its carries; ms per pod, and
@@ -283,7 +286,7 @@ Phases (each raises on failure; the script then exits non-zero):
       carries == a rebuild's, the next batch as the rebuild and
       ScanSession;
    c. Mesh-20000n-8sh (scripts/bench_configs.py:305) through
-      `run_workload` unreduced: every batch on ShardedScanSession at the
+      `run_workload`: every batch on ShardedScanSession at the
       kernel rung; the bindings == the same row on the single-device loop
       and a `schedule_many` replay; pods/s and latency of both runs;
    d. the three Preemption rows' clusters, their first 64 preemptors
@@ -335,11 +338,54 @@ Phases (each raises on failure; the script then exits non-zero):
    line gains `controllers_launches` (phase 17's own; scan_full,
    scan_full_ipa and scan_delta must have some).
 
+18. the controller manager (controllers/manager.py) on phase 17's world
+   after 17d: phase 17's controllers stop and a supervised
+   `ControllerManager` over the same clientset starts every entry of
+   `new_controller_initializers()` (cluster_cidr 10.0.0.0/10, the HPA,
+   quota, TTL-after-finished, pod GC and CronJob loops at `MGR_PERIOD`,
+   the garbage collector's full scan every `MGR_GC_SCAN` s; its
+   StatefulSet controller is `claim_statefulset`'s, the stand-in for
+   volumeClaimTemplates); 17d's DaemonSet goes first (one of its syncs
+   timed); `StatusWriter` keeps renewing the leases:
+   a. takeover: one batch of `MGR_STANDING` pods builds a live session;
+      every loop running; nodeipam gives each of the 5000 nodes a distinct
+      podCIDR inside the range and the TTL controller annotates each, and
+      the session lives through those node updates: their events, the
+      backend's classification ms, teardowns, delta applies and session
+      builds by reason;
+   b. a 64-replica zone-spread Deployment under an HPA whose metrics
+      report twice the target scales to 256 while the ReplicaSet loop is
+      crashed once (`supervisor.crash`): 256 pods bound, zone skew <= 1,
+      restart count 1, bindings equal a replay; then back to 64;
+   c. a low-priority Deployment fills the 64 pool nodes under a
+      PodDisruptionBudget (minAvailable 90 %) the disruption controller
+      keeps current; 32 high-priority pool pods preempt on the device
+      rung (whatif, whatif_context), each wave's plan equal to the fast
+      rung's and (with no victim claimed) the oracle's on the same
+      snapshot and budgets; no victim at or above a preemptor's priority,
+      no node over its allocatable, the budget's disruptions_allowed what
+      its pods imply;
+   d. a 96-replica Parallel StatefulSet with a claim template against 96
+      zonal volumes (32 a zone): the PV binder binds each claim, each pod
+      lands in its volume's zone, bindings equal a replay with the run's
+      claims and volumes, the rung of each batch printed;
+   e. a namespace with a `pods: 64` ResourceQuota and three CronJobs due
+      at once, each a Job of 32 pods of one template
+      (ttlSecondsAfterFinished 0): quota used equal to the namespace's
+      live pods once it settles, admission refusing the pods past it
+      (counted), the finished Jobs and their pods deleted; the first
+      wave's removals reach the live session as deltas through the third
+      Job's batches (scan_delta), with no teardown or rebuild.
+   0 sync errors; phase 18 must launch scan_full, scan_delta, whatif and
+   whatif_context itself (counts set to 0 before it): the kernels' line
+   gains `manager_launches`.
+
 It prints the kernels' line, a `{"hoisted_session": ...}` line with phase
 11's numbers, a `{"backend": ...}` line with phase 12's, a `{"loop": ...}`
 line with phase 13's, a `{"preemption": ...}` line with phase 14's, a
 `{"matrix": ...}` line with phase 15's, a `{"mesh": ...}` line with phase
-16's, a `{"controllers": ...}` line with phase 17's, then `{"ok": true,
+16's, a `{"controllers": ...}` line with phase 17's, a `{"manager": ...}`
+line with phase 18's, then `{"ok": true,
 "device": {...}}` last.
 It needs a CUDA card and imports nothing of JAX or of the JAX package.
 """
@@ -3470,6 +3516,14 @@ def replay_bindings(batches, nodes, device="cuda", volumes=None, bound=(),
         cache.add_node(node)
     for pod in bound:
         cache.add_pod(pod)
+    # the encoding built before the first pod is encoded, as the loop's
+    # long-lived one is: node vocabularies (taints among them) are
+    # interned at a rebuild, and a pod encoded before it would carry
+    # an empty toleration row (ROADMAP.md, reference quirks)
+    with be._lock:
+        be._flush_pending()
+        if be.enc._rebuild_needed or be.enc._caps_grew():
+            be.enc.rebuild()
     out = {}
     try:
         for batch in batches:
@@ -3752,7 +3806,7 @@ def phase_loop(sk, gpu):
 
 # phase 14: the preemption rows of scripts/bench_configs.py (:131-137,
 # :229-237, :245-255), at their own sizes but for their preemptors (500,
-# cut: the whole script has to end within 900 s)
+# cut: the whole script has to end within its budget)
 PREEMPTORS = 256
 PREEMPTION_ROWS = (
     ("14a", dict(name="Preemption-500n-500hi", num_nodes=500,
@@ -4576,9 +4630,10 @@ def saturated_cluster(n_nodes, vpn, labels=None, zones=3):
     return nodes, pods, cpu_m
 
 
-def oracle_plan(snapshot, pod):
+def oracle_plan(snapshot, pod, pdbs=(), nominator=None):
     """The DefaultPreemption plugin's dry run (the oracle rung) for one
-    preemptor -> (node, sorted victims) or None."""
+    preemptor, with the budgets `pdbs` and the pods `nominator` holds ->
+    (node, sorted victims) or None."""
     from kubernetes_tpu_torch.scheduler.framework.interface import CycleState
     from kubernetes_tpu_torch.scheduler.framework.runtime import Framework
     from kubernetes_tpu_torch.scheduler.internal.nominator import (
@@ -4591,8 +4646,8 @@ def oracle_plan(snapshot, pod):
 
     f = Framework(new_in_tree_registry(), plugins=default_plugins(),
                   snapshot_fn=lambda: snapshot)
-    f.nominator = PodNominator()
-    f.pdb_lister = lambda: []
+    f.nominator = nominator if nominator is not None else PodNominator()
+    f.pdb_lister = lambda: list(pdbs)
     state = CycleState()
     if f.run_pre_filter_plugins(state, pod) is not None:
         raise AssertionError("oracle: prefilter refused the preemptor")
@@ -5021,102 +5076,122 @@ _GPU_POD = {"extended": {"example.com/gpu": "1"}}
 _GPU_NODE = {"example.com/gpu": "8"}
 _SPREAD = {"spread_zone": True}
 _AFF = {"labels": {"app": "aff"}}
-# measured pods cut from the file's (nodes never), so that the whole
-# script ends within 900 s (PERF.md, 4. Cells): the 5000-node twins' from
-# 5000, PTS-heavy's from 20000, the gang rows' from 8000 and 4096, and
-# over the wire Default-5000n-10k's init and measured pods from 6144 and
-# 10000 (its bindings held to a replay of its batches)
-TWIN_PODS = 512
-PTS_PODS = 2048
-GANG_PODS = 2048
-WIRE_DEFAULT_PODS = 2048
+# pods cut from the file's (nodes never), so that the whole script ends
+# within its budget (PERF.md, 4. Cells): the 5000-node twins' measured
+# pods from 5000 and init pods from 2048, PTS-heavy's from 20000 and
+# 4096, the gang rows' from 8000, 4096 and 2048 and their init pods from
+# 2048, IPA-churn's from 5000 (it still fills every free node),
+# Unschedulable-churn's from 3000, the other 500-node rows' from 1000,
+# and over the wire Default-5000n-10k's init and measured pods from 6144
+# and 10000 (its bindings held to a replay of its batches)
+TWIN_PODS = 256
+TWIN_INIT_PODS = 1024
+PTS_PODS = 1024
+PTS_INIT_PODS = 2048
+GANG_PODS = 1024
+GANG_INIT_PODS = 1024
+IPA_CHURN_PODS = 1536
+UNSCHED_CHURN_PODS = 600
+ROW500_PODS = 500
+WIRE_DEFAULT_PODS = 512
 MATRIX_ROWS = {
     "pts20k": dict(
-        name="PTS-heavy-5000n-20k", num_nodes=5000, num_init_pods=4096,
+        name="PTS-heavy-5000n-20k", num_nodes=5000,
+        num_init_pods=PTS_INIT_PODS,
         num_pods=PTS_PODS, max_batch=2048, timeout=1200.0,
         init_template=dict(_SPREAD, spread_zone_hard=True),
         template=dict(_SPREAD, spread_zone_hard=True)),
     "ipachurn": dict(
         name="IPA-churn-2000n-5000", num_nodes=2000, num_init_pods=1024,
-        num_pods=5000, max_batch=1024, timeout=900.0, stall_stop=15.0,
+        num_pods=IPA_CHURN_PODS, max_batch=1024, timeout=900.0,
+        stall_stop=15.0,
         saturating=True,
         init_template={"anti_affinity_hostname": True,
                        "labels": {"app": "churn"}},
         template={"anti_affinity_hostname": True,
                   "labels": {"app": "churn"}}),
     "gang": dict(
-        name="Gang-4000n-1000x8", num_nodes=4000, num_init_pods=2048,
+        name="Gang-4000n-1000x8", num_nodes=4000,
+        num_init_pods=GANG_INIT_PODS,
         num_pods=GANG_PODS, gang_size=8, max_batch=1024, timeout=900.0,
         init_template=_GPU_POD, template=_GPU_POD, node_extended=_GPU_NODE),
     "gang64": dict(
-        name="Gang-4000n-64x64", num_nodes=4000, num_init_pods=2048,
+        name="Gang-4000n-64x64", num_nodes=4000,
+        num_init_pods=GANG_INIT_PODS,
         num_pods=GANG_PODS, gang_size=64, max_batch=1024, timeout=900.0,
         init_template=_GPU_POD, template=_GPU_POD, node_extended=_GPU_NODE),
     "gang256": dict(
-        name="Gang-4000n-8x256", num_nodes=4000, num_init_pods=2048,
-        num_pods=2048, gang_size=256, max_batch=1024, timeout=900.0,
+        name="Gang-4000n-8x256", num_nodes=4000,
+        num_init_pods=GANG_INIT_PODS,
+        num_pods=GANG_PODS, gang_size=256, max_batch=1024, timeout=900.0,
         init_template=_GPU_POD, template=_GPU_POD, node_extended=_GPU_NODE),
     "unschedchurn": dict(
         name="Unschedulable-churn-500n", num_nodes=500, num_init_pods=1000,
-        num_pods=3000, max_batch=512, timeout=900.0, stall_stop=15.0,
+        num_pods=UNSCHED_CHURN_PODS, max_batch=512, timeout=900.0,
+        stall_stop=15.0,
         saturating=True, init_template=_SPREAD, template=_SPREAD,
         second_template={"cpu": "8", "memory": "64Gi"}, second_every=3),
     "secrets": dict(
         name="SchedulingSecrets-500n", num_nodes=500, num_init_pods=1000,
-        num_pods=1000, max_batch=1024, template={"secret_volumes": 2}),
+        num_pods=ROW500_PODS, max_batch=1024, template={"secret_volumes": 2}),
     "intreepvs": dict(
         name="SchedulingInTreePVs-500n", num_nodes=500, num_init_pods=1000,
-        num_pods=1000, max_batch=1024, timeout=900.0,
+        num_pods=ROW500_PODS, max_batch=1024, timeout=900.0,
         init_template={"with_pvc": "zonal"}, template={"with_pvc": "zonal"}),
     "csipvs": dict(
         name="SchedulingCSIPVs-500n", num_nodes=500, num_init_pods=1000,
-        num_pods=1000, max_batch=1024, timeout=900.0,
+        num_pods=ROW500_PODS, max_batch=1024, timeout=900.0,
         init_template={"with_pvc": "csi"}, template={"with_pvc": "csi"}),
     "migratedpvs": dict(
         name="SchedulingMigratedInTreePVs-500n", num_nodes=500,
-        num_init_pods=1000, num_pods=1000, max_batch=1024, timeout=900.0,
+        num_init_pods=1000, num_pods=ROW500_PODS, max_batch=1024,
+        timeout=900.0,
         init_template={"with_pvc": "migrated"},
         template={"with_pvc": "migrated"}),
     "podaffinity": dict(
         name="SchedulingPodAffinity-500n", num_nodes=500, num_init_pods=1000,
-        num_pods=1000, max_batch=1024, timeout=900.0, init_template=_AFF,
+        num_pods=ROW500_PODS, max_batch=1024, timeout=900.0,
+        init_template=_AFF,
         template=dict(_AFF, pod_affinity_zone=True)),
     "prefaffinity": dict(
         name="SchedulingPreferredPodAffinity-500n", num_nodes=500,
-        num_init_pods=1000, num_pods=1000, max_batch=1024, timeout=900.0,
+        num_init_pods=1000, num_pods=ROW500_PODS, max_batch=1024,
+        timeout=900.0,
         init_template=_AFF, template=dict(_AFF, preferred_affinity_zone=True)),
     "prefantiaffinity": dict(
         name="SchedulingPreferredPodAntiAffinity-500n", num_nodes=500,
-        num_init_pods=1000, num_pods=1000, max_batch=1024, timeout=900.0,
+        num_init_pods=1000, num_pods=ROW500_PODS, max_batch=1024,
+        timeout=900.0,
         init_template=_AFF,
         template=dict(_AFF, preferred_anti_affinity_zone=True)),
     "nodeaffinity": dict(
         name="SchedulingNodeAffinity-500n", num_nodes=500, num_init_pods=1000,
-        num_pods=1000, max_batch=1024,
+        num_pods=ROW500_PODS, max_batch=1024,
         template={"node_affinity_zones": ["zone-0", "zone-1"]}),
     "intreepvs5000": dict(
-        name="SchedulingInTreePVs-5000n", num_nodes=5000, num_init_pods=2048,
+        name="SchedulingInTreePVs-5000n", num_nodes=5000,
+        num_init_pods=TWIN_INIT_PODS,
         num_pods=TWIN_PODS, max_batch=2048, timeout=900.0,
         init_template={"with_pvc": "zonal"}, template={"with_pvc": "zonal"}),
     "podaffinity5000": dict(
         name="SchedulingPodAffinity-5000n", num_nodes=5000,
-        num_init_pods=2048, num_pods=TWIN_PODS, max_batch=2048,
+        num_init_pods=TWIN_INIT_PODS, num_pods=TWIN_PODS, max_batch=2048,
         timeout=900.0,
         init_template=_AFF, template=dict(_AFF, pod_affinity_zone=True)),
     "prefaffinity5000": dict(
         name="SchedulingPreferredPodAffinity-5000n", num_nodes=5000,
-        num_init_pods=2048, num_pods=TWIN_PODS, max_batch=2048,
+        num_init_pods=TWIN_INIT_PODS, num_pods=TWIN_PODS, max_batch=2048,
         timeout=900.0,
         init_template=_AFF, template=dict(_AFF, preferred_affinity_zone=True)),
     "prefantiaffinity5000": dict(
         name="SchedulingPreferredPodAntiAffinity-5000n", num_nodes=5000,
-        num_init_pods=2048, num_pods=TWIN_PODS, max_batch=2048,
+        num_init_pods=TWIN_INIT_PODS, num_pods=TWIN_PODS, max_batch=2048,
         timeout=900.0,
         init_template=_AFF,
         template=dict(_AFF, preferred_anti_affinity_zone=True)),
     "nodeaffinity5000": dict(
         name="SchedulingNodeAffinity-5000n", num_nodes=5000,
-        num_init_pods=2048, num_pods=TWIN_PODS, max_batch=2048,
+        num_init_pods=TWIN_INIT_PODS, num_pods=TWIN_PODS, max_batch=2048,
         timeout=900.0,
         template={"node_affinity_zones": ["zone-0", "zone-1"]}),
 }
@@ -5145,7 +5220,7 @@ def matrix_workload(harness, spec, **override):
     return harness.Workload(**kw)
 
 
-SCHEDULE_BATCH_PODS = 512        # phase 15a's pods (phase 4's batch, cut)
+SCHEDULE_BATCH_PODS = 256        # phase 15a's pods (phase 4's batch, cut)
 MATRIX_CPU_NODES = 500           # 15b's rows of this size also run on the CPU
 MATRIX_CPU_WORKERS = 6           # ... in this many worker processes at once
 MATRIX_CPU_THREADS = 1           # torch threads in each
@@ -5509,6 +5584,7 @@ def phase_matrix(sk, gpu, loop_bindings):
 # -- phase 16: the node-sharded mesh on the card -------------------------------
 
 MESH_SHARDS = (1, 2, 3, 8)       # 16a's shard counts, each in both layouts
+MESH_CELL_PODS = 1024            # 16a's pods a cell (4096 / 2048, cut)
 MESH_PROFILED_PODS = 16          # 16a's pods under torch.profiler, a layout
 MESH_NODE_CHURN = 64             # 16b's node leaves, and as many joins
 MESH_POD_CHURN = 512             # 16b's pod events between them
@@ -6132,9 +6208,9 @@ def phase_mesh(sk, gpu, zone, pref, churn0):
 
     out = {"16a": [
         mesh_session_cell(sk, gpu, "zone spread 5000n", zone["snapshot0"],
-                          zone["templates"], zone["batch"]),
+                          zone["templates"], zone["batch"][:MESH_CELL_PODS]),
         mesh_session_cell(sk, gpu, pref["cell"], pref["snapshot0"],
-                          pref["templates"], pref["batch"])]}
+                          pref["templates"], pref["batch"][:MESH_CELL_PODS])]}
     mark("16a")
     out["16b"] = mesh_churn_zone(sk, gpu, zone, churn0)
     out["16b"].append(mesh_churn_nodes(sk, gpu))
@@ -6229,6 +6305,80 @@ def web_deployment(v1, apps, name, replicas, version, image):
                 type="RollingUpdate",
                 rolling_update=apps.RollingUpdateDeployment(
                     max_surge="25%", max_unavailable="25%"))))
+
+
+def zonal_volumes(v1, storage, n, zones, prefix="pv", cls="zonal"):
+    """A StorageClass that binds at once (no provisioner) and `n`
+    pre-created 10Gi volumes of it, volume i pinned by node affinity to
+    zone i % len(zones): a zonal disk's topology."""
+    sc = storage.StorageClass(metadata=v1.ObjectMeta(name=cls),
+                              provisioner="kubernetes.io/no-provisioner",
+                              volume_binding_mode="Immediate")
+    pvs = [v1.PersistentVolume(
+        metadata=v1.ObjectMeta(name=f"{prefix}-{i}"),
+        spec=v1.PersistentVolumeSpec(
+            capacity={"storage": "10Gi"}, access_modes=["ReadWriteOnce"],
+            storage_class_name=cls,
+            node_affinity=v1.VolumeNodeAffinity(required=v1.NodeSelector(
+                node_selector_terms=[v1.NodeSelectorTerm(match_expressions=[
+                    v1.NodeSelectorRequirement(
+                        key=v1.LABEL_ZONE, operator="In",
+                        values=[zones[i % len(zones)]])])]))),
+        status=v1.PersistentVolumeStatus(phase="Available"))
+        for i in range(n)]
+    return sc, pvs
+
+
+def set_claim(v1, pod_name, labels, template="data", cls="zonal",
+              size="5Gi", namespace="default"):
+    """The claim upstream's StatefulSet makes for pod `pod_name` from its
+    volumeClaimTemplate `template`: <template>-<pod>."""
+    return v1.PersistentVolumeClaim(
+        metadata=v1.ObjectMeta(name=f"{template}-{pod_name}",
+                               namespace=namespace, labels=dict(labels)),
+        spec=v1.PersistentVolumeClaimSpec(
+            access_modes=["ReadWriteOnce"],
+            resources=v1.ResourceRequirements(requests={"storage": size}),
+            storage_class_name=cls))
+
+
+def claim_statefulset(base, v1, already_exists, template="data",
+                      cls="zonal", size="5Gi"):
+    """`base` (a StatefulSetController class) with one volumeClaimTemplate,
+    as upstream's controller has (stateful_set_utils.go updateStorage):
+    before pod <set>-<i> it creates claim <template>-<set>-<i> of class
+    `cls` (`set_claim`), unless it exists, and names it in the pod's
+    volumes. Neither package's StatefulSet has the field, so this subclass
+    stands in for it, the same in both."""
+
+    class StatefulSetWithClaims(base):
+        def _new_pod(self, ss, ordinal):
+            pod = super()._new_pod(ss, ordinal)
+            claim = set_claim(v1, pod.metadata.name,
+                              ss.spec.template.metadata.labels or {},
+                              template, cls, size, pod.metadata.namespace)
+            try:
+                self.client.persistentvolumeclaims.create(claim)
+            except already_exists:
+                pass
+            pod.spec.volumes = (pod.spec.volumes or []) + [v1.Volume(
+                name=template, source={"persistentVolumeClaim": {
+                    "claimName": claim.metadata.name}})]
+            return pod
+
+    return StatefulSetWithClaims
+
+
+def claim_set(v1, apps, name, replicas, labels):
+    """A Parallel StatefulSet of `replicas` pods with the controllers'
+    requests, for `claim_statefulset`."""
+    return apps.StatefulSet(
+        metadata=v1.ObjectMeta(name=name, namespace="default"),
+        spec=apps.StatefulSetSpec(
+            replicas=replicas, service_name=name,
+            pod_management_policy="Parallel",
+            selector=v1.LabelSelector(match_labels=dict(labels)),
+            template=ctrl_template(v1, labels, f"{name}:1")))
 
 
 class StatusWriter:
@@ -6382,7 +6532,7 @@ class SyncErrors:
 
         for name in names:
             fn = getattr(ctrl, name)
-            label = f"{ctrl.name}.{name}"
+            label = f"{getattr(ctrl, 'name', type(ctrl).__name__)}.{name}"
 
             def wrapped(*args, _fn=fn, _label=label, **kwargs):
                 try:
@@ -6688,11 +6838,12 @@ class ControllerWorld:
                     f"{out['device_faults']} device faults")
         return out
 
-    def replay(self, label, b0, b1, bound):
+    def replay(self, label, b0, b1, bound, volumes=None):
         """The loop's batches b0:b1 through a fresh backend fed the nodes
-        and the pods bound before them: the same bindings. Its launches
-        are a comparison's: they are taken out of the counts again, and
-        its CUDA events are tagged "replay"."""
+        and the pods bound before them (and `volumes`, replay_bindings'):
+        the same bindings. Its launches are a comparison's: they are taken
+        out of the counts again, and its CUDA events are tagged
+        "replay"."""
         sk = self.sk
         nodes = self.nodes()
         counts = (dict(sk.VARIANT_LAUNCHES), dict(sk.CLUSTER_LAUNCHES),
@@ -6702,19 +6853,25 @@ class ControllerWorld:
         try:
             want = replay_bindings(self.run.batches[b0:b1], nodes,
                                    device=self.device, bound=bound,
-                                   weights=self.be.weights)
+                                   weights=self.be.weights,
+                                   volumes=volumes)
         finally:
             self.run._tag = "other"
             sk.VARIANT_LAUNCHES.update(counts[0])
             sk.CLUSTER_LAUNCHES.update(counts[1])
             sk.LAUNCHES = counts[2]
-        got = {p.metadata.name: p.spec.node_name for p in self.pods()}
-        diff = sorted(k for k in want if got.get(k) != want[k])
+        # a pod deleted since keeps the node it was bound to
+        got = {k.split("/", 1)[1]: node
+               for k, (node, _) in self.writer.bound.items()}
+        got.update({p.metadata.name: p.spec.node_name for p in self.pods()})
+        diff = sorted(k for k in want if k in got and got[k] != want[k])
         if diff or not want:
+            first = [(k, got.get(k), want[k]) for k in diff[:5]]
             raise AssertionError(f"{label}: {len(diff)} of {len(want)} "
                                  f"bindings differ from the replay, first "
-                                 f"{diff[:5]}")
+                                 f"(pod, loop, replay) {first}")
         return {"replayed": len(want), "batches": b1 - b0,
+                "deleted_unbound": sum(1 for k in want if k not in got),
                 "replay_s": time.perf_counter() - t0}
 
 
@@ -7032,11 +7189,778 @@ def ctrl_cascade(w, gpu):
     return d
 
 
-def phase_controllers(sk, gpu, device="cuda"):
+# -- phase 18: the controller manager -------------------------------------
+
+MGR_CIDR = "10.0.0.0/10"         # 16384 /24s: one for each of the nodes
+MGR_PERIOD = 0.5                 # s: HPA, quota, TTL, pod GC, CronJob loops
+MGR_HEARTBEAT = 10.0             # s between lease renewals (the kubelet's)
+MGR_GC_SCAN = 2.0                # s between the garbage collector's scans
+MGR_BURST = (64, 256)            # 18b's Deployment: replicas, HPA max
+MGR_FILL = 2                     # 18c's low-priority pods a pool node
+MGR_FILL_CPU = "1800m"           # their request, and the preemptors'
+MGR_PREEMPTORS = 32              # 18c's high-priority pool pods
+MGR_STANDING = 16                # 18a's pods, one batch: a live session
+MGR_SET = 96                     # 18d's StatefulSet and its volumes
+MGR_QUOTA = 64                   # 18e's namespace: pods
+MGR_CRONJOBS = 3                 # 18e's CronJobs, one Job each
+MGR_JOB_PODS = 32                # a Job's pods (parallelism)
+MGR_GC_THRESHOLD = 16            # pod GC's terminated-pod threshold
+MGR_HIGH = 1000                  # 18c's preemptors' priority
+# the entry points SyncErrors wraps on each of the manager's controllers
+MGR_SYNCS = ("sync", "sync_all", "monitor_node_health",
+             "process_evictions", "collect_once")
+
+
+class ManagerRun:
+    """Phase 18's manager on phase 17's world: phase 17's controllers
+    stopped and 17d's DaemonSet deleted (one of its syncs timed first); a
+    supervised ControllerManager of every initializer, each controller's
+    entry points wrapped by the world's SyncErrors (a restart's fresh
+    instance too: the initializers are wrapped), its StatefulSet
+    controller `claim_statefulset`'s, its garbage collector scanning
+    every `MGR_GC_SCAN` s; the StatusWriter renewing the healthy nodes'
+    leases every `MGR_HEARTBEAT` s; the backend's node-update
+    classification timed."""
+
+    def __init__(self, w):
+        import threading
+
+        from kubernetes_tpu_torch.apiserver.server import AlreadyExists
+        from kubernetes_tpu_torch.controllers import manager as kcm
+        from kubernetes_tpu_torch.controllers.garbagecollector import (
+            GarbageCollector,
+        )
+        from kubernetes_tpu_torch.controllers.statefulset import (
+            StatefulSetController,
+        )
+
+        self.w = w
+        self.load = {}                 # app -> CPU utilization % reported
+        for c in w.controllers:
+            c.stop()
+        for c in (w.nlc, w.gc):
+            if c is not None:
+                c.stop()
+        # 17d's DaemonSet goes before the takeover: the DaemonSet
+        # controller queues every DaemonSet on every node event, and a
+        # sync walks every node (a template round trip a node), so 18a's
+        # node-wide writes would cost it nodes x nodes (ROADMAP.md,
+        # reference quirks). One sync at this size is timed first.
+        ds = next(c for c in w.controllers
+                  if type(c).__name__ == "DaemonSetController")
+        t0 = time.perf_counter()
+        ds.sync("kube-system/agent")
+        self.daemonset_sync_s = time.perf_counter() - t0
+        w.cs.daemonsets.delete("agent", "kube-system")
+        for p in w.pods(app="agent"):
+            w.cs.pods.delete(p.metadata.name, p.metadata.namespace)
+        wait_for(lambda: not w.pods(app="agent") and w.idle(),
+                 "18: the DaemonSet's pods gone")
+        w.controllers, w.nlc, w.gc = [], None, None
+        self.healthy = [n for n in w.names if n not in w.tainted]
+        w.writer.heartbeat(self.healthy)
+        self._stop = threading.Event()
+        self._renewer = threading.Thread(target=self._renew, daemon=True,
+                                         name="lease-renewer")
+        self._renewer.start()
+        # the backend's classification of each node update
+        be = w.be
+        self.node_updates, self.classify_s = 0, 0.0
+        on_update = be.on_update_node
+
+        def on_update_node(node):
+            t0 = time.perf_counter()
+            try:
+                return on_update(node)
+            finally:
+                self.classify_s += time.perf_counter() - t0
+                self.node_updates += 1
+
+        be.on_update_node = on_update_node
+        self._restore_be = on_update
+        claims = claim_statefulset(StatefulSetController, w.v1,
+                                   AlreadyExists)
+
+        def wrapped(init):
+            def build(cs, inf, opts):
+                ctrl = init(cs, inf, opts)
+                return w.errors.wrap(ctrl, *(
+                    n for n in MGR_SYNCS if callable(getattr(ctrl, n, None))))
+            return build
+
+        inits = kcm.new_controller_initializers()
+        inits["statefulset"] = lambda cs, inf, opts: claims(cs, inf)
+        # the collector re-lists every resource a scan; its 0.2 s default
+        # at 5000 nodes and their leases (~0.5 s a scan) would hold the
+        # store most of the time (ROADMAP.md, reference quirks)
+        inits["garbagecollector"] = lambda cs, inf, opts: GarbageCollector(
+            cs, scan_interval=MGR_GC_SCAN)
+        orig = kcm.new_controller_initializers
+        kcm.new_controller_initializers = lambda: {
+            n: wrapped(i) for n, i in inits.items()}
+        try:
+            self.mgr = kcm.ControllerManager(
+                w.cs, cluster_cidr=MGR_CIDR, node_cidr_mask_size=24,
+                hpa_sync_period=MGR_PERIOD, quota_sync_period=MGR_PERIOD,
+                ttl_sync_period=MGR_PERIOD, podgc_sync_period=MGR_PERIOD,
+                cronjob_sync_period=MGR_PERIOD,
+                terminated_pod_threshold=MGR_GC_THRESHOLD,
+                hpa_metrics=self._metrics)
+        finally:
+            kcm.new_controller_initializers = orig
+        self.names = self.mgr.supervisor.names()
+
+    def _metrics(self, pod):
+        return self.load.get((pod.metadata.labels or {}).get("app"))
+
+    def _renew(self):
+        while not self._stop.wait(MGR_HEARTBEAT):
+            self.w.writer.heartbeat(self.healthy)
+
+    def close(self):
+        self._stop.set()
+        self._renewer.join(timeout=30)
+        self.mgr.stop()
+        self.w.be.on_update_node = self._restore_be
+
+
+def mgr_takeover(r, gpu):
+    """18a: one batch of standing pods builds a live session; the manager
+    starts every loop; nodeipam and the TTL controller write each node
+    once, and the session lives through those writes."""
+    import ipaddress
+
+    from kubernetes_tpu_torch.controllers.nodettl import TTL_ANNOTATION
+
+    w, v1 = r.w, r.w.v1
+    for i in range(MGR_STANDING):
+        w.cs.pods.create(v1.Pod(metadata=v1.ObjectMeta(
+            name=f"standing-{i}", namespace="default",
+            labels={"app": "standing"}), spec=ctrl_template(
+                v1, {"app": "standing"}, "standing:1").spec))
+    wait_for(lambda: sum(1 for p in w.pods(app="standing")
+                         if p.spec.node_name) == MGR_STANDING and w.idle(),
+             "18a: the standing pods")
+    live = w.be._session
+    if live is None:
+        raise AssertionError("18a: no live session after the standing "
+                             "pods' batch")
+    m0 = w.mark()
+    t0 = time.perf_counter()
+    n0, s0 = r.node_updates, r.classify_s
+    r.mgr.run(wait_sync=CTRL_WAIT)
+    start_s = time.perf_counter() - t0
+    wait_for(lambda: all(r.mgr.supervisor.running(n) for n in r.names),
+             "18a: the manager's loops")
+
+    def written():
+        nodes = w.nodes()
+        return all(n.spec.pod_cidr and (n.metadata.annotations or {}).get(
+            TTL_ANNOTATION) for n in nodes)
+
+    wait_for(written, "18a: the podCIDRs and TTL annotations")
+    wait_for(w.idle, "18a: the scheduler idle")
+    wall_s = time.perf_counter() - t0
+    nodes = w.nodes()
+    net = ipaddress.ip_network(MGR_CIDR)
+    cidrs = [n.spec.pod_cidr for n in nodes]
+    inside = all(ipaddress.ip_network(c).subnet_of(net) for c in cidrs)
+    ttl = {(n.metadata.annotations or {})[TTL_ANNOTATION] for n in nodes}
+    a = w.since(m0, "18a", top=False)
+    survived = w.be._session is live
+    a.update({
+        "loops": len(r.names), "nodes": len(nodes),
+        "distinct_cidrs": len(set(cidrs)), "ttl_values": sorted(ttl),
+        "node_update_events": r.node_updates - n0,
+        "classify_ms": (r.classify_s - s0) * 1e3,
+        "session": type(live).__name__, "session_survived": survived,
+        "start_s": start_s, "wall_s": wall_s})
+    if len(set(cidrs)) != len(nodes) or not inside or len(ttl) != 1 \
+            or not survived or a["node_update_events"] < 2 * len(nodes):
+        raise AssertionError(f"18a: {a['distinct_cidrs']} distinct podCIDRs "
+                             f"of {len(nodes)} nodes, inside {MGR_CIDR} "
+                             f"{inside}, TTL values {ttl}, the live "
+                             f"session survived {survived}; {a}")
+    log(f"phase 18a takeover: {MGR_STANDING} standing pods bound in one "
+        f"batch built a live {a['session']}; {len(r.names)} supervised "
+        f"loops running (manager start {start_s:.2f} s); nodeipam gave each "
+        f"of the {len(nodes)} nodes a distinct /24 of {MGR_CIDR} and the TTL "
+        f"controller annotated each ({sorted(ttl)} s) in {wall_s:.2f} s: "
+        f"{a['node_update_events']} node updates reached the backend with "
+        f"the session live, classified in {a['classify_ms']:.1f} ms in all "
+        f"(neither field is in the node's scheduling fingerprint); the "
+        f"session survived them: teardowns by reason [calls, of a live "
+        f"session] {a['teardowns']}, session builds {a['session_builds']}, "
+        f"delta applies {a['delta_applies']}, launches {a['launches']} "
+        f"[{gpu}]")
+    return a
+
+
+def mgr_burst(r, gpu):
+    """18b: an HPA scales a Deployment from 64 to 256 while the
+    ReplicaSet loop is crashed once; then back to 64."""
+    from kubernetes_tpu_torch.api import apps
+    from kubernetes_tpu_torch.api.autoscaling import (
+        CrossVersionObjectReference,
+        HorizontalPodAutoscaler,
+        HorizontalPodAutoscalerSpec,
+    )
+    from kubernetes_tpu_torch.client.informer import EventHandler
+
+    w, v1, cs = r.w, r.w.v1, r.w.cs
+    start, top = MGR_BURST
+    restarts0 = r.mgr.supervisor.restart_count("replicaset")
+    cs.deployments.create(web_deployment(v1, apps, "burst", start, "v1",
+                                         "burst:1"))
+    wait_for(lambda: w.available("burst", "v1", start) and w.idle(),
+             "18b: the Deployment")
+    bound = w.pods()
+    m0 = w.mark()
+    scaled = []
+
+    def on_update(old, new):
+        if new.metadata.name == "burst" and \
+                new.spec.replicas != old.spec.replicas:
+            scaled.append((new.spec.replicas, time.perf_counter()))
+
+    w.factory.informer_for("deployments").add_event_handler(
+        EventHandler(on_update=on_update))
+    t0 = time.perf_counter()
+    r.load["burst"] = 100
+    cs.resource("horizontalpodautoscalers").create(HorizontalPodAutoscaler(
+        metadata=v1.ObjectMeta(name="burst", namespace="default"),
+        spec=HorizontalPodAutoscalerSpec(
+            scale_target_ref=CrossVersionObjectReference(
+                kind="Deployment", name="burst"),
+            min_replicas=start, max_replicas=top,
+            target_cpu_utilization_percentage=50)))
+    wait_for(lambda: scaled, "18b: the HPA's first decision")
+    r.mgr.supervisor.crash("replicaset")
+    wait_for(lambda: w.available("burst", "v1", top) and w.idle(),
+             "18b: the burst")
+    b1 = len(w.run.batches)
+    pods = w.pods(app="burst")
+    w.checks("18b", pods)
+    keys = [StatusWriter.key(p) for p in pods]
+    t_bind = max(w.writer.bound[k][1] for k in keys)
+    b = w.since(m0, "18b")
+    b.update({
+        "pods": len(pods), "zone_skew": zone_skew(pods, w.zone_of),
+        "scales": [n for n, _ in scaled],
+        "restarts": r.mgr.supervisor.restart_count("replicaset") - restarts0,
+        "decision_to_last_bind_s": t_bind - scaled[0][1],
+        "wall_s": time.perf_counter() - t0})
+    b["pods_per_s"] = (top - start) / b["decision_to_last_bind_s"]
+    if len(pods) != top or b["zone_skew"] > 1 or b["restarts"] != 1:
+        raise AssertionError(f"18b: {b}")
+    b.update(w.replay("18b", m0[0], b1, bound))
+    r.load["burst"] = 5
+    wait_for(lambda: w.available("burst", "v1", start) and w.idle(),
+             "18b: the scale back")
+    b["back_s"] = time.perf_counter() - t0 - b["wall_s"]
+    log(f"phase 18b HPA burst: Deployment burst scaled {start} -> "
+        f"{' -> '.join(str(n) for n, _ in scaled)} by the HPA (metrics at "
+        f"twice the target) while the ReplicaSet loop crashed once and was "
+        f"restarted ({b['restarts']} restart); {len(pods)} pods bound, zone "
+        f"skew {b['zone_skew']}, {b['pods_per_s']:.1f} pods/s from the "
+        f"first scale decision to the last bind "
+        f"({b['decision_to_last_bind_s']:.2f} s); bindings equal a fresh "
+        f"backend's replay of {b['batches']} batches; back to {start} in "
+        f"{b['back_s']:.2f} s; {b} [{gpu}]")
+    return b
+
+
+class PlanCheck:
+    """Each preemption wave the live scheduler plans on the device rung,
+    held at once (the scheduler waits) to the fast rung's plan on the same
+    snapshot, nominator, claimed victims and budgets, and its first
+    preemptor to the oracle's when no victim is claimed and it does not
+    fit as things stand."""
+
+    def __init__(self):
+        from kubernetes_tpu_torch.scheduler import preemption_device as pd
+        from kubernetes_tpu_torch.scheduler.preemption import (
+            FastPreemptionPlanner,
+        )
+
+        self.waves, self.pods, self.oracle, self.errors = 0, 0, 0, []
+        self.moved = 0
+        self.cls = pd.DevicePreemptionPlanner
+        self._orig = plan = self.cls.plan
+        check = self
+
+        def fast_plan(pl, claimed, pods):
+            return [cand_key(c) for c in FastPreemptionPlanner(
+                pl.snapshot, pl.nominator, claimed_victims=set(claimed),
+                pdbs=pl.pdbs, args={
+                    "minCandidateNodesPercentage": pl.min_pct,
+                    "minCandidateNodesAbsolute": pl.min_abs}).plan(
+                list(pods))]
+
+        def checked(pl, pods):
+            claimed = set(pl.claimed_victims)
+            before = fast_plan(pl, claimed, pods)
+            out = plan(pl, pods)
+            got = [cand_key(c) for c in out]
+            want = fast_plan(pl, claimed, pods)
+            if want != before:
+                # the loop's snapshot moved under the wave (a cache
+                # update on the other thread): no plan to hold it to
+                check.moved += 1
+                return out
+            if got != want:
+                check.errors.append(("fast", got, want))
+            if not claimed and pods and not pl.fits_now[0]:
+                # (a preemptor that fits now is re-dispatched, not
+                # planned: the oracle's dry run has no such answer)
+                o = oracle_plan(pl.snapshot, pods[0], pdbs=pl.pdbs,
+                                nominator=pl.nominator)
+                check.oracle += 1
+                if got[0] != o:
+                    check.errors.append(("oracle", got[0], o))
+            check.waves += 1
+            check.pods += len(pods)
+            return out
+
+        self.cls.plan = checked
+
+    def close(self):
+        self.cls.plan = self._orig
+
+
+def mgr_preemption(r, gpu):
+    """18c: a budget-limited preemption wave on the pool."""
+    import math
+
+    from kubernetes_tpu_torch.api import apps
+    from kubernetes_tpu_torch.ops import whatif_kernel as wk
+
+    w, v1, cs = r.w, r.w.v1, r.w.cs
+    fill = MGR_FILL * CTRL_POOL
+    tmpl = ctrl_template(v1, {"app": "filler"}, "filler:1")
+    tmpl.spec.node_selector = {"pool": "agents"}
+    tmpl.spec.containers[0].resources.requests["cpu"] = MGR_FILL_CPU
+    cs.deployments.create(apps.Deployment(
+        metadata=v1.ObjectMeta(name="filler", namespace="default"),
+        spec=apps.DeploymentSpec(
+            replicas=fill, selector=v1.LabelSelector(
+                match_labels={"app": "filler"}), template=tmpl)))
+    cs.resource("poddisruptionbudgets").create(v1.PodDisruptionBudget(
+        metadata=v1.ObjectMeta(name="filler", namespace="default"),
+        spec=v1.PodDisruptionBudgetSpec(
+            min_available="90%",
+            selector=v1.LabelSelector(match_labels={"app": "filler"}))))
+
+    def implied():
+        pods = [p for p in w.pods(app="filler")
+                if p.metadata.deletion_timestamp is None]
+        healthy = sum(1 for p in pods if p.status.phase == "Running" and any(
+            c.type == "Ready" and c.status == "True"
+            for c in p.status.conditions or []))
+        desired = math.ceil(len(pods) * 90 / 100)
+        return (max(0, healthy - desired), healthy, desired)
+
+    def budget():
+        s = cs.resource("poddisruptionbudgets").get("filler", "default")
+        return (s.status.disruptions_allowed, s.status.current_healthy,
+                s.status.desired_healthy)
+
+    wait_for(lambda: implied()[1] == fill and w.idle(), "18c: the filler")
+    wait_for(lambda: budget() == implied(), "18c: the budget's status")
+    before = budget()
+    m0 = w.mark()
+    l0, c0 = wk.LAUNCHES, wk.CONTEXT_LAUNCHES
+    deleted0 = dict(w.writer.deleted)
+    check = PlanCheck()
+    t0 = time.perf_counter()
+    try:
+        for i in range(MGR_PREEMPTORS):
+            pod = v1.Pod(
+                metadata=v1.ObjectMeta(name=f"urgent-{i}",
+                                       namespace="default",
+                                       labels={"app": "urgent"}),
+                spec=v1.PodSpec(
+                    priority=MGR_HIGH, node_selector={"pool": "agents"},
+                    containers=[v1.Container(
+                        name="c", image="urgent:1",
+                        resources=v1.ResourceRequirements(requests={
+                            "cpu": MGR_FILL_CPU, "memory": "128Mi"}))]))
+            cs.pods.create(pod)
+        wait_for(lambda: all(p.spec.node_name for p in w.pods(app="urgent"))
+                 and len(w.pods(app="urgent")) == MGR_PREEMPTORS,
+                 "18c: the preemptors")
+    finally:
+        check.close()
+    wall_s = time.perf_counter() - t0
+    wait_for(lambda: budget() == implied(), "18c: the budget after the wave")
+    urgent = w.pods(app="urgent")
+    w.checks("18c", urgent)
+    victims = [k for k in w.writer.deleted if k not in deleted0]
+    launched, contexts = wk.LAUNCHES - l0, wk.CONTEXT_LAUNCHES - c0
+    c = w.since(m0, "18c")
+    c.update({
+        "preemptors": len(urgent), "victims": len(victims),
+        "budget_before": before, "budget_after": budget(),
+        "plan_waves": check.waves, "planned_pods": check.pods,
+        "waves_moved": check.moved,
+        "oracle_checks": check.oracle,
+        "whatif_launches": launched, "whatif_context_launches": contexts,
+        "wall_s": wall_s})
+    hi = [k for k in victims if k.split("/", 1)[1].startswith("urgent-")]
+    if check.errors or hi or not victims or not check.waves \
+            or not launched or not contexts:
+        raise AssertionError(f"18c: plan differences {check.errors[:3]}, "
+                             f"preemptors evicted {hi}, {c}")
+    log(f"phase 18c PDB-limited preemption: {fill} filler pods on the "
+        f"{CTRL_POOL} pool nodes under minAvailable 90 % (budget "
+        f"{before} as (allowed, healthy, desired)); {MGR_PREEMPTORS} "
+        f"priority-{MGR_HIGH} pool pods bound after {len(victims)} "
+        f"evictions in {wall_s:.2f} s; {check.waves} device-rung waves "
+        f"({check.pods} preemptors) equal to the fast rung's plans ("
+        f"{check.moved} more whose snapshot moved under them), "
+        f"{check.oracle} first preemptors equal to the oracle's; no "
+        f"victim at or above the preemptors' priority, no node over its "
+        f"allocatable; budget after {c['budget_after']} as its pods imply; "
+        f"whatif {launched}, whatif_context {contexts} launches; {c} "
+        f"[{gpu}]")
+    # the wave's pods go (the collectors finish while 18d runs)
+    cs.deployments.delete("filler", "default",
+                          propagation_policy="Background")
+    for p in urgent:
+        cs.pods.delete(p.metadata.name, "default")
+    return c
+
+
+def mgr_volumes(r, gpu):
+    """18d: a StatefulSet with a claim template against zonal volumes."""
+    from kubernetes_tpu_torch.api import apps, storage
+    from kubernetes_tpu_torch.controllers.volumeprotection import (
+        PVC_PROTECTION_FINALIZER,
+    )
+
+    w, v1, cs = r.w, r.w.v1, r.w.cs
+    zones = sorted(set(w.zone_of.values()))
+    sc, pvs = zonal_volumes(v1, storage, MGR_SET, zones)
+    cs.storageclasses.create(sc)
+    for pv in pvs:
+        cs.persistentvolumes.create(pv)
+    zone_of_pv = {pv.metadata.name: zones[i % len(zones)]
+                  for i, pv in enumerate(pvs)}
+    pvcs = w.factory.informer_for("persistentvolumeclaims")
+    resyncs = [0, time.perf_counter()]
+
+    def resync():
+        # the binder drops a claim whose volume a concurrent bind took
+        # (its PV event queues the volume, not the claim) and the
+        # informers never resync: every MGR_PERIOD the unbound claims are
+        # queued again, as upstream's resync period would
+        if time.perf_counter() - resyncs[1] > MGR_PERIOD:
+            binder = r.mgr.controllers["persistentvolume-binder"]
+            for c in pvcs.list():
+                if c.metadata.namespace == "default" and \
+                        not c.spec.volume_name:
+                    binder.enqueue(f"pvc/default/{c.metadata.name}")
+                    resyncs[0] += 1
+            resyncs[1] = time.perf_counter()
+
+    def bound_claims():
+        # bound, and the protection controller's finalizer on: neither
+        # claim write lands while the set's pods are being scheduled
+        resync()
+        return sum(1 for c in pvcs.list() if c.metadata.namespace ==
+                   "default" and c.spec.volume_name and
+                   PVC_PROTECTION_FINALIZER in (c.metadata.finalizers
+                                                or [])) == MGR_SET
+
+    # the set's claims first, as a StatefulSet re-created over its
+    # retained claims finds them: every pod's claim is bound when the
+    # scheduler first sees it, so each rides the volume device path. One
+    # at a time: two claims synced together race for the same volume
+    # and the loser waits for the resync
+    def bound_one(name):
+        resync()
+        c = pvcs.get(f"default/{name}")
+        return c is not None and c.spec.volume_name
+
+    t0 = time.perf_counter()
+    for i in range(MGR_SET):
+        claim = cs.persistentvolumeclaims.create(set_claim(
+            v1, f"db-{i}", {"app": "db"}))
+        wait_for(lambda: bound_one(claim.metadata.name),
+                 "18d: a claim bound", interval=0.002)
+    wait_for(bound_claims, "18d: the claims bound")
+    bind_s = time.perf_counter() - t0
+    bound = w.pods()
+    m0 = w.mark()
+    oracle0 = w.run.oracle_pods
+    # the set's pods reach the scheduler together (as run_workload stages
+    # a backlog): each has a template of its own (its pod-name label), and
+    # a batch a few pods long rebuilds the session each time
+    w.sched.pause()
+    try:
+        cs.statefulsets.create(claim_set(v1, apps, "db", MGR_SET,
+                                         {"app": "db"}))
+        wait_for(lambda: sum(
+            (p.metadata.labels or {}).get("app") == "db"
+            for p in w.sched.queue.pending_pods()) == MGR_SET,
+            "18d: the set's pods queued")
+    finally:
+        w.sched.resume()
+
+    def ready():
+        pods = w.pods(app="db")
+        return len(pods) == MGR_SET and all(
+            p.status.phase == "Running" for p in pods) and w.idle()
+
+    wait_for(ready, "18d: the StatefulSet")
+    b1 = len(w.run.batches)
+    pods = w.pods(app="db")
+    w.checks("18d", pods)
+    claims = {c.metadata.name: c for c in
+              w.factory.informer_for("persistentvolumeclaims").list()}
+    wrong = [p.metadata.name for p in pods
+             if w.zone_of[p.spec.node_name] != zone_of_pv.get(
+                 claims[f"data-{p.metadata.name}"].spec.volume_name)]
+    d = w.since(m0, "18d", top=False)
+    d["wall_s"] = time.perf_counter() - t0
+    d["pods"] = len(pods)
+    d["claim_resyncs"] = resyncs[0]
+    d["claims_bound_s"] = bind_s
+    d["oracle_pods"] = w.run.oracle_pods - oracle0
+    if wrong:
+        raise AssertionError(f"18d: pods outside their volume's zone "
+                             f"{wrong[:5]}")
+    volumes = (list(claims.values()),
+               w.factory.informer_for("persistentvolumes").list(),
+               w.factory.informer_for("csinodes").list())
+    d.update(w.replay("18d", m0[0], b1, bound, volumes=volumes))
+    log(f"phase 18d volumes: StatefulSet db ({MGR_SET} replicas, Parallel, "
+        f"a claim template) against {MGR_SET} zonal volumes: the PV "
+        f"binder bound every claim in {bind_s:.2f} s ({resyncs[0]} "
+        f"unbound claims queued again by the resync), every pod in its "
+        f"volume's zone ({d['oracle_pods']} on the oracle path), "
+        f"bindings equal a fresh backend's replay with the run's claims "
+        f"and volumes ({d['replayed']} pods); batches by rung {d['rungs']}, "
+        f"session builds {d['session_builds']}, teardowns {d['teardowns']}; "
+        f"{d['wall_s']:.2f} s; {d} [{gpu}]")
+    return d
+
+
+def mgr_batch(r, gpu):
+    """18e: quota, CronJobs, TTL after finished and pod GC churning the
+    live session."""
+    from kubernetes_tpu_torch.api import batch
+    from kubernetes_tpu_torch.apiserver.server import Invalid
+
+    w, v1, cs = r.w, r.w.v1, r.w.cs
+    ns = "batch"
+    cs.namespaces.create(v1.Namespace(metadata=v1.ObjectMeta(name=ns)))
+    wait_for(lambda: any(
+        sa.metadata.namespace == ns and sa.metadata.name == "default"
+        for sa in cs.resource("serviceaccounts").list(namespace=ns)[0]),
+        "18e: the namespace's service account")
+    cs.resource("resourcequotas").create(v1.ResourceQuota(
+        metadata=v1.ObjectMeta(name="pods", namespace=ns),
+        spec=v1.ResourceQuotaSpec(hard={"pods": str(MGR_QUOTA)})))
+    refused = []
+    create = w.api.create
+
+    def counted_create(resource, obj, *args, **kwargs):
+        try:
+            return create(resource, obj, *args, **kwargs)
+        except Invalid as e:
+            if resource == "pods" and "exceeded quota" in str(e):
+                refused.append(obj.metadata.name)
+            raise
+
+    w.api.create = counted_create
+    w.writer.hold_jobs = True
+    m0 = w.mark()
+    t0 = time.perf_counter()
+    used_reads = []
+
+    def used():
+        q = cs.resource("resourcequotas").get("pods", ns)
+        live = sum(1 for p in w.pods() if p.metadata.namespace == ns
+                   and p.status.phase not in ("Succeeded", "Failed"))
+        return int((q.status.used or {}).get("pods", "-1")), live
+
+    def settled(want=None):
+        u, live = used()
+        return u == live and (want is None or u == want)
+
+    resyncs = [0, time.perf_counter()]
+
+    def resync():
+        # a Job whose pod creates admission refused is not queued again
+        # (its sync returns without an error and no pod event follows):
+        # every MGR_PERIOD its unfinished Jobs are queued again, as
+        # upstream's error requeue and resync would
+        if time.perf_counter() - resyncs[1] > MGR_PERIOD:
+            jobs = r.mgr.controllers["job"]
+            for j in w.factory.informer_for("jobs").list():
+                if j.metadata.namespace == ns and not any(
+                        c.status == "True" for c in j.status.conditions
+                        or []):
+                    jobs.enqueue(f"{ns}/{j.metadata.name}")
+                    resyncs[0] += 1
+            resyncs[1] = time.perf_counter()
+
+    try:
+        # the Job controller keeps a template's own job-name label (and
+        # finds its pods by owner): every Job's pods are one template, so
+        # a later wave rides the session the first built
+        tmpl = ctrl_template(v1, {"app": "nightly", "job-name": "nightly"},
+                             "nightly:1")
+        tmpl.spec.restart_policy = "Never"
+        for i in range(MGR_CRONJOBS):
+            cj = batch.CronJob(
+                metadata=v1.ObjectMeta(name=f"nightly-{i}", namespace=ns),
+                spec=batch.CronJobSpec(
+                    schedule="0 0 1 1 *",
+                    job_template_spec=batch.JobSpec(
+                        parallelism=MGR_JOB_PODS, completions=MGR_JOB_PODS,
+                        ttl_seconds_after_finished=0, template=tmpl)))
+            created = cs.cronjobs.create(cj)
+            # due at once: a yearly schedule whose last run is over a
+            # year ago (the next is a year away: no second Job)
+            created.status.last_schedule_time = time.time() - 400 * 86400.0
+            cs.cronjobs.update_status(created)
+        wait_for(lambda: len(refused) >= 1 and len(
+            [p for p in w.pods() if p.metadata.namespace == ns
+             and p.spec.node_name]) == MGR_QUOTA and w.idle(),
+            "18e: the quota full")
+        wait_for(lambda: settled(MGR_QUOTA), "18e: quota used at the cap")
+        used_reads.append(used())
+        refused_at_cap = len(refused)
+        first = len([p for p in w.pods() if p.metadata.namespace == ns])
+        # from here the first wave finishes and leaves the live session as
+        # deltas; the Job past the quota is created only then, and its
+        # pods' batches apply those deltas
+        m1 = w.mark()
+        w.writer.release_jobs()
+
+        def done():
+            resync()
+            jobs = [j for j in w.factory.informer_for("jobs").list()
+                    if j.metadata.namespace == ns]
+            return not jobs and not [p for p in w.pods()
+                                     if p.metadata.namespace == ns] \
+                and w.idle()
+
+        wait_for(done, "18e: the Jobs finished and deleted")
+        wait_for(lambda: settled(0), "18e: quota used back to 0")
+        used_reads.append(used())
+    finally:
+        w.api.create = create
+        w.writer.release_jobs()
+    e = w.since(m0, "18e", top=False)
+    later = w.since(m1, "18e after the first wave", top=False)
+    e.update({
+        "refused": len(refused), "refused_at_cap": refused_at_cap,
+        "job_resyncs": resyncs[0], "quota_reads": used_reads,
+        "first_wave": first, "after_first_wave": later,
+        "wall_s": time.perf_counter() - t0})
+    # the first wave's removals reached the session the first wave built
+    # as deltas, through scan_delta, with no teardown or rebuild
+    torn = sum(live for _, live in later["teardowns"].values())
+    removes = later["delta_applies"].get("pod-remove", 0)
+    if not refused or torn or later["session_builds"] or not removes or \
+            not later["launches"].get("scan_delta") or \
+            not later["batches"]:
+        raise AssertionError(f"18e: after the first wave {later}; {e}")
+    log(f"phase 18e batch churn: {MGR_CRONJOBS} CronJobs due at once, a "
+        f"Job of {MGR_JOB_PODS} pods each, in a namespace with a pods: "
+        f"{MGR_QUOTA} ResourceQuota: admission refused {len(refused)} pod "
+        f"creates past it ({refused_at_cap} while it was full), quota used "
+        f"equal to the namespace's live pods when read {used_reads}; the "
+        f"finished Jobs deleted by the TTL controller and their pods by the "
+        f"collectors in {e['wall_s']:.2f} s; after the first wave "
+        f"({first} pods) finished, {removes} pod-remove deltas reached the "
+        f"live session through the next {later['batches']} batches' "
+        f"dispatch (scan_delta {later['launches'].get('scan_delta')} "
+        f"launches), {torn} teardowns of it, session builds "
+        f"{later['session_builds']}; launches {e['launches']}; {e} [{gpu}]")
+    return e
+
+
+def phase_manager(sk, w, gpu):
+    """Phase 18: the controller manager on phase 17's world (ManagerRun).
+    Returns (numbers, launches per kernel over the phase: counts set to 0
+    just before it)."""
+    from kubernetes_tpu_torch.ops import whatif_kernel as wk
+
+    t0 = time.perf_counter()
+    reset_counts(sk)
+    wk.LAUNCHES = wk.MINS_LAUNCHES = wk.CONTEXT_LAUNCHES = 0
+    e0 = len(w.run.events)
+    r = ManagerRun(w)
+    out = {"loops": len(r.names), "setup_s": time.perf_counter() - t0,
+           "daemonset_sync_s": r.daemonset_sync_s}
+    seconds = {}
+    context = 0
+    try:
+        for label, fn in (("18a", mgr_takeover), ("18b", mgr_burst),
+                          ("18c", mgr_preemption), ("18d", mgr_volumes),
+                          ("18e", mgr_batch)):
+            t1 = time.perf_counter()
+            out[label] = fn(r, gpu)
+            seconds[label] = time.perf_counter() - t1
+            if label == "18c":
+                context = out[label]["whatif_context_launches"]
+        window_s = time.perf_counter() - t0
+        import torch
+
+        if w.device == "cuda":
+            torch.cuda.synchronize()
+        kernel_ms = sum(a.elapsed_time(b) for tag, a, b in w.run.events[e0:]
+                        if tag != "replay") if w.device == "cuda" else 0.0
+        restarts = {n: r.mgr.supervisor.restart_count(n) for n in r.names
+                    if r.mgr.supervisor.restart_count(n)}
+    finally:
+        r.close()
+    launches = {k: v for k, v in sk.VARIANT_LAUNCHES.items() if v}
+    launches["whatif"] = wk.LAUNCHES
+    launches["whatif_context"] = wk.CONTEXT_LAUNCHES
+    totals = {"session_builds": {}, "builds_after": {}, "delta_applies": {}}
+    for label in seconds:
+        for key, acc in totals.items():
+            for k, v in out[label][key].items():
+                acc[k] = acc.get(k, 0) + v
+    out.update(totals)
+    out.update({
+        "launches": launches, "seconds": seconds, "restarts": restarts,
+        "sync_errors": w.errors.errors, "sync_retries": w.errors.retries,
+        "kernel_ms": kernel_ms,
+        "kernel_share": kernel_ms / 1e3 / window_s if window_s else None,
+        "phase_s": time.perf_counter() - t0})
+    if w.errors.errors:
+        raise AssertionError(f"18: controller sync errors {w.errors.errors}")
+    idle = [k for k in ("scan_full", "scan_delta", "whatif",
+                        "whatif_context") if not launches.get(k)]
+    if idle or not context:
+        raise AssertionError(f"18: kernels the manager's path never "
+                             f"launched: {idle}")
+    log(f"phase 18 the controller manager: {out['loops']} loops (one "
+        f"DaemonSet sync over {CTRL_NODES} nodes before the takeover: "
+        f"{r.daemonset_sync_s:.3f} s); seconds "
+        f"by case {', '.join(f'{k} {v:.2f}' for k, v in seconds.items())}; "
+        f"session builds by kind {out['session_builds']}, by the teardown "
+        f"before them {out['builds_after']}; launches {launches}; delta "
+        f"applies {out['delta_applies']}; kernel {kernel_ms:.1f} ms, "
+        f"{out['kernel_share']:.2%} of the phase's window; restarts "
+        f"{restarts}; 0 sync errors ({w.errors.retries} conflict retries); "
+        f"phase {out['phase_s']:.1f} s [{gpu}]")
+    return out, launches
+
+
+def phase_controllers(sk, gpu, device="cuda", then=None):
     """Phase 17: the workload controllers and admission driving the card's
     scheduler (ControllerWorld; its StatusWriter stands in for the
     kubelets until they are ported). Returns (numbers, launches per kernel
-    variant over the phase: counts set to 0 just before it)."""
+    variant over the phase: counts set to 0 just before it, and what
+    `then(world)` returns: phase 18, run on the world after phase 17's
+    checks and before it closes)."""
     t0 = time.perf_counter()
     reset_counts(sk)
     w = ControllerWorld(sk, device)
@@ -7048,8 +7972,14 @@ def phase_controllers(sk, gpu, device="cuda"):
         out["17d"] = ctrl_cascade(w, gpu)
         window_s = time.perf_counter() - t0
         kernel_ms = sum(w.run.kernel_ms(("init", "measured", "other")))
+        phase_17(sk, gpu, w, out, t0, window_s, kernel_ms)
+        return out, out["launches"], then(w) if then else None
     finally:
         w.close()
+
+
+def phase_17(sk, gpu, w, out, t0, window_s, kernel_ms):
+    """Phase 17's sums, checks and summary line."""
     launches = {k: v for k, v in sk.VARIANT_LAUNCHES.items() if v}
     # the cases' sums (a replay's builds fall between their marks)
     totals = {"session_builds": {}, "builds_after": {}, "delta_applies": {}}
@@ -7084,7 +8014,6 @@ def phase_controllers(sk, gpu, device="cuda"):
         f"{out['kernel_share']:.2%} of the phase's window; 0 sync errors "
         f"({w.errors.retries} conflict retries); setup {w.setup_s:.1f} s, "
         f"phase {out['phase_s']:.1f} s [{gpu}]")
-    return out, launches
 
 
 def ipa_ops(ipa, t) -> tuple:
@@ -7347,13 +8276,15 @@ def main() -> int:
     mark("16")
     gc.collect()
     torch.cuda.empty_cache()
-    controllers, ctrl_launches = phase_controllers(sk, gpu)        # 17
-    mark("17")
+    controllers, ctrl_launches, (manager, mgr_launches) = \
+        phase_controllers(sk, gpu, then=lambda w: (                # 17
+            mark("17"), phase_manager(sk, w, gpu))[1])             # 18
+    mark("18")
     for k, v in (*pre_launches.items(), *matrix_launches.items()):
         loop_launches[k] = loop_launches.get(k, 0) + v
     log("seconds by phase: " + ", ".join(
         f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:]))
-        + f"; build and phases 3-17 {marks[-1][1] - t0:.1f}")
+        + f"; build and phases 3-18 {marks[-1][1] - t0:.1f}")
 
     zone["err"] = max(zone["err"], small_err)
     # scan_full_ipa reports its slower cell; `cells` keeps both cells'
@@ -7440,6 +8371,8 @@ def main() -> int:
         e["loop_launches"] = sum(loop_launches.get(v, 0) for v in variants)
         e["controllers_launches"] = sum(ctrl_launches.get(v, 0)
                                         for v in variants)
+        e["manager_launches"] = sum(mgr_launches.get(v, 0)
+                                    for v in variants)
     idle = [n for n in ("scan_full", "scan_full_ipa", "scan_delta")
             if not next(e for e in kernels if e["name"] == n)[
                 "backend_launches"]]
@@ -7458,6 +8391,13 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels the controllers never launched: "
                              f"{idle}")
+    # phase 18: the controller manager's path
+    idle = [n for n in ("scan_full", "scan_delta", "whatif",
+                        "whatif_context")
+            if not next(e for e in kernels if e["name"] == n)[
+                "manager_launches"]]
+    if idle:
+        raise AssertionError(f"kernels the manager never launched: {idle}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"hoisted_session": hoisted}))
     log(json.dumps({"backend": backend}))
@@ -7466,6 +8406,7 @@ def main() -> int:
     log(json.dumps({"matrix": matrix}, default=str))
     log(json.dumps({"mesh": mesh}, default=str))
     log(json.dumps({"controllers": controllers}, default=str))
+    log(json.dumps({"manager": manager}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

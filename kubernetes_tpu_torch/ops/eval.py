@@ -67,6 +67,13 @@ def eval_reqs(
     return res.all(dim=-1)                            # [E, ...]
 
 
+def _bits(vec: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """vec[ids], an id past vec's end (a pair or key interned after the
+    entity's bit vector was encoded) read as its last element: the
+    reference's jnp gather clamps the index so, where torch raises."""
+    return vec[ids.long().clamp(max=vec.shape[0] - 1)]
+
+
 def eval_reqs_single(op, key, pairs, pair_vec: torch.Tensor,
                      key_vec: torch.Tensor) -> torch.Tensor:
     """Evaluate tables against ONE entity given as flat bit vectors.
@@ -74,8 +81,8 @@ def eval_reqs_single(op, key, pairs, pair_vec: torch.Tensor,
     pair_vec [P] bool, key_vec [K] bool -> match [...] (table lead dims).
     Used for cluster-wide affinity term tables vs the incoming pod.
     """
-    any_pair = pair_vec[pairs.long()].any(dim=-1)  # [..., R]
-    has_key = key_vec[key.long()]                  # [..., R]
+    any_pair = _bits(pair_vec, pairs).any(dim=-1)  # [..., R]
+    has_key = _bits(key_vec, key)                  # [..., R]
     res = torch.ones_like(has_key)
     res = torch.where(op == OP_IN, any_pair, res)
     res = torch.where(op == OP_NOT_IN, ~any_pair, res)

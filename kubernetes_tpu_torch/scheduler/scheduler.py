@@ -179,6 +179,12 @@ class Scheduler:
         # int under the GIL: written by the completion worker, read at
         # dispatch.
         self._dropped_decisions = 0
+        # binds the failure wave makes on the completion worker, off the
+        # pipeline (a redispatched pod that fits now). Latched onto each
+        # handle before dispatch: a batch in flight across such a bind
+        # chained on a carry without it, and its harvest is checked
+        # against the cache before it is assumed (_fit_harvest).
+        self._wave_binds = 0
         # exact per-pod scheduling latencies (seconds) for the perf
         # harness: (queue-admission->bind-sent, pop->bind-sent, attempts).
         # The histograms carry the same data bucket-quantized; the harness
@@ -1082,6 +1088,7 @@ class Scheduler:
         # skip. Latching after would invert that into false drift.
         basis_gen = (self.cache.foreign_mutations(),
                      self._dropped_decisions)
+        wave_binds = self._wave_binds
         try:
             handle = self.tpu.dispatch_many([i.pod for i in todo])
         except Exception:  # noqa: BLE001 — the backend recovers its own
@@ -1092,6 +1099,7 @@ class Scheduler:
                 self.queue.add(info.pod)
             return
         handle.basis_mutations = basis_gen
+        handle.wave_binds = wave_binds
         if self.pipeline_depth <= 0:
             self._complete_batch(todo, handle, cycle, _time.monotonic())
             return
@@ -1346,10 +1354,50 @@ class Scheduler:
                 failed.append(info)
             else:
                 bound.append((info, node))
+        if bound and getattr(handle, "wave_binds",
+                             self._wave_binds) != self._wave_binds:
+            bound = self._fit_harvest(bound)
         if bound:
             self._assume_and_bind_batch(bound)
         if failed:
             self._handle_failure_wave(failed, cycle)
+
+    def _fit_harvest(self, bound: List[Tuple]) -> List[Tuple]:
+        """A harvest whose flight overlapped a failure-wave bind, checked
+        in batch order against the cache's requests: the bind landed
+        behind the carry the batch chained on, so the batch may have given
+        the same room to one of its pods. A placement that no longer fits
+        leaves the session and the encoding and goes back to the queue;
+        the rest are returned to be assumed."""
+        from .plugins.noderesources import (
+            compute_pod_resource_request,
+            fits_request,
+        )
+
+        self.snapshot = self.cache.update_snapshot(self.snapshot)
+        infos: Dict = {}
+        kept: List[Tuple] = []
+        dropped: List[Tuple] = []
+        for info, node in bound:
+            base = self.snapshot.node_info_map.get(node)
+            if base is None or self.cache.has_pod(v1.pod_key(info.pod)):
+                kept.append((info, node))
+                continue
+            ni = infos.get(node)
+            if ni is None:
+                ni = infos[node] = base.clone()
+            if fits_request(compute_pod_resource_request(info.pod), ni):
+                dropped.append((info, node))
+            else:
+                ni.add_pod(info.pod)
+                kept.append((info, node))
+        if dropped:
+            self._dropped_decisions += len(dropped)
+            tracing.event("placement-dropped", "fault", n=len(dropped))
+            self.tpu.drop_placements([(i.pod, n) for i, n in dropped])
+            for info, _ in dropped:
+                self.queue.add(info.pod)
+        return kept
 
     def _shadow_audit(self, results: List[Tuple], handle) -> None:
         """Shadow parity sentinel (KTPU_SHADOW_SAMPLE): replay sampled
@@ -1666,12 +1714,14 @@ class Scheduler:
                 elif not bound_once:
                     bound_once = True
                     self._assume_and_bind(info.pod, node, info=info)
+                    self._wave_binds += 1
                 else:
                     try:
                         r = self.tpu.schedule(info.pod)
                         self._assume_and_bind(
                             info.pod, r.suggested_host, info=info
                         )
+                        self._wave_binds += 1
                     except FitError as fe:
                         self._record_failure(
                             info, cycle, fe.filtered_nodes_statuses

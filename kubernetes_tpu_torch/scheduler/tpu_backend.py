@@ -303,7 +303,8 @@ class _BatchHandle:
 
     __slots__ = ("group", "ys", "decide", "node_names", "results",
                  "deadline", "timed_out", "speculative", "conflicts",
-                 "prov", "explain", "basis_mutations", "dt", "event")
+                 "prov", "explain", "basis_mutations", "wave_binds", "dt",
+                 "event")
 
     def __init__(self, group: List[v1.Pod]):
         self.group = group
@@ -334,6 +335,8 @@ class _BatchHandle:
         self.explain: Optional[List[Dict]] = None
         # the shadow sentinel's stale-basis gate (set by the scheduler)
         self.basis_mutations: Optional[Tuple[int, int]] = None
+        # the scheduler's failure-wave bind count latched at dispatch
+        self.wave_binds: Optional[int] = None
         # device-timeline launch token (KTPU_DEVTIME >= 1 only)
         self.dt = None
         self.event = None
@@ -948,6 +951,19 @@ class TPUBackend(CacheListener):
             if n:
                 self._invalidate_session("abandon-pending")
             return n
+
+    def drop_placements(self, items) -> None:
+        """Harvested placements (pod, node) the scheduler will not
+        assume: the encoding lets them go, and the session, whose carry
+        holds them, is torn down."""
+        with self._lock:
+            for pod, node_name in items:
+                self._session_assumed.discard(
+                    (pod.metadata.namespace, pod.metadata.name, node_name))
+                if v1.pod_key(pod) in self.enc._pods:
+                    self.enc.remove_pod(pod)
+            if items:
+                self._invalidate_session("dropped-placement")
 
     # -- device-side preemption: what-if context ---------------------------
 

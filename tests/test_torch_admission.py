@@ -2,12 +2,11 @@
 holds to the reference's own cases: those of tests/test_admission_r2.py
 and tests/test_admission_r3.py run against each package (tests/_dual.py).
 
-One case runs on the reference only: the token-mount case needs
-`controllers.serviceaccount`, which the port does not have yet
-(ROADMAP.md, Queue 1, slice 10b). `PORT_WAITS` names it, and
-`test_port_waits_only_for_serviceaccount` pins that set to this one case
-and fails once the module is ported, so the case cannot stay out of the
-port's side by accident."""
+Every case runs on both packages, the token-mount case too: it needs
+`controllers.serviceaccount`, which came with the second controller
+slice (ROADMAP.md, Queue 1, 10b). `PORT_WAITS` stays empty, and
+`test_pairs_cover_every_case_on_both_packages` fails if a case is left
+off either side."""
 
 from __future__ import annotations
 
@@ -17,10 +16,7 @@ import pytest
 
 from ._dual import PACKAGES, cases, run_case
 
-PORT_WAITS = {
-    "test_admission_r2::TestTokenMountE2E::"
-    "test_pod_gets_default_sa_token_mounted": "10b",
-}
+PORT_WAITS: dict = {}
 CASES = [c for m in ("test_admission_r2", "test_admission_r3")
          for c in cases(m)]
 PAIRS = [(c, p) for c in CASES for p in PACKAGES
@@ -33,12 +29,12 @@ def test_reference_case(case, package, request):
     run_case(request, package, case)
 
 
-def test_port_waits_only_for_serviceaccount():
-    assert PORT_WAITS == {
-        "test_admission_r2::TestTokenMountE2E::"
-        "test_pod_gets_default_sa_token_mounted": "10b"}
-    assert [c.id for c in CASES if c.id in PORT_WAITS] == list(PORT_WAITS)
+def test_pairs_cover_every_case_on_both_packages():
+    assert not PORT_WAITS
     assert len(CASES) == 26
-    assert len(PAIRS) == 2 * len(CASES) - 1
+    assert sorted((c.id, p) for c, p in PAIRS) == sorted(
+        (c.id, p) for c in CASES for p in PACKAGES)
+    assert "test_admission_r2::TestTokenMountE2E::" \
+        "test_pod_gets_default_sa_token_mounted" in {c.id for c in CASES}
     assert importlib.util.find_spec(
-        "kubernetes_tpu_torch.controllers.serviceaccount") is None
+        "kubernetes_tpu_torch.controllers.serviceaccount") is not None

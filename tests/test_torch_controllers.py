@@ -26,10 +26,27 @@ the keys it has queued (as its worker would), the scheduler schedules
 every pending pod as one batch and its binds land, and a status writer
 marks each bound pod Running and Ready (the kubelet's part, until the
 kubelet is ported).
+
+No transition waits on the wall clock, so that a loaded host sees the
+same sequence as an idle one:
+- the node lifecycle controller and the scheduling queue read the lock
+  step's clock (`_Clock`), which moves only where the lock step moves it: a
+  node goes stale because the clock passed its grace period, not because
+  the host was slow between a lease renewal and the monitor (that race
+  once marked live nodes stale, tainted them and evicted their pods,
+  and the rollout never converged);
+- a key a controller queues for later (the Deployment's 50 ms re-check,
+  a conflict's rate-limited retry) is held and released when a round
+  found no work, in the order it was queued;
+- that same idle point moves the clock past the scheduling queue's
+  backoff and its unschedulable flush;
+- the backend's dispatch watchdog is far beyond any batch here, and every
+  batch must ride the device rung its backend started on.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib
 import time
 import types
@@ -61,7 +78,7 @@ def _mods(package):
              "apiserver.admission", "client", "controllers.base",
              "controllers.deployment", "controllers.replicaset",
              "controllers.nodelifecycle", "scheduler.scheduler",
-             "scheduler.tpu_backend")
+             "scheduler.tpu_backend", "scheduler.internal.queue")
     return types.SimpleNamespace(**{
         n.replace(".", "_"): importlib.import_module(f"{package}.{n}")
         for n in names})
@@ -89,17 +106,40 @@ def _nodes(m):
     return out
 
 
+class _Clock:
+    """The lock step's time, in seconds since the epoch: it starts at the
+    wall clock's reading and moves only by `advance`."""
+
+    def __init__(self):
+        self.now = time.time()
+
+    def __call__(self):
+        return self.now
+
+    def advance(self, seconds):
+        self.now += seconds
+
+
+# far beyond any batch of these tests, however loaded the host
+WATCHDOG_S = 3600.0
+
+
 class _Lockstep:
     """One package's control plane, driven in lock step (module
-    docstring)."""
+    docstring). `extra(lockstep)`, when given, returns more controllers
+    (name -> queue controller), synced one key at a time after the
+    Deployment and ReplicaSet controllers."""
 
-    def __init__(self, port: bool):
-        m = self.m = _mods(PACKAGES[1] if port else PACKAGES[0])
+    def __init__(self, port: bool, extra=None):
+        self.package = PACKAGES[1] if port else PACKAGES[0]
+        m = self.m = _mods(self.package)
         self.api = m.apiserver_server.APIServer()
         m.apiserver_admission.install_default_admission(self.api)
         self.cs = m.client.Clientset(self.api)
         for node in _nodes(m):
             self.cs.nodes.create(node)
+        # after the nodes: no creation time or heartbeat is ahead of it
+        self.clock = _Clock()
         self.factory = m.client.SharedInformerFactory(self.cs)
         if port:
             be = m.scheduler_tpu_backend.TPUBackend(device="cpu",
@@ -109,27 +149,74 @@ class _Lockstep:
 
             be = m.scheduler_tpu_backend.TPUBackend()
             _private_device_state(be.enc)
+        be.watchdog_timeout = WATCHDOG_S
+        self.be, self.rung = be, be.ladder.rung()
+        self.builds = []    # the class of each session the backend built
+        build = be._build_session
+
+        def build_session():
+            sess = build()
+            self.builds.append(type(sess).__name__)
+            return sess
+
+        be._build_session = build_session
         self.sched = m.scheduler_scheduler.Scheduler(
             self.cs, self.factory, backend="tpu", tpu_backend=be,
             max_batch=512)
+        self.sched.queue._now = self.clock
+        self.sched.queue._last_leftover_flush = self.clock()
+        self.batches = []   # pods per batch
+        self.held = []      # (queue, key) held for the next idle point
         self.deploy = m.controllers_deployment.DeploymentController(
             self.cs, self.factory)
         self.rs = m.controllers_replicaset.ReplicaSetController(
             self.cs, self.factory)
+        self.extra = extra(self) if extra else {}
+        self.queued = [self.deploy, self.rs, *self.extra.values()]
+        for ctrl in self.queued:
+            ctrl.queue.add_after = functools.partial(self._hold, ctrl.queue)
         self.nlc = m.controllers_nodelifecycle.NodeLifecycleController(
             self.cs, self.factory, node_monitor_grace_period=0.5)
-        self.factory.start()
-        assert self.factory.wait_for_cache_sync()
-        self.heartbeat()
-        # every node reports Ready: the not-ready taint admission put on
-        # it at registration comes off
-        self.nlc.monitor_node_health()
-        self.settle()
-        assert not any(n.spec.taints for n in self.cs.nodes.list()[0])
+        # the node lifecycle controller reads the lock step's clock until
+        # close()
+        nlc_mod = m.controllers_nodelifecycle
+        self._nlc_time = nlc_mod.time
+        nlc_mod.time = types.SimpleNamespace(time=self.clock)
+        try:
+            self.factory.start()
+            assert self.factory.wait_for_cache_sync()
+            self.heartbeat()
+            # every node reports Ready: the not-ready taint admission put
+            # on it at registration comes off
+            self.nlc.monitor_node_health()
+            self.settle()
+            assert not any(n.spec.taints for n in self.cs.nodes.list()[0])
+        except BaseException:
+            self.close()
+            raise
 
     def close(self):
+        self.m.controllers_nodelifecycle.time = self._nlc_time
         self.sched.shutdown()
         self.factory.stop()
+
+    def _hold(self, queue, item, delay):
+        """A controller's add_after: the key waits for the next idle
+        point."""
+        if delay <= 0:
+            queue.add(item)
+        else:
+            self.held.append((queue, item))
+
+    def idle(self):
+        """A round found no work: the held keys are queued in the order
+        they were held, and the clock passes every scheduling backoff and
+        the unschedulable pods' flush."""
+        held, self.held = self.held, []
+        for queue, item in held:
+            queue.add(item)
+        self.clock.advance(
+            self.m.scheduler_internal_queue.UNSCHEDULABLE_Q_TIME_INTERVAL)
 
     def heartbeat(self, skip=()):
         """The kubelets' lease renewals, but those of the nodes in `skip`."""
@@ -146,7 +233,7 @@ class _Lockstep:
                     metadata=v1.ObjectMeta(name=name,
                                            namespace="kube-node-lease"),
                     spec=v1.LeaseSpec(holder_identity=name)))
-            lease.spec.renew_time = time.time()
+            lease.spec.renew_time = self.clock()
             leases.update(lease)
         self.settle()
 
@@ -188,11 +275,12 @@ class _Lockstep:
 
     def controllers(self):
         """One key at a time, the informers caught up before each, until
-        no controller has a key queued."""
+        no controller has a key queued; the first controller of
+        `self.queued` that has a key goes first."""
         work = 0
         while True:
             self.settle()
-            if not (self.sync_one(self.deploy) or self.sync_one(self.rs)):
+            if not any(self.sync_one(c) for c in self.queued):
                 return work
             work += 1
 
@@ -209,6 +297,10 @@ class _Lockstep:
             return 0
         sched._schedule_batch_tpu(infos)
         assert sched._drain_pipeline(timeout=30)
+        # the batch rode the device rung: no fault moved the ladder
+        assert self.be.ladder.rung() == self.rung
+        assert not self.be.ladder.transitions
+        self.batches.append(len(infos))
         deadline = time.monotonic() + 30
         while True:
             with sched._inflight_lock:
@@ -235,15 +327,19 @@ class _Lockstep:
         self.settle()
         return n
 
-    def run_until(self, done, rounds=400):
+    def run_until(self, done, rounds=400, periodic=None):
+        """Rounds of every controller, one batch and the status writer
+        until `done()`. `periodic()`, when given, opens each round (a
+        periodic controller's sync) and returns its work."""
         for _ in range(rounds):
-            work = self.controllers() + self.schedule() + self.mark_ready()
+            work = (periodic() if periodic else 0) + self.controllers() \
+                + self.schedule() + self.mark_ready()
             if done():
                 return
             if not work:
                 # a Deployment waiting on availability re-queues itself
-                # after 50 ms (controllers/deployment.py)
-                time.sleep(0.06)
+                # after 50 ms (controllers/deployment.py): released here
+                self.idle()
         raise AssertionError("the controllers did not converge")
 
     # -- the scenario --------------------------------------------------------
@@ -294,7 +390,7 @@ class _Lockstep:
             :STALE_NODES]
         # their last heartbeat older than the grace period; every other
         # node renews its lease
-        time.sleep(self.nlc.grace_period)
+        self.clock.advance(2 * self.nlc.grace_period)
         self.heartbeat(skip=stale)
         # monitor periods: the first marks Ready Unknown, and a taint
         # written from the same informer copy conflicts until the next

@@ -211,3 +211,31 @@ def test_session_prologue_equals_reference(case):
         a, b = np.asarray(ref[k]), got[k].numpy()
         assert a.dtype == b.dtype and a.shape == b.shape, (k, a.dtype, b.dtype)
         assert np.array_equal(a, b), k
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_eval_reqs_single_past_the_end_as_reference(seed):
+    """A term table naming pair or key ids past the entity's bit vectors
+    (interned after the entity was encoded, as in a backend whose first
+    template predates its cluster's vocabulary growth) evaluates as the
+    reference's jnp gather does, which clamps the id to the last bit,
+    where a torch gather would raise."""
+    import jax.numpy as jnp
+    import torch
+    from kubernetes_tpu.ops import eval as ref_eval
+    from kubernetes_tpu_torch.ops import eval as port_eval
+
+    rng = np.random.default_rng(seed)
+    op = rng.integers(0, 7, size=(12, 3)).astype(np.int32)
+    key = rng.integers(0, 12, size=(12, 3)).astype(np.int32)
+    pairs = rng.integers(0, 14, size=(12, 3, 2)).astype(np.int32)
+    pair_vec = rng.random(8) < 0.5
+    key_vec = rng.random(8) < 0.5
+    want = np.asarray(ref_eval.eval_reqs_single(
+        jnp.asarray(op), jnp.asarray(key), jnp.asarray(pairs),
+        jnp.asarray(pair_vec), jnp.asarray(key_vec)))
+    got = port_eval.eval_reqs_single(
+        torch.from_numpy(op), torch.from_numpy(key), torch.from_numpy(pairs),
+        torch.from_numpy(pair_vec), torch.from_numpy(key_vec)).numpy()
+    assert (pairs >= len(pair_vec)).any() and (key >= len(key_vec)).any()
+    np.testing.assert_array_equal(got, want)
