@@ -490,8 +490,15 @@ class SchedulerCache:
             ps = self._pod_states.get(key)
             if ps is None or self._assumed_pods.get(key):
                 return
+            # a listener may hold the removal until the add, so that both
+            # reach it as one change (on_update_pod_begin and
+            # on_update_pod_end; ROADMAP.md Queue 3)
+            for l in self._listeners:
+                getattr(l, "on_update_pod_begin", lambda pod: None)(ps.pod)
             self._remove_pod_locked(ps.pod, ps.pod.spec.node_name)
             self._add_pod_locked(new, new.spec.node_name)
+            for l in self._listeners:
+                getattr(l, "on_update_pod_end", lambda pod: None)(new)
             self._prio_remove(ps.pod)
             ps.pod = new
             self._prio_add(new)

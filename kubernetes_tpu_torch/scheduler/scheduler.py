@@ -185,6 +185,13 @@ class Scheduler:
         # chained on a carry without it, and its harvest is checked
         # against the cache before it is assumed (_fit_harvest).
         self._wave_binds = 0
+        # pods of dispatched batches not yet completed (_flight_keys), by
+        # key: None, or the pod's newest object when a queue update or a
+        # second pop met it in flight. Such a pod is not queued again
+        # meanwhile: a second batch would decide it twice, and the host
+        # encoding would move it to the node the cache refuses it.
+        self._flight_keys: Dict[str, Optional[v1.Pod]] = {}
+        self._flight_lock = threading.Lock()
         # exact per-pod scheduling latencies (seconds) for the perf
         # harness: (queue-admission->bind-sent, pop->bind-sent, attempts).
         # The histograms carry the same data bucket-quantized; the harness
@@ -454,6 +461,8 @@ class Scheduler:
                 self._clear_preempt_tracking(new)
             elif self._schedulable(new):
                 self.nominator.update_nominated_pod(old, new)
+                if self._flight_touch(new):  # _flight_keys: its batch decides
+                    return
                 self.queue.update(old, new)
 
         def on_pod_delete(pod: v1.Pod) -> None:
@@ -1001,7 +1010,35 @@ class Scheduler:
             return True
         if current.metadata.deletion_timestamp is not None:
             return True
+        if self._flight_touch(current):  # _flight_keys: its batch decides
+            return True
         return self.cache.is_assumed_pod(pod)
+
+    def _flight_touch(self, pod: v1.Pod) -> bool:
+        """True when `pod` is in a dispatched batch not yet completed
+        (_flight_keys); it is then kept as the pod's newest object, which
+        _land_flight queues again if the batch leaves it pending."""
+        with self._flight_lock:
+            key = v1.pod_key(pod)
+            if key not in self._flight_keys:
+                return False
+            self._flight_keys[key] = pod
+            return True
+
+    def _land_flight(self, todo: List) -> None:
+        """A completed batch's pods leave _flight_keys; one that a queue
+        update or a second pop met in flight goes back to the queue if it
+        is still pending (neither bound nor assumed)."""
+        with self._flight_lock:
+            touched = [self._flight_keys.pop(v1.pod_key(i.pod), None)
+                       for i in todo]
+        for pod in touched:
+            if pod is None:
+                continue
+            current = self.informers.pods().get(meta_namespace_key(pod))
+            if current is not None and not current.spec.node_name \
+                    and not self._skip(current):
+                self.queue.update(None, current)
 
     def _needs_oracle(self, pod: v1.Pod) -> bool:
         """Pods whose constraints live outside the TPU kernel take the
@@ -1089,12 +1126,16 @@ class Scheduler:
         basis_gen = (self.cache.foreign_mutations(),
                      self._dropped_decisions)
         wave_binds = self._wave_binds
+        with self._flight_lock:  # _flight_keys until the batch completes
+            for info in todo:
+                self._flight_keys.setdefault(v1.pod_key(info.pod), None)
         try:
             handle = self.tpu.dispatch_many([i.pod for i in todo])
         except Exception:  # noqa: BLE001 — the backend recovers its own
             # faults internally; an escape here is defensive: the pods
             # were never handed to the pipeline, so requeue exactly once
             traceback.print_exc()
+            self._land_flight(todo)  # _flight_keys
             for info in todo:
                 self.queue.add(info.pod)
             return
@@ -1287,6 +1328,7 @@ class Scheduler:
         try:
             self._complete_batch_inner(todo, handle, cycle)
         finally:
+            self._land_flight(todo)  # _flight_keys
             now = _time.monotonic()
             self._completion_durations.append(now - t0)
             age = (now - enq_ts) if enq_ts is not None else 0.0

@@ -477,6 +477,18 @@ class TPUBackend(CacheListener):
         # everything structural.
         self._deltas: List[Dict] = []
         self.delta_patching = knobs.get_bool("KTPU_SESSION_DELTAS")
+        # a pod update reaches the backend as a removal and an add; the
+        # cache announces it first (on_update_pod_begin), and the removal
+        # is held here, by pod key, until the add applies both under one
+        # acquisition of the lock: a batch dispatched between the two
+        # sees the pod as it was, never its node without it
+        self._update_held: Dict[str, Optional[Tuple[v1.Pod, str]]] = {}
+        # batches dispatched so far; with `event_log` a list, each cache
+        # event the backend takes is appended to it under the lock, in
+        # the order taken: (dispatches before it, "node" | "remove" |
+        # "add", the object, seconds the backend spent on it)
+        self.dispatches = 0
+        self.event_log: Optional[List[Tuple]] = None
         # backstop for an idle scheduler accumulating events with no
         # dispatch to flush them
         self.max_queued_deltas = knobs.get_int("KTPU_MAX_QUEUED_DELTAS")
@@ -1187,7 +1199,43 @@ class TPUBackend(CacheListener):
     #                     changes): session teardown, full rebuild at the
     #                     next dispatch.
 
+    def _logged(self, kind: str, obj, take) -> None:
+        """`take()`, appended to `event_log` when it is on (lock held)."""
+        if self.event_log is None:
+            take()
+            return
+        t0 = _time.perf_counter()
+        try:
+            take()
+        finally:
+            self.event_log.append((self.dispatches, kind, obj,
+                                   _time.perf_counter() - t0))
+
+    def on_update_pod_begin(self, pod: v1.Pod) -> None:
+        """The cache's update of `pod` begins: its removal waits for the
+        add (`_update_held`)."""
+        with self._lock:
+            self._update_held[v1.pod_key(pod)] = None
+
+    def on_update_pod_end(self, pod: v1.Pod) -> None:
+        """The cache's update of `pod` ends: a removal still held (no
+        add came) applies now."""
+        with self._lock:
+            held = self._update_held.pop(v1.pod_key(pod), None)
+            if held is not None:
+                self._logged("remove", held[0],
+                             lambda: self._remove_pod_locked(*held))
+
     def on_add_pod(self, pod: v1.Pod, node_name: str) -> None:
+        with self._lock:
+            held = self._update_held.pop(v1.pod_key(pod), None)
+            if held is not None:
+                self._logged("remove", held[0],
+                             lambda: self._remove_pod_locked(*held))
+            self._logged("add", pod,
+                         lambda: self._add_pod_locked(pod, node_name))
+
+    def _add_pod_locked(self, pod: v1.Pod, node_name: str) -> None:
         with self._lock:
             key = (pod.metadata.namespace, pod.metadata.name, node_name)
             if key in self._session_assumed:
@@ -1239,6 +1287,15 @@ class TPUBackend(CacheListener):
 
     def on_remove_pod(self, pod: v1.Pod, node_name: str) -> None:
         with self._lock:
+            key = v1.pod_key(pod)
+            if key in self._update_held and self._update_held[key] is None:
+                self._update_held[key] = (pod, node_name)
+                return
+            self._logged("remove", pod,
+                         lambda: self._remove_pod_locked(pod, node_name))
+
+    def _remove_pod_locked(self, pod: v1.Pod, node_name: str) -> None:
+        with self._lock:
             # removing a pod the encoding never contained is a no-op
             if not node_name or v1.pod_key(pod) not in self.enc._pods:
                 return
@@ -1258,6 +1315,10 @@ class TPUBackend(CacheListener):
                 self._invalidate_session("node-add")
 
     def on_update_node(self, node: v1.Node) -> None:
+        with self._lock:
+            self._logged("node", node, lambda: self._update_node_locked(node))
+
+    def _update_node_locked(self, node: v1.Node) -> None:
         with self._lock:
             # heartbeat gate: only scheduling-relevant changes (labels,
             # annotations, taints, unschedulable, allocatable/capacity,
@@ -1562,6 +1623,13 @@ class TPUBackend(CacheListener):
         harvests the OLDEST first. Falls back to the synchronous path
         (ready handle) when the batch can't ride the live session (bound
         pods, mixed shapes, unknown templates or no session yet)."""
+        with self._lock:
+            try:
+                return self._dispatch_many(pods)
+            finally:
+                self.dispatches += 1
+
+    def _dispatch_many(self, pods: List[v1.Pod]) -> "_BatchHandle":
         h = _BatchHandle(list(pods))
         with self._lock:
             while len(self._pending) >= max(1, self.max_pending):

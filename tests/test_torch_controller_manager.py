@@ -11,11 +11,10 @@ expansion, the root CA publisher, a kubeadm join through a CSR) and
 tests/test_nodeipam.py (the CIDR set and NodeIpamController) run against
 each package through tests/_dual.py.
 
-Five of tests/test_nodeipam.py's cases import the kubelet, which the
-port does not have yet (Queue 1, slice 10d). `PORT_WAITS` names them and
-`test_port_waits_only_for_kubelet` pins that set and fails once
-`kubernetes_tpu_torch.kubelet` exists, so they cannot stay out of the
-port's side by accident."""
+Five of tests/test_nodeipam.py's cases drive the kubelet (Queue 1,
+slice 10d), which the port has too: every case runs on both packages.
+`PORT_WAITS` stays empty, and `test_port_waits_only_for_kubelet` fails
+if a case is left off either side."""
 
 from __future__ import annotations
 
@@ -25,15 +24,7 @@ import pytest
 
 from ._dual import PACKAGES, cases, run_case
 
-PORT_WAITS = {
-    f"test_nodeipam::{case}": "10d" for case in (
-        "TestKubeletConsumption::test_kubelet_applies_pod_cidr_to_cni",
-        "TestKubeletConsumption::test_kubelet_status_sync_consumes_spec",
-        "TestCidrMaskLengths::test_slash23_uses_both_24s",
-        "TestCidrMaskLengths::test_slash24_unchanged",
-        "TestCidrMaskLengths::test_slash25_exhausts_at_126",
-    )
-}
+PORT_WAITS: dict = {}
 CASES = [c for m in ("test_controllers_r2", "test_controllers_r3",
                      "test_nodeipam") for c in cases(m)]
 PAIRS = [(c, p) for c in CASES for p in PACKAGES
@@ -47,8 +38,20 @@ def test_reference_case(case, package, request):
 
 
 def test_port_waits_only_for_kubelet():
-    assert len(PORT_WAITS) == 5
-    assert {c.id for c in CASES} >= set(PORT_WAITS)
+    """All 47 cases run on both packages, the five that drive the kubelet
+    too."""
+    assert not PORT_WAITS
     assert len(CASES) == 47
-    assert len(PAIRS) == 2 * len(CASES) - len(PORT_WAITS)
-    assert importlib.util.find_spec("kubernetes_tpu_torch.kubelet") is None
+    assert sorted((c.id, p) for c, p in PAIRS) == sorted(
+        (c.id, p) for c in CASES for p in PACKAGES)
+    ids = {c.id for c in CASES}
+    for case in (
+        "TestKubeletConsumption::test_kubelet_applies_pod_cidr_to_cni",
+        "TestKubeletConsumption::test_kubelet_status_sync_consumes_spec",
+        "TestCidrMaskLengths::test_slash23_uses_both_24s",
+        "TestCidrMaskLengths::test_slash24_unchanged",
+        "TestCidrMaskLengths::test_slash25_exhausts_at_126",
+    ):
+        assert f"test_nodeipam::{case}" in ids
+    assert importlib.util.find_spec(
+        "kubernetes_tpu_torch.kubelet") is not None

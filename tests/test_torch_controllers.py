@@ -108,10 +108,11 @@ def _nodes(m):
 
 class _Clock:
     """The lock step's time, in seconds since the epoch: it starts at the
-    wall clock's reading and moves only by `advance`."""
+    wall clock's reading (`ahead` seconds past it) and moves only by
+    `advance`."""
 
-    def __init__(self):
-        self.now = time.time()
+    def __init__(self, ahead=0.0):
+        self.now = time.time() + ahead
 
     def __call__(self):
         return self.now
@@ -130,17 +131,20 @@ class _Lockstep:
     (name -> queue controller), synced one key at a time after the
     Deployment and ReplicaSet controllers."""
 
+    CLOCK_AHEAD = 0.0
+
     def __init__(self, port: bool, extra=None):
         self.package = PACKAGES[1] if port else PACKAGES[0]
         m = self.m = _mods(self.package)
         self.api = m.apiserver_server.APIServer()
         m.apiserver_admission.install_default_admission(self.api)
         self.cs = m.client.Clientset(self.api)
-        for node in _nodes(m):
-            self.cs.nodes.create(node)
+        self.factories = []     # every informer factory settle() waits on
+        self.add_nodes()
         # after the nodes: no creation time or heartbeat is ahead of it
-        self.clock = _Clock()
+        self.clock = _Clock(self.CLOCK_AHEAD)
         self.factory = m.client.SharedInformerFactory(self.cs)
+        self.factories.append(self.factory)
         if port:
             be = m.scheduler_tpu_backend.TPUBackend(device="cpu",
                                                      use_kernel=True)
@@ -177,14 +181,15 @@ class _Lockstep:
             ctrl.queue.add_after = functools.partial(self._hold, ctrl.queue)
         self.nlc = m.controllers_nodelifecycle.NodeLifecycleController(
             self.cs, self.factory, node_monitor_grace_period=0.5)
-        # the node lifecycle controller reads the lock step's clock until
-        # close()
-        nlc_mod = m.controllers_nodelifecycle
-        self._nlc_time = nlc_mod.time
-        nlc_mod.time = types.SimpleNamespace(time=self.clock)
+        # the clocked modules read the lock step's clock until close()
+        self._clocked = [(mod, mod.time) for mod in self.clocked_modules()]
+        for mod, _ in self._clocked:
+            mod.time = types.SimpleNamespace(time=self.clock,
+                                             monotonic=time.monotonic)
         try:
-            self.factory.start()
-            assert self.factory.wait_for_cache_sync()
+            for factory in self.factories:
+                factory.start()
+                assert factory.wait_for_cache_sync()
             self.heartbeat()
             # every node reports Ready: the not-ready taint admission put
             # on it at registration comes off
@@ -195,10 +200,21 @@ class _Lockstep:
             self.close()
             raise
 
+    def add_nodes(self):
+        """The cluster's nodes, registered before the clock starts."""
+        for node in _nodes(self.m):
+            self.cs.nodes.create(node)
+
+    def clocked_modules(self):
+        """The modules whose `time.time()` is the lock step's clock."""
+        return [self.m.controllers_nodelifecycle]
+
     def close(self):
-        self.m.controllers_nodelifecycle.time = self._nlc_time
+        for mod, orig in self._clocked:
+            mod.time = orig
         self.sched.shutdown()
-        self.factory.stop()
+        for factory in self.factories:
+            factory.stop()
 
     def _hold(self, queue, item, delay):
         """A controller's add_after: the key waits for the next idle
@@ -240,10 +256,11 @@ class _Lockstep:
     def settle(self, timeout=30.0):
         """Until every informer holds what the apiserver holds."""
         deadline = time.monotonic() + timeout
-        infs = self.factory.informers()
+        infs = [(resource, inf) for factory in self.factories
+                for resource, inf in factory.informers().items()]
         while True:
             behind = []
-            for resource, inf in infs.items():
+            for resource, inf in infs:
                 items, _ = self.api.list(resource)
                 want = {(o.metadata.namespace, o.metadata.name):
                         o.metadata.resource_version for o in items}

@@ -3,8 +3,8 @@ auth, flowcontrol and audit beneath it) against the reference's.
 
 - The cases of tests/test_http_apiserver.py, test_wire_protocol.py and
   test_watch_backpressure.py run against each package (tests/_dual.py),
-  less the full-cluster case, which needs the controllers, kubectl and
-  kubemark (not ported).
+  the full-cluster case (hollow kubelets, the controller manager, the
+  scheduler and kubectl, each over its own HTTP client) too.
 - The same sequence of requests against both packages' HTTPAPIServer
   gives identical status codes and response bodies, and a watch from
   revision 0 identical frames, in JSON and in binary (objects carry their
@@ -25,12 +25,8 @@ import pytest
 
 from ._dual import PACKAGES, cases, run_case
 
-SKIP = {
-    # controllers, kubectl and kubemark are not ported
-    "test_http_apiserver::TestHTTPClusterE2E::test_full_stack_over_the_wire",
-}
 CASES = [c for m in ("test_http_apiserver", "test_wire_protocol",
-                     "test_watch_backpressure") for c in cases(m, SKIP)]
+                     "test_watch_backpressure") for c in cases(m)]
 
 
 @pytest.mark.parametrize("package", PACKAGES)

@@ -74,6 +74,12 @@ VERBATIM = (
     "controllers/endpointslice.py", "controllers/endpointslicemirroring.py",
     "controllers/ephemeral.py", "controllers/nodeipam.py",
     "controllers/rootcacertpublisher.py", "controllers/manager.py",
+    "kubelet/cri.py", "kubelet/streaming.py", "kubelet/pleg.py",
+    "kubelet/prober.py", "kubelet/cm.py", "kubelet/kubelet.py",
+    "kubelet/__init__.py", "kubemark/hollow.py", "kubemark/__init__.py",
+    "proxy/endpointslicecache.py", "proxy/proxier.py", "proxy/ipvs.py",
+    "proxy/netpol.py", "proxy/__init__.py", "kubectl/cli.py",
+    "kubectl/__init__.py",
 )
 # copies that carry a fix the reference lacks: the reference's text with
 # lines inserted and none changed or removed, each inserted hunk naming
@@ -81,7 +87,11 @@ VERBATIM = (
 PATCHED = {
     # a failure-wave bind racing a batch in flight
     # (tests/test_torch_preemption_race.py)
-    "scheduler/scheduler.py": ("wave_binds", "_fit_harvest"),
+    # and a pod in flight queued again (tests/test_torch_inflight_update.py)
+    "scheduler/scheduler.py": ("wave_binds", "_fit_harvest", "_flight_keys"),
+    # a pod's status write split by a batch (tests/test_torch_status_split.py)
+    "scheduler/internal/cache.py": ("on_update_pod_begin",
+                                    "on_update_pod_end"),
 }
 # the controllers, admission, kubeadm and the controller manager
 # (ROADMAP.md Queue 1, 10a-10c): all verbatim
@@ -89,6 +99,11 @@ CONTROLLER_SLICE = tuple(
     r for r in VERBATIM
     if r.startswith("controllers/")
     or r in ("apiserver/admission.py", "kubeadm.py"))
+# the kubelet, kubemark, kube-proxy and kubectl (ROADMAP.md Queue 1,
+# 10d-10e): all verbatim
+NODE_SLICE = tuple(
+    r for r in VERBATIM
+    if r.startswith(("kubelet/", "kubemark/", "proxy/", "kubectl/")))
 
 
 def _forbidden(name: str) -> bool:
@@ -197,6 +212,28 @@ def test_controller_slice_modules_are_checked():
     for c in classes:
         assert c.__module__.startswith("kubernetes_tpu_torch."), c
     assert len(manager.new_controller_initializers()) == 35
+
+
+def test_node_slice_modules_are_checked():
+    """The kubelet, kubemark, kube-proxy and kubectl are among the sources
+    the two checks above read, import with jax and the reference blocked,
+    and are held verbatim; the kubelet and the hollow cluster are the
+    port's own classes."""
+    assert len(NODE_SLICE) == 16
+    for rel in NODE_SLICE:
+        rel = f"kubernetes_tpu_torch/{rel}"
+        assert rel in PORT_SOURCES
+        mod = ".".join(Path(rel).with_suffix("").parts).removesuffix(
+            ".__init__")
+        assert mod in PORT_MODULES
+    from kubernetes_tpu_torch.kubectl import Kubectl
+    from kubernetes_tpu_torch.kubemark import HollowCluster
+    from kubernetes_tpu_torch.proxy import IPVSProxier, Proxier
+
+    for c in (Kubectl, HollowCluster, IPVSProxier, Proxier):
+        assert c.__module__.startswith("kubernetes_tpu_torch."), c
+    assert HollowCluster.__init__.__globals__["Kubelet"].__module__ == \
+        "kubernetes_tpu_torch.kubelet.kubelet"
 
 
 def test_compilation_cache_moves_the_build_dir(tmp_path, monkeypatch):
