@@ -434,14 +434,52 @@ Phases (each raises on failure; the script then exits non-zero):
    e. teardown, timed: every kubelet's stop set before any is joined.
    0 sync errors; phase 19 must launch scan_full and scan_delta itself:
    the kernels' line gains `kubemark_launches`.
+20. the control plane as cluster.py assembles it, kubemark-500's shape
+   cut to 300 nodes (CL_NODES: the most that converge in one interpreter
+   on both stores; phase 19's node size, kubelet settings, lifecycle and
+   GC periods; 1 pod a node), every world built by `Cluster(..., device)`:
+   a. native store: `Cluster(native_store=True)` (native/kvstore.cpp
+      built by `make` at first use, timed) with phase 19's controllers;
+      bring-up, a pod-a-node zone-spread Deployment until Running (pods/s,
+      startup p50 / p99, status write to the scheduler's informer p50 /
+      p99, printed beside phase 19's Python-store figures, no gate),
+      bindings equal a replay from the backend's event_log, 0 split
+      batches;
+   b. a durable, highly available control plane: `Cluster(durable_path,
+      n_schedulers=2, tests/test_failover.py's FAST_ELECTION, every
+      default controller, a FaultInjector)` built inside the lock-order
+      sentinel; one leader, both schedulers on a card backend; a
+      pod-a-node Deployment until Running; the WAL appends' host-clock p50 / p99
+      (fsync on);
+   c. chaos: a ChaosMonkey (period 0.5 s, seed 20) for 8 s, and on until
+      it has wedged the device once (12 s at most), over
+      kill-kubelet, restart-kubelet, delete-pod, wedge-device,
+      crash-scheduler, crash-controller, crash-apiserver,
+      failover-scheduler and partition-scheduler, tests/test_endurance.py's
+      invariant suite sampled every second over /metricsz;
+   d. recovery: every armed fault fired (faults counted only as armed),
+      dead kubelets restarted, the leader's ladder at its top rung, a pod
+      a node Running and no other, 0 double binds, no node over its
+      allocatable, leader transitions beyond the first, every key listed
+      before each apiserver crash present after it at the same or a later
+      revision, the invariants and the lock sentinel clean;
+   e. a quiet second zone-spread Deployment, half a pod a node, the
+      electors at the reference's default timings: bindings equal a
+      replay of its batches from the leader's event_log, 0 split
+      batches, zone skew <= 1, the leader's live session carries equal a
+      fresh session's;
+   f. `graft_entry.entry()` on the card equals the CPU's, and
+      `dryrun_multichip(1)` passes with the mesh at 8 shards on the card.
+   0 sync errors; phase 20 must launch scan_full and scan_delta itself:
+   the kernels' line gains `cluster_launches`.
 
 It prints the kernels' line, a `{"hoisted_session": ...}` line with phase
 11's numbers, a `{"backend": ...}` line with phase 12's, a `{"loop": ...}`
 line with phase 13's, a `{"preemption": ...}` line with phase 14's, a
 `{"matrix": ...}` line with phase 15's, a `{"mesh": ...}` line with phase
 16's, a `{"controllers": ...}` line with phase 17's, a `{"manager": ...}`
-line with phase 18's, a `{"kubemark": ...}` line with phase 19's, then
-`{"ok": true,
+line with phase 18's, a `{"kubemark": ...}` line with phase 19's, a
+`{"cluster": ...}` line with phase 20's, then `{"ok": true,
 "device": {...}}` last.
 It needs a CUDA card and imports nothing of JAX or of the JAX package.
 """
@@ -3253,7 +3291,8 @@ DRILL_WAVES = (512, 488)         # 13c's measured pods: faulted wave, then clean
 class LoopRun:
     """One `run_workload` call watched from outside: the harness's APIServer is captured (to list the
     bindings), every batch the loop hands to `TPUBackend.dispatch_many`
-    is recorded in order (a copy of each pod, pending as dispatched), and
+    is recorded in order (a copy of each pod, pending as dispatched; in
+    `dispatched` the backend and its dispatch count before it), and
     on the card each `scan_full` launch of the backend is bracketed with
     CUDA events on the backend's stream, tagged "measured" (a batch of
     measure-* pods), "init" (another loop batch) or "other" (launched
@@ -3273,6 +3312,7 @@ class LoopRun:
         from kubernetes_tpu_torch.scheduler.tpu_backend import TPUBackend
 
         self.apis, self.batches, self.events, self.backends = [], [], [], []
+        self.dispatched = []
         self.rungs, self.oracle_pods = [], 0
         self.gang_checker, self._factories = None, []
         self._restore = []
@@ -3302,6 +3342,7 @@ class LoopRun:
                 q.spec = copy.copy(p.spec)
                 batch.append(q)
             run.batches.append(batch)
+            run.dispatched.append((be, be.dispatches))
             run._tag = "measured" if any(
                 p.metadata.name.startswith("measure-") for p in pods) \
                 else "init"
@@ -6794,16 +6835,22 @@ class ControllerWorld:
             for t in n.spec.taints or []), "17: the not-ready taints")
         self.setup_s = time.perf_counter() - t0
 
-    def _watch_sessions(self):
-        """Record each teardown request of the backend's session (its
-        reason, and whether a session was live) and each build (the
-        reason of the teardown before it, the session class)."""
-        be = self.be
-        self.invalidations, self.builds = [], []
+    def _watch_sessions(self, backends=None):
+        """Record each teardown request of the backends' sessions (the
+        world's one by default): its reason and whether a session was
+        live, and in `teardown_log` its time and the backend's index; and
+        each build (the reason of the teardown before it, the session
+        class)."""
+        self.invalidations, self.builds, self.teardown_log = [], [], []
+        for i, be in enumerate(backends or [self.be]):
+            self._watch_session(i, be)
+
+    def _watch_session(self, i, be):
         invalidate, build = be._invalidate_session, be._build_session
 
         def invalidate_session(reason="unspecified"):
             self.invalidations.append((reason, be._session is not None))
+            self.teardown_log.append((time.perf_counter(), i, reason))
             invalidate(reason)
 
         def build_session():
@@ -6868,6 +6915,19 @@ class ControllerWorld:
         rs = self.rs_of(app, version)
         return rs is not None and rs.status.available_replicas == want \
             and len(self.pods(app=app, version=version)) == want
+
+    def settled(self, name, want):
+        """The Deployment's status has caught up with its ReplicaSets' at
+        `want` replicas. Its status is a function of theirs alone
+        (`DeploymentController._update_status` writes only on a change),
+        so from here nothing writes the Deployment but the caller: a
+        get-then-update (kubectl scale, a new template) cannot meet a
+        status write in between and fail on its revision."""
+        d = self.cs.deployments.get(name, "default")
+        s = d.status
+        return s.observed_generation == d.metadata.generation and \
+            s.replicas == s.updated_replicas == s.ready_replicas == \
+            s.available_replicas == want and s.unavailable_replicas == 0
 
     def idle(self):
         """The scheduler has nothing queued or in flight."""
@@ -6997,8 +7057,8 @@ def ctrl_rollout(w, gpu):
     t0 = time.perf_counter()
     cs.deployments.create(web_deployment(v1, apps, "web", CTRL_REPLICAS,
                                          "v1", "web:1"))
-    wait_for(lambda: w.available("web", "v1", CTRL_REPLICAS) and w.idle(),
-             "17a: the first rollout")
+    wait_for(lambda: w.available("web", "v1", CTRL_REPLICAS) and w.idle()
+             and w.settled("web", CTRL_REPLICAS), "17a: the first rollout")
     first = w.pods(app="web", version="v1")
     w.checks("17a", first)
     skew1 = zone_skew(first, w.zone_of)
@@ -7177,12 +7237,10 @@ def ctrl_lifecycle(w, gpu):
 def ctrl_cascade(w, gpu):
     """17d: the garbage collector's cascade into the live session, then a
     Job and a DaemonSet."""
-    import numpy as np
     from kubernetes_tpu_torch.api import apps, batch
     from kubernetes_tpu_torch.controllers.garbagecollector import (
         GarbageCollector,
     )
-    from kubernetes_tpu_torch.ops.scan import ScanSession
 
     v1, cs, be = w.v1, w.cs, w.be
     d = {}
@@ -7209,31 +7267,12 @@ def ctrl_cascade(w, gpu):
     d["collected_pods"] = web
     # the live session absorbed the deletes as deltas: flushed, its
     # carries equal a fresh session's from the encoding at this moment
-    with be._lock:
-        sess = be._session
-        if not isinstance(sess, ScanSession):
-            raise AssertionError(f"17d: no live kernel session after the "
-                                 f"cascade ({type(sess).__name__})")
-        queued = len(be._deltas)
-        be._apply_session_deltas_locked()
-        be._sync_stream()
-        if be._session is not sess:
-            raise AssertionError("17d: the flush rebuilt the session")
-        state = {k: v.clone() for k, v in
-                 be.enc.device_state(w.device).items()}
-        fresh = ScanSession(state, list(be._known_templates.values()),
-                            be.weights, device=w.device)
-        if sess._carry is None:
-            sess._carry = sess._initial_carry()
-        a = unscaled(sess, sess._carry)
-        b = unscaled(fresh, fresh._initial_carry())
-    diff = [k for k in b if not np.array_equal(a[k], b[k])]
+    queued, diff = carries_vs_fresh(be, w.device, "17d")
     if diff or queued < web:
         raise AssertionError(f"17d: carries {diff} differ from a fresh "
                              f"session's ({queued} deltas queued for {web} "
                              "deletes)")
     d["queued_deltas"] = queued
-    del fresh
     d["cascade"] = w.since(m0, "17d cascade", top=False)
     # the Job, held to a fresh backend fed the cluster at this moment
     bound = w.pods()
@@ -8330,13 +8369,13 @@ class KubemarkWorld(ControllerWorld):
                 out[PodTimes.key(pod)] = pod
         return list(out.values())
 
-    def web_ready(self, want):
-        """The Deployment's one ReplicaSet has `want` available replicas,
-        and the informer holds `want` of its pods, all Running and
-        Ready."""
+    def web_ready(self, want, app="web"):
+        """The Deployment's one ReplicaSet (its pods labelled `app`) has
+        `want` available replicas, and the informer holds `want` of its
+        pods, all Running and Ready."""
         rs = [r for r in self.replicasets()
-              if (r.metadata.labels or {}).get("app") == "web"]
-        pods = self.pods(app="web")
+              if (r.metadata.labels or {}).get("app") == app]
+        pods = self.pods(app=app)
         return len(rs) == 1 and rs[0].status.available_replicas == want \
             and len(pods) == want and all(km_ready(p) for p in pods)
 
@@ -8496,15 +8535,16 @@ def km_ready(pod):
     return pod.status.phase == "Running" and ready_true(pod)
 
 
-def km_wave(w, want, t0, label):
+def km_wave(w, want, t0, label, app="web"):
     """Wait until the Deployment has `want` replicas Running and Ready
-    and the scheduler is idle. -> the numbers of the pods the wave added
+    and the scheduler is idle. -> the numbers of the pods labelled `app`
+    the wave added
     (those not seen before `t0`): pods/s from the first one's add to the
     last one's Ready, startup latency (creation to Running on a watch)
     and a kubelet's Running write to the scheduler's informer."""
-    wait_for(lambda: w.web_ready(want) and w.idle(), label, KM_WAIT,
+    wait_for(lambda: w.web_ready(want, app) and w.idle(), label, KM_WAIT,
              KM_POLL, progress=lambda: km_progress(w))
-    pods = [p for p in w.pods(app="web")
+    pods = [p for p in w.pods(app=app)
             if w.writer.added[PodTimes.key(p)] >= t0]
     keys = [PodTimes.key(p) for p in pods]
     t_first = min(w.writer.added[k] for k in keys)
@@ -8555,6 +8595,9 @@ def km_density(w, gpu):
             f.write(km_manifest(v1, apps, want // 2))
         created = kubectl(w.cs, "create", "-f", path)
     first = km_wave(w, want // 2, t0, "19b: the first wave")
+    wait_for(lambda: w.settled("web", want // 2),
+             "19b: the Deployment's status at the first wave", KM_WAIT,
+             KM_POLL)
     t1 = time.perf_counter()
     scaled = kubectl(w.cs, "scale", "deployment/web", f"--replicas={want}")
     second = km_wave(w, want, t1, "19b: the second wave")
@@ -8977,6 +9020,848 @@ def phase_kubemark(sk, gpu, device="cuda"):
     return out, launches
 
 
+# kubemark-500 cut to the most hollow nodes that converge in one
+# interpreter on both stores (PERF.md §7: 400 do not)
+CL_NODES = 300
+# 20e's quiet wave, half a pod a node: its wave set the phase's overruns
+# (41 and 54 s of a 75 s budget at a pod a node; PERF.md §6)
+CL_QUIET_PODS = CL_NODES // 2
+# s of 20c's ChaosMonkey: at least CL_CHAOS_S, and on until it has wedged
+# the device once, at most CL_CHAOS_MAX_S
+CL_CHAOS_S, CL_CHAOS_MAX_S = 8.0, 12.0
+CL_PERIOD = 0.5                  # s between the monkey's disruptions
+CL_SAMPLE = 1.0                  # s between the invariant suite's samples
+CL_SEED = 20
+# tests/test_failover.py FAST_ELECTION: the two schedulers' lease
+CL_ELECTION = dict(lease_duration=1.5, renew_deadline=1.0, retry_period=0.05,
+                   fence_margin=0.3)
+# 20e's election: the reference's defaults (LeaderElectionConfig's lease,
+# renew deadline and retry, KTPU_LEASE_FENCE_MARGIN), set on both electors
+# once the chaos is over (cl_calm_election)
+CL_QUIET_ELECTION = dict(lease_duration=15.0, renew_deadline=10.0,
+                         retry_period=2.0, fence_margin=2.0)
+CL_WATCHDOG = 2.0                # s: 20c's dispatch watchdog, at least
+CL_DISRUPTIONS = ("kill-kubelet", "restart-kubelet", "delete-pod",
+                  "wedge-device", "crash-scheduler", "crash-controller",
+                  "crash-apiserver", "failover-scheduler",
+                  "partition-scheduler")
+# tests/test_endurance.py's fd and thread growth bounds (32, 16), each
+# plus 1 % of 20b's steady count (the kubelets' threads); its pending-pod
+# slack
+CL_FD_SLACK, CL_THREAD_SLACK, CL_PENDING_SLACK = 32, 16, 4
+# the device fault kind each injected wedge-device kind is counted as
+CL_FAULT_KIND = {"raise-dispatch": "raise", "nan-harvest": "invalid",
+                 "wedge-wait": "timeout"}
+
+
+class ClusterWorld(KubemarkWorld):
+    """Phase 20's cluster, built by the port's `Cluster` (cluster.py) with
+    CL_NODES hollow kubelets, phase 19's shape: each node in zone-{i % 3}
+    (the kubelets' configs labelled before they register), the
+    KubeletConfig defaults but a `KM_LEASE_RENEW` s lease renewal
+    (`node_config`), node lifecycle at `KM_MONITOR` / `KM_GRACE` and the
+    garbage collector scanning every `KM_GC_SCAN` s (`controller_opts`;
+    the manager's initializer reads `gc_scan_interval` there), every
+    controller's entry points wrapped by SyncErrors. `cluster_kw` goes to
+    `Cluster` (store, schedulers, election, controllers, injector). Each
+    scheduler's backend keeps its `event_log`; the loop's batch hook
+    (`LoopRun.dispatched`) says which backend took each batch. The kubelets
+    write through KubeletClient;
+    PodTimes reads the first scheduler's informers. KubemarkWorld's
+    readers, marks and replays apply to `be` (the leader's backend)."""
+
+    def __init__(self, sk, device="cuda", **cluster_kw):
+        from kubernetes_tpu_torch.api import types as v1
+        from kubernetes_tpu_torch.client.informer import EventHandler
+        from kubernetes_tpu_torch.cluster import Cluster
+        from kubernetes_tpu_torch.controllers import manager as kcm
+        from kubernetes_tpu_torch.controllers.garbagecollector import (
+            GarbageCollector,
+        )
+
+        t0 = time.perf_counter()
+        self.sk, self.device, self.v1 = sk, device, v1
+        # one pod a node, phase 19's density
+        n_nodes = CL_NODES
+        self.n, self.want = n_nodes, n_nodes * KM_PODS_PER_NODE
+        self.errors = SyncErrors(timed=("monitor_node_health",))
+
+        def wrapped(init):
+            def build(cs, inf, opts):
+                ctrl = init(cs, inf, opts)
+                return self.errors.wrap(ctrl, *(
+                    n for n in MGR_SYNCS if callable(getattr(ctrl, n, None))))
+            return build
+
+        inits = kcm.new_controller_initializers()
+        inits["garbagecollector"] = lambda cs, inf, opts: GarbageCollector(
+            cs, scan_interval=opts["gc_scan_interval"])
+        orig = kcm.new_controller_initializers
+        kcm.new_controller_initializers = lambda: {
+            n: wrapped(i) for n, i in inits.items()}
+        self.run = LoopRun(device == "cuda")
+        try:
+            self.c = Cluster(
+                n_nodes=n_nodes,
+                node_config={"lease_renew_period": KM_LEASE_RENEW},
+                controller_opts={"node_monitor_period": KM_MONITOR,
+                                 "node_monitor_grace_period": KM_GRACE,
+                                 "gc_scan_interval": KM_GC_SCAN},
+                device=device, **cluster_kw)
+        except BaseException:
+            self.run.close()
+            raise
+        finally:
+            kcm.new_controller_initializers = orig
+        c = self.c
+        self.api, self.cs, self.mgr = c.api, c.client, c.kcm
+        self.factory = c._sched_factory
+        self.scheds = list(c.schedulers)
+        self.sched, self.be = c.scheduler, c.scheduler.tpu
+        self.hollow = c.hollow
+        self.names = [kl.config.node_name for kl in self.hollow.kubelets]
+        self.zone_of = {n: f"zone-{i % 3}" for i, n in enumerate(self.names)}
+        for kl in self.hollow.kubelets:
+            kl.config.labels = {v1.LABEL_ZONE: self.zone_of[
+                kl.config.node_name]}
+        self.kubelet_client = KubeletClient(self.cs)
+        self.hollow.client = self.kubelet_client
+        for kl in self.hollow.kubelets:
+            kl.client = self.kubelet_client
+        backends = [s.tpu for s in self.scheds]
+        self._watch_sessions(backends)
+        for be in backends:
+            # presized for 20b's and 20e's pods
+            be.enc.reserve(pods=int(2 * self.want * 1.25))
+            be.event_log = []
+        self.log = self.be.event_log
+        self.writer = PodTimes(self.factory)
+        self.factory.informer_for("replicasets")
+        self.tainted = {}
+        self.factory.nodes().add_event_handler(EventHandler(
+            on_update=self._on_node))
+        self.controllers, self.nlc, self.gc = [], None, None
+        self.proxies, self._proxy_factories = [], []
+        self.fanout = {"events": 0, "s": 0.0}
+        self.setup_s = time.perf_counter() - t0
+
+    def lead(self):
+        """The scheduler holding the lease (the sole one without
+        election); KubemarkWorld's readers follow it."""
+        s = self.c.active_scheduler
+        self.sched, self.be = s, s.tpu
+        self.log = s.tpu.event_log
+        return s
+
+    def ready_everywhere(self):
+        """Every scheduler's cache holds the n Ready, untainted
+        nodes."""
+        keep = self.sched
+        try:
+            for s in self.scheds:
+                self.sched = s
+                if len(km_ready_nodes(self)) != self.n:
+                    return False
+            return True
+        finally:
+            self.sched = keep
+
+    def start(self, label):
+        """Cluster.start(); -> seconds until every scheduler's cache holds
+        the nodes Ready."""
+        t0 = time.perf_counter()
+        self.c.start()
+        wait_for(self.ready_everywhere, f"{label}: the nodes Ready in the "
+                 f"schedulers' caches", KM_WAIT, KM_POLL)
+        return time.perf_counter() - t0
+
+    def idle(self):
+        """The leading scheduler has nothing queued or in flight."""
+        self.lead()
+        return super().idle()
+
+    def close(self):
+        """Every kubelet's stop set first (a sync loop notices its stop
+        only when its 0.2 s wait returns), then Cluster.stop(); timed."""
+        t0 = time.perf_counter()
+        for kl in self.hollow.kubelets:
+            kl._stop.set()
+        try:
+            self.c.stop()
+        finally:
+            for s in self.scheds:
+                s.tpu.close()
+            self.run.close()
+        self.teardown_s = time.perf_counter() - t0
+
+
+def cl_deployment(w, name, replicas):
+    """`kubectl create -f` of phase 19's zone-spread Deployment (100m /
+    64Mi, zone spread DoNotSchedule maxSkew 1, `fast_failover`), named
+    `name`."""
+    import tempfile
+
+    from kubernetes_tpu_torch.api import apps
+
+    manifest = km_manifest(w.v1, apps, replicas).replace('"web"', f'"{name}"')
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{name}.json")
+        with open(path, "w") as f:
+            f.write(manifest)
+        return kubectl(w.cs, "create", "-f", path).strip()
+
+
+def cl_native(sk, gpu, device, km=None):
+    """20a: Cluster(native_store=True) of CL_NODES hollow kubelets
+    and KM_CONTROLLERS; the library's first-use build, bring-up, one
+    density Deployment of a pod a node until Running, its bindings against a replay
+    from the backend's event_log; teardown."""
+    from kubernetes_tpu_torch.store import native
+
+    t0 = time.perf_counter()
+    prebuilt = os.path.exists(native._LIB_PATH)
+    native.load_library()
+    build_s = time.perf_counter() - t0
+    w = ClusterWorld(sk, device, native_store=True,
+                     controllers=list(KM_CONTROLLERS))
+    try:
+        if type(w.api.store).__name__ != "NativeKVStore":
+            raise AssertionError(f"20a: store {type(w.api.store).__name__}")
+        ready_s = w.start("20a")
+        nodes, k0 = w.nodes(), len(w.log)
+        m1 = w.mark()
+        cpu0 = thread_cpu()
+        t1 = time.perf_counter()
+        created = cl_deployment(w, "web", w.want)
+        wave = km_wave(w, w.want, t1, "20a: the density wave")
+        window_s = time.perf_counter() - t1
+        wave["cpu_s"] = cpu_since(cpu0)
+        pods = w.pods(app="web")
+        w.checks("20a", pods)
+        skew = zone_skew(pods, w.zone_of)
+        b1 = len(w.run.batches)
+        a = w.since(m1, "20a")
+        events, split = w.events(k0, m1[0], b1)
+        a.update(w.replay("20a", m1[0], b1, (), nodes=nodes, events=events))
+    finally:
+        w.close()
+    a.update({"library_prebuilt": prebuilt, "library_build_s": build_s,
+              "setup_s": w.setup_s, "ready_s": ready_s,
+              "kubectl": created, "wave": wave, "zone_skew": skew,
+              "split_status_batches": split, "window_s": window_s,
+              "teardown_s": w.teardown_s,
+              "kernel_share": a["kernel_ms"] / 1e3 / window_s})
+    if skew > 1 or split or len(pods) != w.want or \
+            not a["launches"].get("scan_full"):
+        raise AssertionError(f"20a: {a}")
+    side = ""
+    if km:
+        side = "; phase 19's Python store: " + ", ".join(
+            f"{k} {km['19b'][k]['pods_per_s']:.1f} pods/s, startup p50 "
+            f"{km['19b'][k]['startup_p50_s']:.3f} s p99 "
+            f"{km['19b'][k]['startup_p99_s']:.3f} s, delivery p50 "
+            f"{km['19b'][k]['delivery_p50_ms']:.2f} ms p99 "
+            f"{km['19b'][k]['delivery_p99_ms']:.2f} ms"
+            for k in ("first", "second")) \
+            + f", bring-up {km['19a']['ready_s']:.2f} s"
+    log(f"phase 20a native store: libkvstore.so "
+        f"{'loaded' if prebuilt else 'built and loaded'} in {build_s:.2f} s; "
+        f"Cluster(native_store=True) of {w.n} hollow kubelets, all "
+        f"Ready in the scheduler's cache {ready_s:.2f} s after start(); a "
+        f"{w.want}-replica zone-spread Deployment Running and Ready at "
+        f"{wave['pods_per_s']:.1f} pods/s, startup p50 "
+        f"{wave['startup_p50_s']:.3f} s p99 {wave['startup_p99_s']:.3f} s, a "
+        f"kubelet's status write to the scheduler's informer p50 "
+        f"{wave['delivery_p50_ms']:.2f} ms p99 {wave['delivery_p99_ms']:.2f} "
+        f"ms{side}; zone skew {skew}, bindings equal a replay of the "
+        f"{a['batches']} batches with the backend's event_log, 0 split "
+        f"batches; launches {a['launches']}; kernel {a['kernel_ms']:.1f} ms, "
+        f"{a['kernel_share']:.2%} of {window_s:.2f} s; teardown "
+        f"{w.teardown_s:.2f} s; {a} [{gpu}]")
+    return a
+
+
+class CrashWatch:
+    """Wraps the durable store's crash(): under the store's writer lock,
+    every key with its mod revision just before and just after each crash;
+    a key listed before and missing after, or at an earlier revision, is a
+    lost acknowledged write."""
+
+    def __init__(self, store):
+        self.store, self.crashes = store, []
+        crash = store.crash
+
+        def wrapped(torn=False):
+            with store._dlock:
+                before = self.listing()
+                t0 = time.perf_counter()
+                crash(torn=torn)
+                dt = time.perf_counter() - t0
+                after = self.listing()
+            lost = sorted(k for k, rev in before.items()
+                          if after.get(k, -1) < rev)
+            self.crashes.append({"t": t0, "torn": torn, "keys": len(before),
+                                 "lost": lost, "recover_ms": dt * 1e3})
+
+        store.crash = wrapped
+
+    def listing(self):
+        items, _ = self.store.list("/")
+        return {kv.key: kv.mod_revision for kv in items}
+
+
+class WalTimes:
+    """Host-clock seconds of each WAL append (write, flush, fsync) while
+    installed: wal.WALWriter.append wrapped at class level."""
+
+    def __init__(self):
+        from kubernetes_tpu_torch.store import wal
+
+        self.seconds, self._cls = [], wal.WALWriter
+        self._orig = append = wal.WALWriter.append
+
+        def timed(writer, rec):
+            t0 = time.perf_counter()
+            append(writer, rec)
+            self.seconds.append(time.perf_counter() - t0)
+
+        wal.WALWriter.append = timed
+
+    def close(self):
+        self._cls.append = self._orig
+
+    def ms(self, start=0):
+        p50, p99 = quantiles(self.seconds[start:])
+        return {"appends": len(self.seconds) - start,
+                "p50_ms": p50 * 1e3 if p50 is not None else None,
+                "p99_ms": p99 * 1e3 if p99 is not None else None}
+
+
+class WaitTimes:
+    """The longest span the dispatch watchdog bounds, host clock: from a
+    batch's dispatch (its deadline less the watchdog) to the end of the
+    backend's `_wait_ready` on its event, whose timeout is what is left
+    of the watchdog then."""
+
+    def __init__(self, backends):
+        self.longest = 0.0
+        for be in backends:
+            wait = be._wait_ready
+
+            def timed(event, timeout, _wait=wait, _be=be):
+                t0 = time.perf_counter()
+                try:
+                    return _wait(event, timeout)
+                finally:
+                    spent = max(0.0, _be.watchdog_timeout - timeout)
+                    self.longest = max(self.longest, spent
+                                       + time.perf_counter() - t0)
+
+            be._wait_ready = timed
+
+
+def cl_suite(w, checker, steady):
+    """tests/test_endurance.py's invariant set over the port's /metricsz,
+    its fd and thread bounds plus 1 % of 20b's steady counts."""
+    from kubernetes_tpu_torch.testing import invariants as inv
+
+    fds = CL_FD_SLACK + steady["fds"] // 100
+    threads = CL_THREAD_SLACK + steady["threads"] // 100
+    ttl = max(s.cache._ttl for s in w.scheds)
+    return inv.InvariantSuite([
+        inv.CounterFlat("scheduler_parity_drift_total",
+                        label="zero-shadow-drift"),
+        inv.CounterFlat("scheduler_cache_expired_assumes_total",
+                        label="zero-expired-assumes"),
+        inv.Callback("zero-double-binds", lambda: list(checker.violations)),
+        inv.BoundedGrowth("process_open_fds", max_abs=fds,
+                          label="fd-growth"),
+        inv.BoundedGrowth("process_threads", max_abs=threads,
+                          label="thread-growth"),
+        inv.GaugeBaseline("scheduler_pending_pods", slack=CL_PENDING_SLACK,
+                          label="queue-returns-to-baseline"),
+        inv.GaugeCeiling("scheduler_cache_oldest_assume_seconds",
+                         ceiling=ttl + 5.0, label="no-assume-outlives-ttl"),
+    ]), {"fd_growth_max": fds, "thread_growth_max": threads,
+         "pending_slack": CL_PENDING_SLACK, "assume_ceiling_s": ttl + 5.0}
+
+
+def steady_counts():
+    """The process's open fds and threads now."""
+    return {"fds": len(os.listdir("/proc/self/fd")),
+            "threads": threading.active_count()}
+
+
+def cl_ha(sk, gpu, device):
+    """20b-20e on one Cluster: durable, two schedulers, every default
+    controller, a FaultInjector; built and run inside the lock-order
+    sentinel."""
+    import shutil
+    import tempfile
+
+    from kubernetes_tpu_torch.cluster import DEFAULT_CONTROLLERS
+    from kubernetes_tpu_torch.scheduler import metrics
+    from kubernetes_tpu_torch.testing.faults import (
+        BindIntegrityChecker,
+        FaultInjector,
+    )
+    from kubernetes_tpu_torch.testing.locks import lock_order_sentinel
+
+    out, seconds = {}, {}
+    tmp = tempfile.mkdtemp(prefix="ktpu-wal-")
+    wal_times = WalTimes()
+    transitions0 = metrics.leader_transitions.value()
+    inj = FaultInjector()
+    w = None
+    try:
+        with lock_order_sentinel() as sentinel:
+            t1 = time.perf_counter()
+            w = ClusterWorld(sk, device, durable_path=tmp, n_schedulers=2,
+                             election_opts=dict(CL_ELECTION),
+                             controllers=list(DEFAULT_CONTROLLERS),
+                             fault_injector=inj)
+            # the same injector on the standby: an armed fault fires on
+            # whichever instance leads
+            w.scheds[1].install_fault_injector(inj)
+            out["20b"] = cl_durable(w, gpu, device, wal_times)
+            seconds["20b"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            checker = BindIntegrityChecker().attach(w.mgr.informers.pods())
+            chaos = cl_chaos(w, gpu, inj, checker, out["20b"])
+            out["20c"] = chaos["numbers"]
+            seconds["20c"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            out["20d"] = cl_recover(w, gpu, inj, checker, chaos,
+                                    wal_times, transitions0, sentinel)
+            seconds["20d"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            cl_calm_election(w)
+            out["20e"] = cl_quiet_wave(w, gpu, checker)
+            seconds["20e"] = time.perf_counter() - t1
+    finally:
+        t1 = time.perf_counter()
+        if w is not None:
+            w.close()
+        wal_times.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        seconds["teardown"] = time.perf_counter() - t1
+    out["sync_errors"] = dict(w.errors.errors)
+    out["sync_retries"] = dict(w.errors.retries)
+    out["teardown_s"] = w.teardown_s
+    if w.errors.errors:
+        raise AssertionError(f"20: controller sync errors {w.errors.errors}")
+    return out, seconds
+
+
+def cl_durable(w, gpu, device, wal_times):
+    """20b: bring-up of the durable, highly available control plane, one
+    leader, both schedulers on a card backend; a pod-a-node
+    Deployment until Running; the WAL appends' host-clock times."""
+    import torch
+
+    want = torch.device(device).type
+    for s in w.scheds:
+        if s.tpu is None or s.tpu.device.type != want:
+            raise AssertionError(f"20b: a scheduler without a {want} "
+                                 f"backend: {s.tpu}")
+    if type(w.api.store).__name__ != "DurableKVStore" or \
+            not w.api.store._fsync:
+        raise AssertionError("20b: the store is not a fsync'd "
+                             "DurableKVStore")
+    w0 = len(wal_times.seconds)
+    ready_s = w.start("20b")
+    wait_for(lambda: sum(s.elector.is_leader.is_set()
+                         for s in w.scheds) == 1,
+             "20b: one leader", KM_WAIT, KM_POLL)
+    leader = w.lead()
+    bring = wal_times.ms(w0)
+    waits = WaitTimes([s.tpu for s in w.scheds])
+    m0 = w.mark()
+    w1 = len(wal_times.seconds)
+    cpu0 = thread_cpu()
+    t0 = time.perf_counter()
+    created = cl_deployment(w, "web", w.want)
+    wave = km_wave(w, w.want, t0, "20b: the Deployment")
+    window_s = time.perf_counter() - t0
+    wave["cpu_s"] = cpu_since(cpu0)
+    pods = w.pods(app="web")
+    w.checks("20b", pods)
+    b = w.since(m0, "20b")
+    b.update({
+        "ready_s": ready_s, "setup_s": w.setup_s,
+        "leader": leader.elector.cfg.identity, "kubectl": created,
+        "wave": wave, "window_s": window_s,
+        "wal_bringup": bring, "wal_wave": wal_times.ms(w1),
+        "longest_wait_s": waits.longest,
+        "steady": steady_counts(),
+        "kernel_share": b["kernel_ms"] / 1e3 / window_s})
+    log(f"phase 20b durable HA control plane: Cluster(durable_path, "
+        f"n_schedulers=2, {len(w.mgr.supervisor.names())} controllers) of "
+        f"{w.n} hollow kubelets, the nodes Ready in both schedulers' "
+        f"caches {ready_s:.2f} s after start(), {b['leader']} leads, both "
+        f"on a {want} TPUBackend; WAL appends (write, flush, fsync) over "
+        f"the bring-up {bring}, over the wave {b['wal_wave']}; a "
+        f"{w.want}-replica Deployment Running and Ready at "
+        f"{wave['pods_per_s']:.1f} pods/s (startup p50 "
+        f"{wave['startup_p50_s']:.3f} s p99 {wave['startup_p99_s']:.3f} s); "
+        f"the longest device wait of a clean batch {waits.longest:.3f} s; "
+        f"{b['steady']}; {b} [{gpu}]")
+    return b
+
+
+def cl_chaos(w, gpu, inj, checker, b):
+    """20c: ChaosMonkey over CL_DISRUPTIONS for CL_CHAOS_S s, and on until
+    it has drawn a wedge-device (at most CL_CHAOS_MAX_S s); the invariant
+    suite sampled every CL_SAMPLE s."""
+    import random
+
+    from kubernetes_tpu_torch.testing.chaos import ChaosMonkey
+
+    watchdog = max(CL_WATCHDOG, 2.0 * b["longest_wait_s"])
+    for s in w.scheds:
+        tpu = s.tpu
+        # _soak_impl's retry and probe knobs; the watchdog above the
+        # longest clean batch's wait
+        tpu.watchdog_timeout = watchdog
+        tpu.retry_base = 0.01
+        tpu.ladder._probe_interval = 0.1
+        tpu.ladder._probe_delay = 0.1
+    crashes = CrashWatch(w.api.store)
+    suite, bounds = cl_suite(w, checker, b["steady"])
+    suite.sample()  # baseline
+    counts0 = counters()
+    n_inv = len(w.teardown_log)
+    m0 = w.mark()
+    monkey = ChaosMonkey(w.c, period=CL_PERIOD, rng=random.Random(CL_SEED),
+                         disruptions=list(CL_DISRUPTIONS))
+    t0 = time.perf_counter()
+    monkey.run()
+    next_sample = t0 + CL_SAMPLE
+
+    def going():
+        t = time.perf_counter() - t0
+        return t < CL_CHAOS_S or t < CL_CHAOS_MAX_S and not any(
+            d.kind == "wedge-device" for d in monkey.history)
+
+    while going():
+        time.sleep(max(0.0, next_sample - time.perf_counter()))
+        next_sample += CL_SAMPLE
+        suite.sample()
+    monkey.stop()
+    window_s = time.perf_counter() - t0
+    kinds = {}
+    for d in monkey.history:
+        kinds[d.kind] = kinds.get(d.kind, 0) + 1
+    numbers = {"seconds": window_s, "disruptions": len(monkey.history),
+               "by_kind": kinds, "watchdog_s": watchdog,
+               "invariant_bounds": bounds, "samples": len(suite.samples)}
+    log(f"phase 20c chaos: ChaosMonkey(period {CL_PERIOD} s, seed "
+        f"{CL_SEED}) for {window_s:.2f} s: {len(monkey.history)} "
+        f"disruptions by kind {kinds}; watchdog {watchdog:.2f} s; the "
+        f"invariant suite sampled {len(suite.samples)} times, bounds "
+        f"{bounds} [{gpu}]")
+    return {"numbers": numbers, "monkey": monkey, "suite": suite,
+            "crashes": crashes, "counts0": counts0, "mark": m0,
+            "teardowns0": n_inv}
+
+
+def cl_recover(w, gpu, inj, checker, chaos, wal_times, transitions0,
+               sentinel):
+    """20d: every armed fault fired (a delete-pod gives an idle leader a
+    batch to fire it on), then the injector disarmed and every dead
+    kubelet restarted; the leader back at its top rung; the Deployment's pods
+    Running and no other; no double bind, no node over its allocatable;
+    faults counted only as armed; leader transitions beyond the first; no
+    acknowledged write lost across a crash; the invariants and the lock
+    sentinel clean."""
+    from kubernetes_tpu_torch.scheduler import metrics
+
+    monkey, suite, crashes = chaos["monkey"], chaos["suite"], chaos["crashes"]
+    t0 = time.perf_counter()
+    wedge = ("raise-dispatch", "nan-harvest", "wedge-wait",
+             "kill-scheduler", "kill-completion")
+    nudges = 0
+    deadline = time.monotonic() + KM_WAIT
+    next_sample = time.perf_counter() + CL_SAMPLE
+    while any(inj.armed(k) for k in wedge):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"20d: faults still armed "
+                                 f"{[k for k in wedge if inj.armed(k)]}")
+        if w.idle():
+            monkey.do_one("delete-pod")
+            nudges += 1
+        time.sleep(KM_POLL)
+        if time.perf_counter() >= next_sample:
+            next_sample += CL_SAMPLE
+            suite.sample()
+    inj.disarm()
+    dead = [kl.config.node_name for kl in monkey._dead]
+    monkey.restart_all_dead(timeout=KM_WAIT)
+    wait_for(lambda: w.lead().tpu.ladder.rung() >= w.be.ladder.top,
+             "20d: the leader's ladder at its top rung", KM_WAIT, KM_POLL)
+
+    def converged():
+        if time.perf_counter() >= converged.next:
+            converged.next += CL_SAMPLE
+            suite.sample()
+        pods = w.pods()
+        return len(pods) == w.want and all(km_ready(p) for p in pods) \
+            and w.idle()
+
+    converged.next = time.perf_counter() + CL_SAMPLE
+    wait_for(converged, "20d: the Deployment back at its replicas",
+             KM_WAIT, KM_POLL, progress=lambda: km_progress(w))
+    recover_s = time.perf_counter() - t0
+    time.sleep(CL_SAMPLE)
+    violations = suite.finish()
+    pods, nodes = w.pods(), w.nodes()
+    over = overcommitted(pods, nodes)
+    alive = {kl.config.node_name for kl in w.hollow.kubelets}
+    not_ready_live = [n.metadata.name for n in nodes
+                      if n.metadata.name in alive and (n.spec.taints
+                                                       or not ready_true(n))]
+    armed = {}
+    for d in monkey.history:
+        if d.kind in ("wedge-device", "crash-scheduler"):
+            armed[d.target] = armed.get(d.target, 0) + 1
+    fired = dict(inj.injected)
+    faults = {k[0]: v for k, v in
+              counters_delta(chaos["counts0"])["device_faults"].items()}
+    unfired = [k for k in armed if not fired.get(k)]
+    unarmed = {k: v for k, v in faults.items()
+               if v > sum(fired.get(f, 0) for f, fk in CL_FAULT_KIND.items()
+                          if fk == k)}
+    transitions = metrics.leader_transitions.value() - transitions0
+    lost = [c for c in crashes.crashes if c["lost"]]
+    cycle = sentinel.find_cycle()
+    per_crash = []
+    for c in crashes.crashes:
+        by = {}
+        for t, i, reason in w.teardown_log[chaos["teardowns0"]:]:
+            if c["t"] <= t < c["t"] + 1.0:
+                by[reason] = by.get(reason, 0) + 1
+        per_crash.append({"torn": c["torn"], "keys": c["keys"],
+                          "recover_ms": c["recover_ms"],
+                          "teardowns_1s": by})
+    teardowns = {}
+    for _, _, reason in w.teardown_log[chaos["teardowns0"]:]:
+        teardowns[reason] = teardowns.get(reason, 0) + 1
+    d = {"recover_s": recover_s, "restarted": dead, "nudges": nudges,
+         "pods": len(pods), "double_binds": list(checker.violations),
+         "over_allocatable": over, "not_ready_live": not_ready_live,
+         "armed": armed, "fired": fired, "device_faults": faults,
+         "leader_transitions": transitions,
+         "leader": w.sched.elector.cfg.identity,
+         "crashes": per_crash, "teardowns": teardowns,
+         "violations": violations, "lock_cycle": cycle,
+         "wal_chaos": wal_times.ms(0),
+         "by_kind": chaos["numbers"]["by_kind"],
+         "history": [(x.kind, x.target) for x in monkey.history],
+         "launches": launched(w.sk, chaos["mark"][3])}
+    if checker.violations or over or unfired or unarmed or lost or \
+            transitions <= 1 or violations or cycle or len(pods) != w.want:
+        raise AssertionError(f"20d: unfired {unfired}, unarmed {unarmed}, "
+                             f"lost writes {lost}, {d}")
+    log(f"phase 20d recovery: every armed fault fired ({armed} armed, "
+        f"{fired} fired, {nudges} delete-pod nudges), the injector "
+        f"disarmed, {len(dead)} dead kubelets restarted, the leader "
+        f"{d['leader']} back at its top rung, {len(pods)} pods Running and "
+        f"Ready and no other {recover_s:.2f} s after the monkey stopped; 0 "
+        f"double binds, 0 nodes over their allocatable, {len(not_ready_live)} "
+        f"live nodes tainted or NotReady {not_ready_live[:8]}; device faults "
+        f"{faults}, none unarmed; {transitions:g} leader transitions; "
+        f"{len(crashes.crashes)} apiserver crashes, each listing the same "
+        f"keys at the same or a later revision after it (session teardowns "
+        f"within 1 s of each: {per_crash}); teardowns by reason "
+        f"{teardowns}; invariants and lock sentinel clean; the monkey's "
+        f"history by kind {d['by_kind']}; {d} [{gpu}]")
+    return d
+
+
+def carries_vs_fresh(be, device, label):
+    """The backend's live kernel session, its queued deltas flushed,
+    against a session built fresh from its encoding. -> (the deltas that
+    were queued, the carries that differ)."""
+    import numpy as np
+    from kubernetes_tpu_torch.ops.scan import ScanSession
+
+    with be._lock:
+        sess = be._session
+        if not isinstance(sess, ScanSession):
+            raise AssertionError(f"{label}: no live kernel session "
+                                 f"({type(sess).__name__})")
+        queued = len(be._deltas)
+        be._apply_session_deltas_locked()
+        be._sync_stream()
+        if be._session is not sess:
+            raise AssertionError(f"{label}: the flush rebuilt the session")
+        state = {k: v.clone() for k, v in
+                 be.enc.device_state(device).items()}
+        fresh = ScanSession(state, list(be._known_templates.values()),
+                            be.weights, device=device)
+        if sess._carry is None:
+            sess._carry = sess._initial_carry()
+        a = unscaled(sess, sess._carry)
+        b = unscaled(fresh, fresh._initial_carry())
+    return queued, [k for k in b if not np.array_equal(a[k], b[k])]
+
+
+def cl_calm_election(w):
+    """Before 20e: both electors take CL_QUIET_ELECTION (an elector reads
+    its config on every pass of its loops), then one instance leads. At
+    CL_ELECTION's timings a leader fences itself 1.2 s after its last
+    renew, and with the interpreter starved by 300 kubelets and every
+    write fsync'd a renew can wait that long: the lease then moves with
+    no disruption drawn, under the quiet wave (PERF.md §6)."""
+    def one_leader():
+        return sum(s.elector.is_leader.is_set() for s in w.scheds) == 1
+
+    # a lease lapsed at CL_ELECTION's timings is taken over at them: at
+    # the quiet ones its expiry would take 15 s
+    wait_for(one_leader, "20e: one leader", KM_WAIT, KM_POLL)
+    for s in w.scheds:
+        for k, v in CL_QUIET_ELECTION.items():
+            setattr(s.elector.cfg, k, v)
+    wait_for(one_leader, "20e: one leader at the quiet timings", KM_WAIT,
+             KM_POLL)
+
+
+def cl_quiet_wave(w, gpu, checker):
+    """20e: a second zone-spread Deployment of CL_QUIET_PODS after the
+    chaos: its batches' bindings equal a replay of those batches from the
+    leader's event_log, with 0 split batches; zone skew <= 1; then the
+    leader's live session carries equal a fresh session's from its
+    encoding."""
+    leader = w.lead()
+    be = leader.tpu
+    # the leader's cache and the events its backend took, read at one
+    # instant (the cache calls its listeners under its lock); the nodes in
+    # the order of the backend's encoding, whose first lane wins a tie
+    # (the cache's own order moves a node it touches)
+    with leader.cache._lock:
+        nodes, bound = leader.cache.dump()
+        k0, b0 = len(be.event_log), len(w.run.batches)
+        with be._lock:
+            order = {n: i for i, n in enumerate(be.enc._node_order)}
+    nodes.sort(key=lambda n: order[n.metadata.name])
+    m0 = w.mark()
+    cpu0 = thread_cpu()
+    t0 = time.perf_counter()
+    want = CL_QUIET_PODS
+    created = cl_deployment(w, "quiet", want)
+    wave = km_wave(w, want, t0, "20e: the quiet wave", app="quiet")
+    window_s = time.perf_counter() - t0
+    wave["cpu_s"] = cpu_since(cpu0)
+    # the leader dispatched every batch since b0: its dispatch counts
+    # index its event_log
+    owners = w.run.dispatched[b0:]
+    n = len(owners)
+    if not n:
+        raise AssertionError("20e: the quiet wave launched no batch")
+    if w.lead() is not leader or any(o is not be for o, _ in owners):
+        raise AssertionError("20e: the lease moved during the quiet wave")
+    first = owners[0][1]
+    pods = w.pods(app="quiet")
+    skew = zone_skew(pods, w.zone_of)
+    e = w.since(m0, "20e")
+    events, split = w.events(k0, first, first + n)
+    e.update(w.replay("20e", b0, b0 + n, bound, nodes=nodes, events=events))
+    queued, carries = carries_vs_fresh(be, w.device, "20e")
+    e.update({"kubectl": created, "wave": wave, "zone_skew": skew,
+              "split_status_batches": split, "queued_deltas": queued,
+              "carries_differ": carries, "window_s": window_s,
+              "double_binds": list(checker.violations),
+              "kernel_share": e["kernel_ms"] / 1e3 / window_s})
+    if split or skew > 1 or carries or len(pods) != want or \
+            checker.violations:
+        raise AssertionError(f"20e: {e}")
+    log(f"phase 20e quiet wave: a second {want}-replica zone-spread "
+        f"Deployment on the leader {leader.elector.cfg.identity} at "
+        f"{wave['pods_per_s']:.1f} pods/s; bindings equal a replay of its "
+        f"{n} batches from the leader's event_log, 0 split batches, zone "
+        f"skew {skew}; the live session flushed ({queued} deltas queued) "
+        f"carries equal a fresh session's from its encoding; {e} [{gpu}]")
+    return e
+
+
+def cl_entry(gpu, device):
+    """20f: graft_entry.entry()'s function on its arguments on `device`
+    equals the CPU's; dryrun_multichip(1) with the mesh at 8 shards on one
+    device."""
+    import torch
+    from kubernetes_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    fn, (cluster, pod) = graft_entry.entry(device)
+    got = fn(cluster, pod)
+    fn, (cluster, pod) = graft_entry.entry("cpu")
+    want = fn(cluster, pod)
+    diff = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
+    entry_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(
+        1, device=None if device == "cuda" else device)
+    dry_s = time.perf_counter() - t0
+    f = {"entry_outputs": len(want), "entry_differ": diff,
+         "entry_s": entry_s, "dryrun": dry, "dryrun_s": dry_s,
+         "feasible": int(got["feasible"].sum())}
+    if diff or dry["layout"] != "8x1@1" or not f["feasible"]:
+        raise AssertionError(f"20f: {f}")
+    log(f"phase 20f entry point: graft_entry.entry()'s schedule_pod on "
+        f"{device} equals the CPU's on all {len(want)} outputs "
+        f"({entry_s:.2f} s); dryrun_multichip(1) passed with the mesh at "
+        f"{dry['layout']} (session builds {dry['session_builds']}, "
+        f"{dry_s:.2f} s) [{gpu}]")
+    return f
+
+
+def phase_cluster_plane(sk, gpu, device="cuda", km=None):
+    """Phase 20: the control plane assembled by cluster.py around the
+    card's scheduler, kubemark-500's shape at CL_NODES nodes (20a native
+    store; 20b-20e a durable,
+    two-scheduler control plane under chaos; 20f the entry point).
+    `km`: phase 19's numbers, printed beside 20a's. Returns (numbers,
+    launches per kernel variant over the phase: counts set to 0 just
+    before it)."""
+    t0 = time.perf_counter()
+    reset_counts(sk)
+    with GcClock() as gc_clock:
+        out = {"nodes": CL_NODES, "pods_per_node": KM_PODS_PER_NODE}
+        seconds = {}
+        t1 = time.perf_counter()
+        out["20a"] = cl_native(sk, gpu, device, km)
+        seconds["20a"] = time.perf_counter() - t1
+        ha, ha_seconds = cl_ha(sk, gpu, device)
+        out.update(ha)
+        seconds.update(ha_seconds)
+        t1 = time.perf_counter()
+        out["20f"] = cl_entry(gpu, device)
+        seconds["20f"] = time.perf_counter() - t1
+        window_s = time.perf_counter() - t0
+    launches = {k: v for k, v in sk.VARIANT_LAUNCHES.items() if v}
+    kernel_ms = sum(out[k]["kernel_ms"] for k in ("20a", "20b", "20e"))
+    out.update({"launches": launches, "seconds": seconds,
+                "kernel_ms": kernel_ms,
+                "kernel_share": kernel_ms / 1e3 / window_s,
+                "reduced": {"nodes": [KM_NODES, CL_NODES],
+                            "pods_per_node": KM_PODS_PER_NODE,
+                            "quiet_pods": [CL_NODES, CL_QUIET_PODS],
+                            "chaos_s": [12.0, out["20c"]["seconds"]]},
+                "phase_s": window_s, "gc_s": gc_clock.s})
+    idle = [k for k in ("scan_full", "scan_delta") if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"20: kernels the cluster path never "
+                             f"launched: {idle}")
+    log(f"phase 20 cluster.py at {CL_NODES} hollow nodes: seconds by case "
+        f"{', '.join(f'{k} {v:.2f}' for k, v in seconds.items())}; launches "
+        f"{launches}; kernel {kernel_ms:.1f} ms (20a, 20b, 20e), "
+        f"{out['kernel_share']:.2%} of the phase's window; the garbage "
+        f"collector {gc_clock.s:.2f} s; 0 sync errors "
+        f"({out['sync_retries']} conflict retries); phase {window_s:.1f} s "
+        f"[{gpu}]")
+    return out, launches
+
+
 def ipa_ops(ipa, t) -> tuple:
     """The IPA branch's operations for one template-t pod, from the
     session's gate matrices: only the nonzero gate entries of the terms
@@ -9180,10 +10065,13 @@ def main() -> int:
         + f" (one nvcc each, in parallel; {time.perf_counter() - t0:.2f} s "
         "in all)")
 
-    marks = [("2", time.perf_counter())]
+    # the collector's seconds, read at each mark (its callbacks' start /
+    # stop pairs; open to the process's end)
+    gc_clock = GcClock().__enter__()
+    marks = [("2", time.perf_counter(), 0.0)]
 
     def mark(label):
-        marks.append((label, time.perf_counter()))
+        marks.append((label, time.perf_counter(), gc_clock.s))
 
     small = small_case()
     small_err = phase_small(small)
@@ -9246,11 +10134,16 @@ def main() -> int:
     gc.freeze()
     kubemark, km_launches = phase_kubemark(sk, gpu)                # 19
     mark("19")
+    plane, cl_launches = phase_cluster_plane(sk, gpu, km=kubemark)  # 20
+    mark("20")
     for k, v in (*pre_launches.items(), *matrix_launches.items()):
         loop_launches[k] = loop_launches.get(k, 0) + v
     log("seconds by phase: " + ", ".join(
         f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:]))
-        + f"; build and phases 3-19 {marks[-1][1] - t0:.1f}")
+        + f"; build and phases 3-20 {marks[-1][1] - t0:.1f}")
+    log("the garbage collector's seconds by phase: " + ", ".join(
+        f"{b[0]} {b[2] - a[2]:.1f}" for a, b in zip(marks, marks[1:]))
+        + f"; {marks[-1][2]:.1f} in all")
 
     zone["err"] = max(zone["err"], small_err)
     # scan_full_ipa reports its slower cell; `cells` keeps both cells'
@@ -9341,6 +10234,8 @@ def main() -> int:
                                     for v in variants)
         e["kubemark_launches"] = sum(km_launches.get(v, 0)
                                      for v in variants)
+        e["cluster_launches"] = sum(cl_launches.get(v, 0)
+                                    for v in variants)
     idle = [n for n in ("scan_full", "scan_full_ipa", "scan_delta")
             if not next(e for e in kernels if e["name"] == n)[
                 "backend_launches"]]
@@ -9373,6 +10268,13 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels the kubemark cluster never "
                              f"launched: {idle}")
+    # phase 20: the control plane cluster.py assembles
+    idle = [n for n in ("scan_full", "scan_delta")
+            if not next(e for e in kernels if e["name"] == n)[
+                "cluster_launches"]]
+    if idle:
+        raise AssertionError(f"kernels the cluster.py path never "
+                             f"launched: {idle}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"hoisted_session": hoisted}))
     log(json.dumps({"backend": backend}))
@@ -9383,6 +10285,7 @@ def main() -> int:
     log(json.dumps({"controllers": controllers}, default=str))
     log(json.dumps({"manager": manager}, default=str))
     log(json.dumps({"kubemark": kubemark}, default=str))
+    log(json.dumps({"cluster": plane}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
