@@ -2570,15 +2570,20 @@ def phase_log(gpu, n_max):
 
 
 def phase_hoisted(gpu, zone, pref, churn):
-    """Phase 11: the hoisted session (HoistedSession) on the card."""
+    """Phase 11: the hoisted session (HoistedSession) on the card. Each
+    cell settles what it left (`settle`) before the next."""
     out = {"11a": hoisted_vs_scan(gpu, zone["snapshot0"], zone["templates"],
                                   zone["batch"][:HOISTED_PODS],
                                   "11a zone spread 5000n", False)}
+    settle()
     out["11b"] = hoisted_vs_scan(gpu, pref["snapshot0"], pref["templates"],
                                  pref["batch0"], f"11b {pref['cell']}", True)
+    settle()
     out["11c"] = phase_host_ports(gpu)
+    settle()
     out["11d"] = phase_explain(gpu, zone["snapshot0"], zone["templates"],
                                zone["batch"][:EXPLAIN_PODS])
+    settle()
     out["11e"] = phase_hoisted_churn(gpu, zone, churn,
                                      churn["next_batch"][:HOISTED_PODS])
     n_max = max(int(zone["snapshot0"]["valid"].shape[0]),
@@ -2718,11 +2723,12 @@ class BackendRun:
 
     def run(self, batches, measured=False):
         """Every batch through the pipeline; returns the host window s.
-        A measured window starts after a collection and runs with the
-        collector off (a full pass over the run's objects takes longer
-        than a batch)."""
+        A measured window starts after a collection that leaves what
+        survives frozen (`settle`: the next window's collection does not
+        scan it again) and runs with the collector off (a full pass over
+        the run's objects takes longer than a batch)."""
         if measured:
-            gc.collect()
+            settle()
             gc.disable()
         t0 = time.perf_counter()
         try:
@@ -3255,7 +3261,8 @@ def phase_backend_faults(sk, gpu, zone, nodes, init_pods):
 
 def phase_backend(sk, gpu, zone, pref):
     """Phase 12: the backend on the card. Returns (numbers, launches per
-    kernel variant over 12a-12c plus 12e)."""
+    kernel variant over 12a-12c plus 12e). Each cell settles what it left
+    (`settle`) before the next."""
     from kubernetes_tpu_torch.testing.synth import synth_cluster
 
     nodes, init_pods = synth_cluster(5000, pods_per_node=2)
@@ -3264,9 +3271,13 @@ def phase_backend(sk, gpu, zone, pref):
     out["12a"], world, launches = phase_backend_zone(sk, gpu, zone, nodes,
                                                      init_pods)
     out["12a"]["warm"] = warm_compare(gpu)
+    settle()
     out["12b"] = phase_backend_affinity(sk, gpu, pref)
+    settle()
     out["12c"] = phase_backend_churn(sk, gpu, world, nodes)
+    settle()
     out["12d"] = phase_backend_host_ports(sk, gpu)
+    settle()
     out["12e"] = phase_backend_faults(sk, gpu, zone, nodes, init_pods)
     for got in (*launches, out["12b"]["launches"],
                 out["12c"]["launches"], out["12e"]["launches"]):
@@ -3849,6 +3860,7 @@ def phase_loop(sk, gpu):
     log(f"phase 13a: all {len(card)} bindings equal on the card and on the "
         f"CPU [{gpu}]")
     out["13a"] = a
+    settle()
     # 13b: Default-5000n-10k; the bindings against a schedule_many replay
     w = loop_workload(LOOP_DEFAULT, kernel_direct=True)
     b, bind_b, run_b, _, _ = loop_cell(sk, gpu, "13b", w)
@@ -3864,9 +3876,16 @@ def phase_loop(sk, gpu):
                              "measurement failed)")
     t1 = time.perf_counter()
     nodes, _ = Clientset(run_b.apis[-1]).nodes.list()
+    list_s = time.perf_counter() - t1
     batches = run_b.batches
+    # the rest of 13b's run (its apiserver's 16144 pods) is released and
+    # collected before the replay, out of replay_s (the node list and the
+    # replay): the replay's, 13d's and 13c's collections do not scan it
+    del run_b
+    settle()
+    t1 = time.perf_counter()
     replay = replay_bindings(batches, nodes)
-    b["replay_s"] = time.perf_counter() - t1
+    b["replay_s"] = list_s + time.perf_counter() - t1
     diff = sorted(k for k in bind_b if replay.get(k) != bind_b[k])
     b["replay_differs"] = len(diff)
     if diff:
@@ -3877,6 +3896,8 @@ def phase_loop(sk, gpu):
         f"backend's schedule_many replay of the loop's {len(batches)} "
         f"batches ({b['replay_s']:.2f} s) [{gpu}]")
     out["13b"] = b
+    del batches, nodes, replay
+    settle()
     # 13d: 13b with the flight recorder on, for its stage split, at
     # TRACED_PODS measured pods (the 900 s budget)
     d, _, _, _, _ = loop_cell(sk, gpu, "13d", loop_workload(
@@ -3885,6 +3906,7 @@ def phase_loop(sk, gpu):
     kernel_cell("13d", d)
     add(d["launches"])
     out["13d"] = d
+    settle()
     # 13c: the ladder drill through the loop
     reset_counts(sk)
     c = loop_drill("cuda")
@@ -4786,18 +4808,27 @@ def cand_key(c):
 
 class GcClock:
     """The seconds Python's garbage collector ran while it was open (its
-    `gc.callbacks` start / stop pairs)."""
+    `gc.callbacks` start / stop pairs), in all and in full collections
+    (generation 2; `full_n` of them)."""
 
     def __init__(self):
-        self.s = 0.0
+        self.s = self.full_s = 0.0
+        self.full_n = 0
         self._t0 = None
 
     def __call__(self, phase, info):
         if phase == "start":
             self._t0 = time.perf_counter()
         elif self._t0 is not None:
-            self.s += time.perf_counter() - self._t0
+            dt = time.perf_counter() - self._t0
+            self.s += dt
+            if info["generation"] == 2:
+                self.full_s += dt
+                self.full_n += 1
             self._t0 = None
+
+    def reading(self):
+        return self.s, self.full_s, self.full_n
 
     def __enter__(self):
         gc.callbacks.append(self)
@@ -4805,6 +4836,15 @@ class GcClock:
 
     def __exit__(self, *exc):
         gc.callbacks.remove(self)
+
+
+def settle():
+    """What the work so far left, collected and put out of the
+    collector's reach (`gc.freeze`), so that the collections of the work
+    after it do not scan it again. main() gives it back (`gc.unfreeze`)
+    before it releases the earlier sessions for phase 15."""
+    gc.collect()
+    gc.freeze()
 
 
 def whatif_world(point, affinity):
@@ -10068,10 +10108,10 @@ def main() -> int:
     # the collector's seconds, read at each mark (its callbacks' start /
     # stop pairs; open to the process's end)
     gc_clock = GcClock().__enter__()
-    marks = [("2", time.perf_counter(), 0.0)]
+    marks = [("2", time.perf_counter(), 0.0, 0.0, 0)]
 
     def mark(label):
-        marks.append((label, time.perf_counter(), gc_clock.s))
+        marks.append((label, time.perf_counter(), *gc_clock.reading()))
 
     small = small_case()
     small_err = phase_small(small)
@@ -10101,21 +10141,36 @@ def main() -> int:
     mark("9")
     probe_entries = phase_probes(gpu)                              # 10
     mark("10")
+    # before each of phases 11-13, what the earlier phases left is put out
+    # of the collector's reach (as before phase 19), so that the full
+    # collections those phases trigger do not scan it again and again
+    settle()
     hoisted = phase_hoisted(gpu, zone, aff[0], churn[0])           # 11
     mark("11")
+    settle()
     backend, backend_launches = phase_backend(sk, gpu, zone, aff[0])  # 12
     mark("12")
+    settle()
     loop, loop_launches, loop_bindings = phase_loop(sk, gpu)       # 13
     mark("13")
     preemption, whatif, pre_launches = phase_preemption(sk, gpu)   # 14
     mark("14")
-    # phase 15 runs after every earlier session is released
+    # phase 15 runs after every earlier session is released: the frozen
+    # heap goes back in the collector's reach first, or a session caught
+    # in a reference cycle would keep its device memory to the end
+    gc.unfreeze()
+    held = torch.cuda.memory_allocated()
     for d in (zone, *aff, tenants, *heavy, *churn):
         for k in [k for k, v in d.items()
                   if type(v).__name__.endswith("Session")]:
             del d[k]
     gc.collect()
+    log(f"before phase 15: {torch.cuda.memory_allocated() / 2**20:.1f} MiB"
+        f" allocated on the card after the earlier sessions' release "
+        f"({held / 2**20:.1f} MiB before it)")
     torch.cuda.empty_cache()
+    # and what is left, out of its reach again for phase 15a
+    gc.freeze()
     matrix = {"15a": phase_schedule_batch(gpu, zone)}             # 15a
     rows, matrix_launches = phase_matrix(sk, gpu, loop_bindings)   # 15b, c
     matrix.update(rows)
@@ -10144,6 +10199,9 @@ def main() -> int:
     log("the garbage collector's seconds by phase: " + ", ".join(
         f"{b[0]} {b[2] - a[2]:.1f}" for a, b in zip(marks, marks[1:]))
         + f"; {marks[-1][2]:.1f} in all")
+    log("of them in full collections (count / s): " + ", ".join(
+        f"{b[0]} {b[4] - a[4]} / {b[3] - a[3]:.1f}"
+        for a, b in zip(marks, marks[1:])))
 
     zone["err"] = max(zone["err"], small_err)
     # scan_full_ipa reports its slower cell; `cells` keeps both cells'

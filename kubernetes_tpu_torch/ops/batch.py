@@ -231,4 +231,5 @@ def schedule_batch(
         key,
         layout,
     )
+    # ktpu: allow-sync(harvest decode: the one-shot API returns its decisions as a host list by design)
     return [int(v) for v in ys["best"].cpu().tolist()], new_carry

@@ -911,6 +911,7 @@ def _step_multi(S: Dict, c_static: Dict, weights: Dict, dyn_ipa: bool,
         )
         util_conf = flip_row.any() | (over_row.any() & (score_spec >= 0))
         conflict = (same | pts_conf | ipa_conf | util_conf) & valid[i]
+        # ktpu: allow-sync(dispatch: the multi-pod step reads its conflict flag to choose the replay, one bool a step; only at multipod_k > 1, which the CUDA default never takes)
         if bool(conflict):
             _, t2, nf2, _ = _eval_pod(S, c_static, weights, dyn_ipa,
                                       dyn_ports, carry, tj)
@@ -1081,6 +1082,7 @@ def prepare_batch(pod_arrays_list: List[Dict], device
     return tp, batch_self, xs, templates
 
 
+# ktpu: allow-sync(harvest decode: one-shot API drains decisions to host lists by design)
 def schedule_batch_hoisted(
     cluster: Dict[str, torch.Tensor],
     pod_arrays_list: List[Dict],
@@ -1313,6 +1315,7 @@ class HoistedSession:
         return ys
 
     @staticmethod
+    # ktpu: allow-sync(harvest decode: host consumes batch verdicts after the launch completes)
     def decisions(ys: Dict) -> List[int]:
         """Wait for a batch's results and return node indices (-1 =
         unschedulable), padding rows stripped."""
@@ -1322,6 +1325,7 @@ class HoistedSession:
         return [int(v) for v in best[: ys.get("_b_real", len(best))]]
 
     @staticmethod
+    # ktpu: allow-sync(harvest decode: host reads conflict planes after the launch completes)
     def conflict_stats(ys: Dict):
         """(n_conflicts, replay_suffix_start) for one harvested batch. The
         hoisted scan replays conflicted pods in the step, so every
@@ -1333,6 +1337,7 @@ class HoistedSession:
         return int(c[: ys.get("_b_real", c.shape[0])].sum()), None
 
     @staticmethod
+    # ktpu: allow-sync(harvest decode: explain attribution is read back off the hot path)
     def explain_payload(ys: Dict):
         """Per-pod attribution from an explain-mode batch, or None when the
         batch ran with explain off. Padding rows stripped; each entry

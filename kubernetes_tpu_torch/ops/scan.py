@@ -657,6 +657,7 @@ class ScanSession:
             aff_valid=pad_tc(a_valid.astype(np.int32)),
         )
 
+    # ktpu: allow-sync(session build: packs static scalar rows on host before upload)
     def _pack_scalars(self, S) -> np.ndarray:
         # host mirror of the tables packed below: the sharded session
         # (ops/sharded_scan.py) reads them as structured tables
@@ -782,6 +783,7 @@ class ScanSession:
         return ys
 
     @staticmethod
+    # ktpu: allow-sync(harvest decode: host consumes batch verdicts after the launch completes)
     def decisions(ys) -> List[int]:
         return [int(v) for v in ys["rows"][0, :ys["n"]].tolist()]
 
@@ -792,6 +794,7 @@ class ScanSession:
         return None
 
     @staticmethod
+    # ktpu: allow-sync(harvest decode: host reads conflict planes after the launch completes)
     def conflict_stats(ys):
         """(n_conflicts, replay_suffix_start) from out row 3 (the
         reference's PallasSession.conflict_stats): the kernel leaves the
@@ -817,6 +820,7 @@ class ScanSession:
         """Local (best, score) per pod WITHOUT carry updates — every pod
         evaluated against the same carry state."""
         ys = self._dispatch_mode(pod_arrays_list, "eval")
+        # ktpu: allow-sync(harvest decode: evaluate returns its (best, score) rows as host lists by design)
         rows = ys["rows"][:2, :ys["n"]].tolist()
         return list(zip(rows[0], rows[1]))
 

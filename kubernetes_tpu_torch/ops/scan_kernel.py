@@ -326,6 +326,7 @@ def _cluster_size(cluster, UR: int, kmode: int) -> int:
     if cluster > 1 and not takes:
         raise ValueError(f"scan_full: cluster={cluster} needs mode 'full' "
                          "and mk=1")
+    # ktpu: allow-sync(host int: cluster is the launch's block-cluster size, never a tensor)
     return int(cluster)
 
 
@@ -450,6 +451,7 @@ def _floordiv(a, b):
     return torch.div(a, b, rounding_mode="floor")
 
 
+# ktpu: allow-sync(plain version: scan_full runs it in place of the launch on CPU tensors only; chip_smoke.py runs it to compare)
 def scan_full_reference(meta: torch.Tensor, match: torch.Tensor,
                         statics: Dict[str, torch.Tensor],
                         carry: Dict[str, torch.Tensor],

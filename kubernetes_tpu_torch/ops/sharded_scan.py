@@ -920,6 +920,7 @@ class ShardedScanSession:
         self.graph_replays += 1
         return out
 
+    # ktpu: allow-sync(harvest decode: the mesh's carries gathered to the host for parity checks, off the dispatch path)
     def gathered_carry(self) -> Dict[str, np.ndarray]:
         """The carries as host arrays over the whole node axis [rows,
         Nps] (kcnt: [UR, nsh], one partial column per shard)."""
@@ -1074,6 +1075,7 @@ class ShardedScanSession:
             for k, colv in g_cols.items():
                 arr = tree[k]
                 dim = specs[k].node_dim()
+                # ktpu: allow-sync(host column: colv is the queued delta's numpy column until this line uploads it)
                 colv = torch.from_numpy(np.asarray(colv)).to(arr.dtype)
                 arr.select(dim, local).copy_(colv.squeeze(dim).to(g.device))
 

@@ -233,6 +233,7 @@ class WhatifContext:
 
     # -- host-side per-template slices -------------------------------------
 
+    # ktpu: allow-sync(session build: the what-if context's pair-of-key table, read to the host once a context and cached)
     def pok_np(self) -> np.ndarray:
         if self._pok_np is None:
             self._pok_np = self._sess._c_static["pair_of_key"].cpu().numpy()
@@ -248,6 +249,7 @@ class WhatifContext:
             )
         return tj
 
+    # ktpu: allow-sync(session build: the what-if context's host slices, read once a context and template and cached)
     def np_slices(self, tj: int) -> Dict:
         got = self._np_cache.get(tj)
         if got is not None:
@@ -283,6 +285,7 @@ class WhatifContext:
                             self.dyn_ipa, self.dyn_ports)
             d = wk.table_dims(tab, tj, self.dyn_ipa, self.dyn_ports)
             tab.update(whatif_context(tab, d))
+            # ktpu: allow-sync(session build: whether a spread constraint is valid, read once a context and template with the cached invariants)
             any_f = bool(tab["f_valid"].cpu().any())
             got = self._tabs[tj] = (tab, d, any_f)
         return got
@@ -304,6 +307,7 @@ class WhatifContext:
                 h2d_bytes=devtime.payload_bytes((v, nom, pre)))
             ys = self._run_impl(tj, v, nom, pre)
             if self.device.type == "cuda":
+                # ktpu: allow-sync(devtime fence: the what-if launch is timed end to end inside its measurement window)
                 torch.cuda.current_stream(self.device).synchronize()
             lt.done(d2h_bytes=devtime.payload_bytes(ys))
             return ys
@@ -320,6 +324,7 @@ class WhatifContext:
         # allocator keeps it until the copy has run
         host = torch.empty(wk.layout(dims)[1], dtype=torch.uint8,
                            pin_memory=self.device.type == "cuda")
+        # ktpu: allow-sync(pinned host buffer: .numpy() is a view of host memory, no device copy)
         wk.pack(v, nom, pre, dims, host.numpy())
         buf = host.to(self.device, non_blocking=True)
         return whatif_device(tab, buf, dims)
@@ -335,6 +340,7 @@ class WhatifContext:
             torch.tensor(k, dtype=_I64, device=self.device), tj=tj,
             dyn_ports=self.dyn_ports,
         )
+        # ktpu: allow-sync(harvest decode: the gang check's one bool, read back after its reductions)
         return bool(out.cpu())
 
 

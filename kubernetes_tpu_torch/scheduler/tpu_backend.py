@@ -142,6 +142,7 @@ def _host_array(val) -> np.ndarray:
     return np.asarray(val)
 
 
+# ktpu: allow-sync(harvest decode: a batch's one readback, one .cpu() a leaf after its event)
 def _readback(ys):
     """A batch's payload with every tensor leaf read back to the host
     (one `.cpu()` each); host scalars ride along."""
@@ -615,6 +616,7 @@ class TPUBackend(CacheListener):
         with torch.cuda.stream(self._d2h):
             return _readback(ys)
 
+    # ktpu: allow-sync(devtime fence: the wait is the measurement, taken only with device timing on)
     def _sync_stream(self) -> None:
         """Wait for the backend's stream (the devtime fences)."""
         ev = self._record_event()

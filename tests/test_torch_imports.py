@@ -4,6 +4,7 @@ picker never falls back to the CPU unless asked."""
 
 import ast
 import difflib
+import json
 import os
 import subprocess
 import sys
@@ -81,6 +82,10 @@ VERBATIM = (
     "proxy/netpol.py", "proxy/__init__.py", "kubectl/cli.py",
     "kubectl/__init__.py", "testing/locks.py", "testing/invariants.py",
     "store/native.py", "testing/chaos.py", "cluster.py",
+    "utils/trace.py", "analysis/__init__.py", "analysis/core.py",
+    "analysis/decision_inert.py", "analysis/seam_pairing.py",
+    "analysis/lock_order.py", "analysis/host_sync.py",
+    "analysis/knob_registry.py",
 )
 # copies that carry a fix the reference lacks: the reference's text with
 # lines inserted and none changed or removed, each inserted hunk naming
@@ -95,6 +100,13 @@ PATCHED = {
                                     "on_update_pod_end"),
     # the schedulers' device (the card unless the caller names another)
     "cluster.py": ("device",),
+    # the lint's entry points, package and baseline comment name the port
+    "analysis/__init__.py": ("kubernetes_tpu_torch.analysis",),
+    "analysis/core.py": ("PACKAGE", "CLI"),
+    # PyTorch's host-sync sinks
+    "analysis/host_sync.py": ("torch", "TORCH"),
+    # the port's own knob table, a span of the README
+    "analysis/knob_registry.py": ("KNOB_TABLE",),
 }
 # the controllers, admission, kubeadm and the controller manager
 # (ROADMAP.md Queue 1, 10a-10c): all verbatim
@@ -115,10 +127,26 @@ CLUSTER_SLICE = ("testing/locks.py", "testing/invariants.py",
                  "store/native.py", "testing/chaos.py", "cluster.py")
 
 
+# the ktpu-lint and the threshold tracer (ROADMAP.md Queue 1, 10g):
+# verbatim but for the patched analysis modules; manifests.py (the port's
+# policy) and __main__.py (the CLI) are the port's own
+ANALYSIS_SLICE = ("utils/trace.py", "analysis/__init__.py",
+                  "analysis/core.py", "analysis/decision_inert.py",
+                  "analysis/seam_pairing.py", "analysis/lock_order.py",
+                  "analysis/host_sync.py", "analysis/knob_registry.py",
+                  "analysis/manifests.py", "analysis/__main__.py")
+
+
 # string constants that name the package but import nothing: the lock
 # sentinel cuts a lock's creation path at its first "kubernetes_tpu" (which
-# "kubernetes_tpu_torch/..." paths match too) to label it
-PATH_MARKERS = {"kubernetes_tpu_torch/testing/locks.py": ("kubernetes_tpu",)}
+# "kubernetes_tpu_torch/..." paths match too) to label it; the reference's
+# lint walks a directory named "kubernetes_tpu" (the port's copy walks its
+# own after it) and its checkers taint calls rooted at "jax", whose
+# fixtures the port's checkers read too
+PATH_MARKERS = {"kubernetes_tpu_torch/testing/locks.py": ("kubernetes_tpu",),
+                "kubernetes_tpu_torch/analysis/core.py": ("kubernetes_tpu",),
+                "kubernetes_tpu_torch/analysis/host_sync.py": ("jax",),
+                "kubernetes_tpu_torch/analysis/manifests.py": ("jax",)}
 
 
 def _forbidden(name: str) -> bool:
@@ -275,6 +303,35 @@ def test_cluster_slice_modules_are_checked():
     assert native.Conflict.__module__ == "kubernetes_tpu_torch.store.kv"
     assert Path(native._NATIVE_DIR).resolve() == ROOT / "native"
     assert chaos.ChaosMonkey.__module__ == "kubernetes_tpu_torch.testing.chaos"
+
+
+def test_analysis_slice_modules_are_checked():
+    """The lint's modules and the threshold tracer are among the sources
+    the two checks above read and import with jax and the reference
+    blocked; all but the port's policy and CLI are held to the reference's
+    text, four with inserted lines only; the lint reads the port's policy
+    and nothing of the reference's."""
+    assert len(ANALYSIS_SLICE) == 10
+    for rel in ANALYSIS_SLICE:
+        rel = f"kubernetes_tpu_torch/{rel}"
+        assert rel in PORT_SOURCES
+        mod = ".".join(Path(rel).with_suffix("").parts).removesuffix(
+            ".__init__")
+        assert mod in PORT_MODULES
+    own = ("analysis/manifests.py", "analysis/__main__.py")
+    assert [r for r in ANALYSIS_SLICE if r not in VERBATIM] == list(own)
+    assert sorted(r for r in ANALYSIS_SLICE if r in PATCHED) == [
+        "analysis/__init__.py", "analysis/core.py", "analysis/host_sync.py",
+        "analysis/knob_registry.py"]
+    assert json.loads((PORT / "analysis" / "baseline.json").read_text())[
+        "entries"] == {}
+    from kubernetes_tpu_torch.analysis import core, host_sync, manifests
+
+    assert core.manifests is manifests and host_sync.manifests is manifests
+    assert Path(core.ANALYSIS_DIR) == PORT / "analysis"
+    assert Path(core.CACHE_PATH).name == ".lint_cache.json"
+    assert core.CACHE_PATH != str(ROOT / "kubernetes_tpu" / "analysis" /
+                                  ".lint_cache.json")
 
 
 def test_compilation_cache_moves_the_build_dir(tmp_path, monkeypatch):
